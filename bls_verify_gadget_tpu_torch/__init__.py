@@ -1,0 +1,13 @@
+"""bls_verify_gadget_tpu_torch: the PyTorch/CUDA port of bls_verify_gadget_tpu.
+
+Batched BLS12-381 signature verification (ETH2 ciphersuite) on an NVIDIA
+Hopper card.  The field arithmetic runs through hand-written CUDA C++
+kernels (csrc/, built with nvcc on first use and loaded with ctypes); the
+tower, curve, hash and pairing layers are plain PyTorch over those kernels.
+Every tensor entry point runs on `cuda` unless the caller passes
+device="cpu", where each kernel's plain PyTorch version runs instead.
+
+The package imports torch, numpy and the standard library only.
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,48 @@
+"""Carry state across from the JAX package's numpy arrays.
+
+The JAX package keeps field elements as uint32 (..., nlimb) arrays of
+16-bit Montgomery limbs; the port keeps the same integers in torch.int32.
+These helpers take numpy arrays (e.g. np.asarray of the JAX package's
+encode_* outputs) and need nothing from that package.
+"""
+
+import numpy as np
+import torch
+
+from .models.bls import Params
+from .ops.fp import resolve_device
+
+
+def limbs_from_numpy(arr, device="cuda") -> torch.Tensor:
+    """uint32 (..., nlimb) limb array -> int32 tensor on `device`."""
+    arr = np.asarray(arr)
+    if arr.size and int(arr.max()) > 0xFFFF:
+        raise ValueError("limbs must be below 2^16")
+    return torch.from_numpy(arr.astype(np.int32)).to(resolve_device(device))
+
+
+def limbs_to_numpy(t) -> np.ndarray:
+    """int32 limb tensor -> uint32 numpy array (the JAX package's dtype)."""
+    return t.detach().cpu().numpy().astype(np.uint32)
+
+
+def params_from_numpy(g1_x, g1_y, device="cuda") -> Params:
+    """The port's Params from the JAX Params arrays (g1_x, g1_y)."""
+    return Params(limbs_from_numpy(g1_x, device), limbs_from_numpy(g1_y, device))
+
+
+def _tree(x, device):
+    if isinstance(x, (tuple, list)):
+        return tuple(_tree(v, device) for v in x)
+    arr = np.asarray(x)
+    if arr.dtype == np.bool_:
+        return torch.from_numpy(arr.copy()).to(resolve_device(device))
+    return limbs_from_numpy(arr, device)
+
+
+def batch_from_numpy(pk_aff, sig_aff, msg_u8, device="cuda"):
+    """The JAX package's encode_pubkeys / encode_signatures /
+    encode_messages outputs (as numpy) -> the port's (pk_aff, sig_aff,
+    msg_u8) on `device`."""
+    msg = torch.from_numpy(np.asarray(msg_u8).astype(np.uint8)).to(resolve_device(device))
+    return _tree(pk_aff, device), _tree(sig_aff, device), msg

@@ -1,0 +1,12 @@
+"""Device-path compute layers (PyTorch over hand-written CUDA kernels),
+batch-first.
+
+  limbs.py      host <-> limb conversion helpers
+  kernels.py    nvcc build, ctypes loader, one wrapper per CUDA kernel
+  fp.py         Fp/Fr Montgomery arithmetic (+ plain mul/add/sub)
+  tower.py      Fp2/Fp6/Fp12 extension towers (+ plain fp2 mul/sqr)
+  curve.py      G1/G2 Jacobian point ops, subgroup checks, cofactor
+  sha256.py     batched SHA-256
+  hash_to_g2.py XMD + hash_to_field + SSWU + isogeny + cofactor
+  pairing.py    Miller loop + final exponentiation
+"""

@@ -1,0 +1,306 @@
+"""G1/G2 Jacobian point ops, batch-first and branch-free (counterpart of the
+JAX package's ops/curve.py).
+
+Points are Jacobian (X, Y, Z) with Z == 0 encoding infinity; coordinates
+are Fp limb tensors for G1 and Fp2 pairs for G2.  All ops are complete
+(exceptional cases resolved with cmov).  Neither E(Fp) nor E'(Fp2) has
+2-torsion, so Y != 0 for every finite point and doubling is complete.
+
+Constant-scalar ladders use the static run structure (doubling runs plus
+one addition per set bit), the form the JAX package runs on its
+accelerator; Python loops replace its lax.scan.
+"""
+
+import torch
+
+from .. import constants as C
+from .fp import FP
+from . import tower as T
+
+
+class _FpOps:
+    """Coordinate-field adapter: Fp."""
+    name = "fp"
+
+    add = staticmethod(FP.add)
+    sub = staticmethod(FP.sub)
+    neg = staticmethod(FP.neg)
+    sqr = staticmethod(FP.sqr)
+    cmov = staticmethod(FP.cmov)
+    is_zero = staticmethod(FP.is_zero)
+    eq = staticmethod(FP.eq)
+    inv = staticmethod(FP.inv)
+    mul_pairs = staticmethod(T._mul_many)
+    zero_like = staticmethod(torch.zeros_like)
+    one_like = staticmethod(FP.one_like)
+
+    @staticmethod
+    def const(x, like):
+        return FP.constant(x, like.device).expand(like.shape)
+
+
+class _Fp2Ops:
+    """Coordinate-field adapter: Fp2."""
+    name = "fp2"
+
+    add = staticmethod(T.fp2_add)
+    sub = staticmethod(T.fp2_sub)
+    neg = staticmethod(T.fp2_neg)
+    sqr = staticmethod(T.fp2_sqr)
+    cmov = staticmethod(T.fp2_cmov)
+    is_zero = staticmethod(T.fp2_is_zero)
+    eq = staticmethod(T.fp2_eq)
+    inv = staticmethod(T.fp2_inv)
+    mul_pairs = staticmethod(T.fp2_mul_pairs)
+    zero_like = staticmethod(T.fp2_zero_like)
+    one_like = staticmethod(T.fp2_one_like)
+    const = staticmethod(T._bcast)
+
+
+FP_OPS = _FpOps()
+FP2_OPS = _Fp2Ops()
+
+
+# ----------------------------------------------------------------------------
+# generic Jacobian ops
+# ----------------------------------------------------------------------------
+
+def pt_infinity_like(ops, p):
+    x, y, z = p
+    return (ops.one_like(x), ops.one_like(y), ops.zero_like(z))
+
+
+def pt_is_infinity(ops, p):
+    return ops.is_zero(p[2])
+
+
+def pt_neg(ops, p):
+    return (p[0], ops.neg(p[1]), p[2])
+
+
+def pt_cmov(ops, cond, p, q):
+    return tuple(ops.cmov(cond, a, b) for a, b in zip(p, q))
+
+
+def pt_double(ops, p):
+    """Complete Jacobian doubling for a = 0 curves.  Infinity stays
+    infinity because Z3 = 2 Y Z."""
+    x, y, z = p
+    a_, b_, c_ = ops.mul_pairs([(x, x), (y, y), (z, z)])   # XX, YY, ZZ
+    (d_,) = ops.mul_pairs([(b_, b_)])                      # YYYY
+    # S = 2*((X+YY)^2 - XX - YYYY)
+    t = ops.sqr(ops.add(x, b_))
+    s = ops.sub(ops.sub(t, a_), d_)
+    s = ops.add(s, s)
+    # M = 3*XX (a = 0)
+    m = ops.add(ops.add(a_, a_), a_)
+    # X3 = M^2 - 2S
+    x3 = ops.sub(ops.sqr(m), ops.add(s, s))
+    # Y3 = M*(S - X3) - 8*YYYY
+    d8 = ops.add(d_, d_)
+    d8 = ops.add(d8, d8)
+    d8 = ops.add(d8, d8)
+    (my,) = ops.mul_pairs([(m, ops.sub(s, x3))])
+    y3 = ops.sub(my, d8)
+    # Z3 = (Y+Z)^2 - YY - ZZ  (= 2YZ)
+    z3 = ops.sub(ops.sub(ops.sqr(ops.add(y, z)), b_), c_)
+    return (x3, y3, z3)
+
+
+def pt_add(ops, p, q):
+    """Complete Jacobian addition: generic add, with doubling / infinity /
+    inverse cases resolved by cmov."""
+    x1, y1, z1 = p
+    x2, y2, z2 = q
+    z1z1, z2z2 = ops.mul_pairs([(z1, z1), (z2, z2)])
+    u1, u2, t1, t2 = ops.mul_pairs([
+        (x1, z2z2), (x2, z1z1), (y1, z2z2), (y2, z1z1),
+    ])
+    s1, s2 = ops.mul_pairs([(t1, z2), (t2, z1)])
+    h = ops.sub(u2, u1)
+    r = ops.sub(s2, s1)
+    hh = ops.sqr(h)
+    hhh, v = ops.mul_pairs([(h, hh), (u1, hh)])
+    rr = ops.sqr(r)
+    x3 = ops.sub(ops.sub(rr, hhh), ops.add(v, v))
+    (ry,) = ops.mul_pairs([(r, ops.sub(v, x3))])
+    (s1hhh,) = ops.mul_pairs([(s1, hhh)])
+    y3 = ops.sub(ry, s1hhh)
+    (z1z2,) = ops.mul_pairs([(z1, z2)])
+    (z3,) = ops.mul_pairs([(z1z2, h)])
+    res = (x3, y3, z3)
+
+    h_zero = ops.is_zero(h)
+    r_zero = ops.is_zero(r)
+    # P == Q -> double; P == -Q -> infinity
+    res = pt_cmov(ops, h_zero & r_zero, pt_double(ops, p), res)
+    res = pt_cmov(ops, h_zero & ~r_zero, pt_infinity_like(ops, p), res)
+    # identity cases
+    p_inf = pt_is_infinity(ops, p)
+    q_inf = pt_is_infinity(ops, q)
+    res = pt_cmov(ops, p_inf, q, res)
+    res = pt_cmov(ops, q_inf & ~p_inf, p, res)
+    return res
+
+
+def pt_to_affine(ops, p):
+    """Jacobian -> affine (x, y, is_infinity).  Infinity maps to (0, 0)."""
+    x, y, z = p
+    zi = ops.inv(z)  # 0 -> 0
+    zi2 = ops.sqr(zi)
+    (zi3,) = ops.mul_pairs([(zi2, zi)])
+    ax, ay = ops.mul_pairs([(x, zi2), (y, zi3)])
+    return ax, ay, pt_is_infinity(ops, p)
+
+
+def pt_from_affine(ops, x, y, is_inf=None):
+    """Affine -> Jacobian; optional is_inf mask selects Z = 0."""
+    z = ops.one_like(x)
+    if is_inf is not None:
+        z = ops.cmov(is_inf, ops.zero_like(x), z)
+    return (x, y, z)
+
+
+def pt_on_curve_affine(ops, x, y, b):
+    """y^2 == x^3 + b for affine coordinates (b in Montgomery form,
+    broadcast to x)."""
+    yy, xx = ops.mul_pairs([(y, y), (x, x)])
+    (xxx,) = ops.mul_pairs([(xx, x)])
+    return ops.eq(yy, ops.add(xxx, b))
+
+
+def pt_eq(ops, p, q):
+    """Projective equality: X1 Z2^2 == X2 Z1^2 and Y1 Z2^3 == Y2 Z1^3,
+    plus matching infinity flags."""
+    x1, y1, z1 = p
+    x2, y2, z2 = q
+    z1z1, z2z2 = ops.mul_pairs([(z1, z1), (z2, z2)])
+    a_, b_ = ops.mul_pairs([(x1, z2z2), (x2, z1z1)])
+    t1, t2 = ops.mul_pairs([(y1, z2z2), (y2, z1z1)])
+    c_, d_ = ops.mul_pairs([(t1, z2), (t2, z1)])
+    p_inf = pt_is_infinity(ops, p)
+    q_inf = pt_is_infinity(ops, q)
+    finite_eq = ops.eq(a_, b_) & ops.eq(c_, d_) & ~p_inf & ~q_inf
+    return finite_eq | (p_inf & q_inf)
+
+
+# ----------------------------------------------------------------------------
+# scalar multiplication
+# ----------------------------------------------------------------------------
+
+def run_segments(scalar: int):
+    """The MSB-first run structure of a positive scalar after its top bit:
+    [(run_len, ends_on_set_bit), ...]."""
+    segs, run = [], 0
+    for bit in bin(scalar)[3:]:
+        run += 1
+        if bit == "1":
+            segs.append((run, True))
+            run = 0
+    if run:
+        segs.append((run, False))
+    return segs
+
+
+def pt_mul_const(ops, p, scalar: int):
+    """p * scalar for a host-constant non-negative scalar: doubling runs
+    plus one complete addition per set bit (static bit pattern)."""
+    if scalar == 0:
+        return pt_infinity_like(ops, p)
+    acc = p  # top set bit
+    for run, add in run_segments(scalar):
+        for _ in range(run):
+            acc = pt_double(ops, acc)
+        if add:
+            acc = pt_add(ops, acc, p)
+    return acc
+
+
+# ----------------------------------------------------------------------------
+# G1/G2 specific: endomorphisms, subgroup checks, cofactor clearing
+# ----------------------------------------------------------------------------
+
+def g1_phi(p):
+    """GLV endomorphism (beta x, y) on Jacobian coords: scales X only."""
+    x, y, z = p
+    (bx,) = FP_OPS.mul_pairs([(x, FP_OPS.const(C.BETA_G1, x))])
+    return (bx, y, z)
+
+
+def g2_psi(p):
+    """psi(x, y) = (PSI_X conj(x), PSI_Y conj(y)) on Jacobian coords:
+    X' = cx conj(X), Y' = cy conj(Y), Z' = conj(Z)."""
+    x, y, z = p
+    rx, ry = T.fp2_mul_pairs([
+        (T.fp2_conj(x), T._bcast(C.PSI_X, x)),
+        (T.fp2_conj(y), T._bcast(C.PSI_Y, y)),
+    ])
+    return (rx, ry, T.fp2_conj(z))
+
+
+def g2_psi2(p):
+    """psi^2 (x, y) = (PSI2_X x, -y)."""
+    x, y, z = p
+    rx = T.fp2_muls(x, FP_OPS.const(C.PSI2_X_C0, x[0]))
+    return (rx, T.fp2_neg(y), z)
+
+
+def g1_in_subgroup(p):
+    """[|x|]([|x|]P) == -phi(P)."""
+    xxp = pt_mul_const(FP_OPS, pt_mul_const(FP_OPS, p, C.ABS_X), C.ABS_X)
+    return pt_eq(FP_OPS, xxp, pt_neg(FP_OPS, g1_phi(p)))
+
+
+def g2_in_subgroup(p):
+    """psi(Q) == [x]Q, i.e. psi(Q) == -[|x|]Q."""
+    xq = pt_mul_const(FP2_OPS, p, C.ABS_X)
+    return pt_eq(FP2_OPS, g2_psi(p), pt_neg(FP2_OPS, xq))
+
+
+def g2_clear_cofactor(p):
+    """Budroni-Pintore: [x^2 - x - 1]P + [x - 1]psi(P) + psi2(2P)."""
+    xp = pt_neg(FP2_OPS, pt_mul_const(FP2_OPS, p, C.ABS_X))       # [x]P
+    xxp = pt_neg(FP2_OPS, pt_mul_const(FP2_OPS, xp, C.ABS_X))     # [x^2]P
+    t = pt_add(FP2_OPS, xxp, pt_neg(FP2_OPS, xp))
+    t = pt_add(FP2_OPS, t, pt_neg(FP2_OPS, p))                    # [x^2-x-1]P
+    t2 = g2_psi(pt_add(FP2_OPS, xp, pt_neg(FP2_OPS, p)))          # psi([x-1]P)
+    t3 = g2_psi2(pt_double(FP2_OPS, p))                           # psi2(2P)
+    return pt_add(FP2_OPS, pt_add(FP2_OPS, t, t2), t3)
+
+
+# ----------------------------------------------------------------------------
+# host conversions
+# ----------------------------------------------------------------------------
+
+def g1_encode_batch(points, device="cuda"):
+    """Host affine points (int tuples, None = infinity) -> device Jacobian."""
+    xs = [0 if p is None else p[0] for p in points]
+    ys = [1 if p is None else p[1] for p in points]
+    zs = [0 if p is None else 1 for p in points]
+    return tuple(FP.encode(v, device) for v in (xs, ys, zs))
+
+
+def g2_encode_batch(points, device="cuda"):
+    xs = [(0, 0) if p is None else p[0] for p in points]
+    ys = [(1, 0) if p is None else p[1] for p in points]
+    zs = [(0, 0) if p is None else (1, 0) for p in points]
+    return tuple(T.fp2_encode_batch(v, device) for v in (xs, ys, zs))
+
+
+def _decode_affine(ops, p):
+    ax, ay, inf = pt_to_affine(ops, p)
+    if ops.name == "fp2":
+        xs = list(zip(FP.decode(ax[0]), FP.decode(ax[1])))
+        ys = list(zip(FP.decode(ay[0]), FP.decode(ay[1])))
+    else:
+        xs, ys = FP.decode(ax), FP.decode(ay)
+    return [None if i else (x, y) for x, y, i in zip(xs, ys, inf.tolist())]
+
+
+def g1_decode(p):
+    """Device Jacobian batch (B,) -> list of host affine points."""
+    return _decode_affine(FP_OPS, p)
+
+
+def g2_decode(p):
+    return _decode_affine(FP2_OPS, p)

@@ -1,0 +1,89 @@
+"""Package rules of the PyTorch/CUDA port (bls_verify_gadget_tpu_torch):
+it imports neither JAX nor the JAX package, builds nothing at import, and
+its entry points run on the card unless given device="cpu" -- without a
+card they raise instead of falling back."""
+
+import os
+import pathlib
+import subprocess
+import sys
+
+import pytest
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+
+_PROBE = """
+import sys
+import bls_verify_gadget_tpu_torch
+from bls_verify_gadget_tpu_torch import convert
+from bls_verify_gadget_tpu_torch.models import bls
+from bls_verify_gadget_tpu_torch.ops import curve, hash_to_g2, kernels, pairing, sha256, tower
+from bls_verify_gadget_tpu_torch.golden import codec
+from bls_verify_gadget_tpu_torch.ops.fp import FP
+a = FP.encode([3, 5], "cpu")
+assert FP.decode(FP.mul(a, a)) == [9, 25]
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "bls_verify_gadget_tpu"))
+print("BAD", bad)
+print("LOADED", kernels._lib is not None)
+"""
+
+
+def test_port_imports_no_jax_and_builds_nothing():
+    res = subprocess.run(
+        [sys.executable, "-c", _PROBE], cwd=ROOT, capture_output=True, text=True,
+        timeout=300, env={**os.environ, "PYTHONPATH": str(ROOT)},
+    )
+    assert res.returncode == 0, res.stderr
+    assert "BAD []" in res.stdout, res.stdout
+    assert "LOADED False" in res.stdout, res.stdout
+
+
+def test_source_imports_no_jax():
+    pkg = ROOT / "bls_verify_gadget_tpu_torch"
+    sources = [p for p in pkg.rglob("*.py") if p.relative_to(pkg).parts[0] != "build"]
+    for path in sources + [ROOT / "chip_smoke.py"]:
+        for line in path.read_text().splitlines():
+            words = line.split()
+            if words[:1] in (["import"], ["from"]):
+                assert not words[1].startswith(("jax", "bls_verify_gadget_tpu.")), (path, line)
+                assert words[1] != "bls_verify_gadget_tpu", (path, line)
+
+
+def test_entry_points_need_a_card_unless_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; this checks the no-card behaviour")
+    from bls_verify_gadget_tpu_torch.models.bls import BatchedBLS, encode_messages
+    from bls_verify_gadget_tpu_torch.ops import curve as CV
+    from bls_verify_gadget_tpu_torch.ops import tower as T
+    from bls_verify_gadget_tpu_torch.ops.fp import FP
+
+    for call in (
+        BatchedBLS,
+        lambda: encode_messages([b"ab"]),
+        lambda: FP.encode([3]),
+        lambda: T.fp2_encode((1, 2)),
+        lambda: CV.g1_encode_batch([None]),
+        lambda: CV.g2_encode_batch([None]),
+    ):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    assert BatchedBLS(device="cpu").device.type == "cpu"
+
+
+def test_kernel_wrappers_do_not_fall_back():
+    """A tensor that is neither on the CPU nor on a card is refused; the
+    plain version runs only for CPU tensors."""
+    from bls_verify_gadget_tpu_torch.ops import kernels as K
+    from bls_verify_gadget_tpu_torch.ops.fp import FP
+
+    a = FP.encode([7, 11], "cpu").to("meta")
+    for call in (
+        lambda: K.add(FP, a, a),
+        lambda: K.sub(FP, a, a),
+        lambda: K.fp2_mul(FP, a, a, a, a),
+        lambda: K.fp2_sqr(FP, a, a),
+    ):
+        with pytest.raises(ValueError):
+            call()
