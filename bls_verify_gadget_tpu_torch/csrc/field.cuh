@@ -22,6 +22,15 @@ struct Modulus {
   uint32_t n0;
 };
 
+// Host side: the kernel parameter from the host word array and n0.
+template <int NW>
+inline Modulus<NW> make_modulus(const uint32_t* p, uint32_t n0) {
+  Modulus<NW> M;
+  for (int j = 0; j < NW; ++j) M.p[j] = p[j];
+  M.n0 = n0;
+  return M;
+}
+
 template <int NW>
 __device__ __forceinline__ void load_words(const int32_t* __restrict__ row,
                                            uint32_t (&w)[NW]) {

@@ -31,13 +31,7 @@ namespace {
 
 constexpr int kThreads = 128;
 
-template <int NW>
-bls::Modulus<NW> make_modulus(const uint32_t* p, uint32_t n0) {
-  bls::Modulus<NW> M;
-  for (int j = 0; j < NW; ++j) M.p[j] = p[j];
-  M.n0 = n0;
-  return M;
-}
+using bls::make_modulus;
 
 inline unsigned grid_for(long long n) {
   return (unsigned)((n + kThreads - 1) / kThreads);

@@ -1,0 +1,288 @@
+// The port's pairing kernels for Hopper (sm_90a), with a plain C interface
+// loaded through ctypes by ops/kernels.py: the Fp12 product and square,
+// the Miller loop's doubling runs and addition blocks, and the final
+// exponentiation's whole exp-by-|x| chain.
+//
+// Layout.  Every kernel reads ONE packed operand buffer and writes one
+// packed output buffer, both (c, n, 24) int32: coordinate j of batch
+// element i is the 24-limb row at ((j * n) + i) * 24, 16-bit Montgomery
+// limbs as in field_kernels.cu.  An Fp12 is 12 coordinates in
+// coefficient-major order (c0.c0.re, c0.c0.im, ..., c1.c2.im).  The Miller
+// kernels also take the pairs' valid masks as (k, n) int32.
+//
+// What bounds them, and the design.  One thread runs one batch element
+// through the whole fused body (tower.cuh), so device memory sees only the
+// operands and the results: 96 bytes per Fp coordinate in or out against
+// ~600 32-bit multiply-adds per Montgomery product.  Every kernel here is
+// therefore bound by operations, not bytes (the notes per kernel give the
+// two bounds per element at 3.35 TB/s and 16.75 T int32 multiply-adds/s).
+// What the design buys is launches: the Miller loop is 11 launches and an
+// x-chain one, where the composed path issued thousands of field launches.
+// It does not reach the operation bound: a thread's Montgomery products
+// run one after another, its state (f alone is 144 words) lives mostly in
+// local memory behind __noinline__ calls, and at 4096 elements the 32-thread
+// blocks put one warp on each of 128 SMs.  A warp-cooperative limb layout
+// that keeps more warps busy is later work.
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+#include "tower.cuh"
+
+namespace {
+
+// One warp per block: at the main path's 4096 elements, 128 blocks spread
+// over 128 of the 132 SMs instead of stacking 2-4 warps on a quarter of them.
+constexpr int kThreads = 32;
+constexpr int kLimbs = 2 * bls::kFpWords;
+constexpr int kPairs = 2;  // pairs per Miller launch (ops/kernels.py PAIRS)
+constexpr int kMaxSegments = 64;  // runs of a 64-bit exponent
+
+inline unsigned grid_for(long long n) {
+  return (unsigned)((n + kThreads - 1) / kThreads);
+}
+
+}  // namespace
+
+// The runs of the exponent after its top bit, by value in the parameter
+// bank: segment s squares len[s] times, then multiplies by m iff mul[s].
+struct ExpSegments {
+  int count;
+  int len[kMaxSegments];
+  int mul[kMaxSegments];
+};
+
+namespace bls_kernels {
+
+using bls::Fp;
+using bls::Fp12;
+using bls::Fp2;
+using bls::FpModulus;
+using bls::G2Proj;
+using bls::Line;
+
+__device__ __forceinline__ Fp load_fp(const int32_t* buf, int j, long long n,
+                                      long long i) {
+  Fp r;
+  bls::load_words<bls::kFpWords>(buf + ((long long)j * n + i) * kLimbs, r.w);
+  return r;
+}
+
+__device__ __forceinline__ Fp2 load_fp2(const int32_t* buf, int j,
+                                        long long n, long long i) {
+  return {load_fp(buf, j, n, i), load_fp(buf, j + 1, n, i)};
+}
+
+__device__ __forceinline__ Fp12 load_fp12(const int32_t* buf, int j,
+                                          long long n, long long i) {
+  return {{load_fp2(buf, j, n, i), load_fp2(buf, j + 2, n, i),
+           load_fp2(buf, j + 4, n, i)},
+          {load_fp2(buf, j + 6, n, i), load_fp2(buf, j + 8, n, i),
+           load_fp2(buf, j + 10, n, i)}};
+}
+
+__device__ __forceinline__ void store_fp(int32_t* buf, int j, long long n,
+                                         long long i, const Fp& a) {
+  bls::store_words<bls::kFpWords>(buf + ((long long)j * n + i) * kLimbs, a.w);
+}
+
+__device__ __forceinline__ void store_fp2(int32_t* buf, int j, long long n,
+                                          long long i, const Fp2& a) {
+  store_fp(buf, j, n, i, a.c0);
+  store_fp(buf, j + 1, n, i, a.c1);
+}
+
+__device__ __forceinline__ void store_fp12(int32_t* buf, int j, long long n,
+                                           long long i, const Fp12& a) {
+  store_fp2(buf, j, n, i, a.c0.c0);
+  store_fp2(buf, j + 2, n, i, a.c0.c1);
+  store_fp2(buf, j + 4, n, i, a.c0.c2);
+  store_fp2(buf, j + 6, n, i, a.c1.c0);
+  store_fp2(buf, j + 8, n, i, a.c1.c1);
+  store_fp2(buf, j + 10, n, i, a.c1.c2);
+}
+
+__device__ __forceinline__ G2Proj load_point(const int32_t* buf, int j,
+                                             long long n, long long i) {
+  return {load_fp2(buf, j, n, i), load_fp2(buf, j + 2, n, i),
+          load_fp2(buf, j + 4, n, i)};
+}
+
+__device__ __forceinline__ void store_point(int32_t* buf, int j, long long n,
+                                            long long i, const G2Proj& t) {
+  store_fp2(buf, j, n, i, t.X);
+  store_fp2(buf, j + 2, n, i, t.Y);
+  store_fp2(buf, j + 4, n, i, t.Z);
+}
+
+// Replaces _fp12mul_kernel (bls_verify_gadget_tpu/ops/pallas/kernels.py:584):
+// in (24, n) = a then b, out (12, n).  54 Montgomery products, 36 Fp in or
+// out per element: ~1.9 ns of operations against ~1.0 ns of bytes.
+__global__ void __launch_bounds__(kThreads)
+    fp12_mul_kernel(const int32_t* __restrict__ in, int32_t* __restrict__ out,
+                    long long n, FpModulus M) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  store_fp12(out, 0, n, i,
+             bls::f12_mul(load_fp12(in, 0, n, i), load_fp12(in, 12, n, i), M));
+}
+
+// Replaces _fp12sqr_kernel (kernels.py:596): in (12, n), out (12, n).  36
+// Montgomery products, 24 Fp per element: ~1.3 ns of operations against
+// ~0.7 ns of bytes.
+__global__ void __launch_bounds__(kThreads)
+    fp12_sqr_kernel(const int32_t* __restrict__ in, int32_t* __restrict__ out,
+                    long long n, FpModulus M) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  store_fp12(out, 0, n, i, bls::f12_sqr(load_fp12(in, 0, n, i), M));
+}
+
+// Replaces _millerdbl_kernel (kernels.py:1494): `count` iterations of
+// [f <- f^2; per pair in order: T, line <- dbl_step(T); f <- f * line].
+// in (12 + 8k, n) = f, then per pair X, Y, Z (Fp2 each), xp, yp; out
+// (12 + 6k, n) = f, then per pair X, Y, Z.  An invalid pair's line is the
+// neutral (1, 0, 0), whose product leaves f's limbs as they are, so the
+// kernel skips that product.  Montgomery products per iteration: 36 for
+// f^2, per pair 25 for the step (19 for T, 6 for the line) and 45 for
+// f * line where the pair is valid.  An invalid pair needs only its 19, so
+// the bound counts 36 + 19k + 51 per valid pair (176 with both valid:
+// ~6.3 ns per element and iteration of operations against ~1.5 ns of bytes
+// for the whole launch).
+__global__ void __launch_bounds__(kThreads)
+    miller_dbl_run_kernel(const int32_t* __restrict__ in,
+                          const int32_t* __restrict__ valid,
+                          int32_t* __restrict__ out, long long n, int count,
+                          FpModulus M) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  Fp12 f = load_fp12(in, 0, n, i);
+  G2Proj t[kPairs];
+  Fp xp[kPairs], yp[kPairs];
+  bool ok[kPairs];
+#pragma unroll
+  for (int p = 0; p < kPairs; ++p) {
+    const int b = 12 + 8 * p;
+    t[p] = load_point(in, b, n, i);
+    xp[p] = load_fp(in, b + 6, n, i);
+    yp[p] = load_fp(in, b + 7, n, i);
+    ok[p] = valid[p * n + i] != 0;
+  }
+  for (int it = 0; it < count; ++it) {
+    f = bls::f12_sqr(f, M);
+#pragma unroll
+    for (int p = 0; p < kPairs; ++p) {
+      const Line l = bls::miller_dbl_step(t[p], xp[p], yp[p], M);
+      if (ok[p]) f = bls::f12_mul_014(f, l, M);
+    }
+  }
+  store_fp12(out, 0, n, i, f);
+#pragma unroll
+  for (int p = 0; p < kPairs; ++p) store_point(out, 12 + 6 * p, n, i, t[p]);
+}
+
+// Replaces _milleradd_kernel (kernels.py:1537): per pair in order,
+// T, line <- add_step(T, Q); f <- f * line (skipped where the pair is
+// invalid, as above).  in (12 + 12k, n) = f, then per pair X, Y, Z, xq, yq
+// (Fp2 each), xp, yp; out (12 + 6k, n).  Montgomery products per pair: 41
+// for the step (31 for T, 10 for the line) and 45 for f * line where the
+// pair is valid; the bound counts 31 per pair and 55 per valid pair (172
+// with both valid: ~6.2 ns of operations against ~1.7 ns of bytes per
+// element).
+__global__ void __launch_bounds__(kThreads)
+    miller_add_kernel(const int32_t* __restrict__ in,
+                      const int32_t* __restrict__ valid,
+                      int32_t* __restrict__ out, long long n, FpModulus M) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  Fp12 f = load_fp12(in, 0, n, i);
+#pragma unroll
+  for (int p = 0; p < kPairs; ++p) {
+    const int b = 12 + 12 * p;
+    G2Proj t = load_point(in, b, n, i);
+    const Line l =
+        bls::miller_add_step(t, load_fp2(in, b + 6, n, i),
+                             load_fp2(in, b + 8, n, i),
+                             load_fp(in, b + 10, n, i),
+                             load_fp(in, b + 11, n, i), M);
+    if (valid[p * n + i] != 0) f = bls::f12_mul_014(f, l, M);
+    store_point(out, 12 + 6 * p, n, i, t);
+  }
+  store_fp12(out, 0, n, i, f);
+}
+
+// Replaces _expx_kernel (kernels.py:1446): m^e for the exponent whose runs
+// are `segs`, from f = m at its top bit; per segment len Granger-Scott
+// squares, then f <- f * m where it ends on a set bit (a uniform branch:
+// every thread takes the same one).  Right only for cyclotomic m; the
+// caller conjugates for x < 0.  in (12, n), out (12, n).  For |x|: 63
+// squares and 5 products, 1,404 Montgomery products: ~50 ns of operations
+// against ~0.7 ns of bytes per element.
+__global__ void __launch_bounds__(kThreads)
+    exp_x_kernel(const int32_t* __restrict__ in, int32_t* __restrict__ out,
+                 long long n, FpModulus M, ExpSegments segs) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const Fp12 m = load_fp12(in, 0, n, i);
+  Fp12 f = m;
+  for (int s = 0; s < segs.count; ++s) {
+    for (int r = 0; r < segs.len[s]; ++r) f = bls::f12_cyclotomic_sqr(f, M);
+    if (segs.mul[s]) f = bls::f12_mul(f, m, M);
+  }
+  store_fp12(out, 0, n, i, f);
+}
+
+}  // namespace bls_kernels
+
+extern "C" {
+
+int bls_fp12_mul(const int32_t* in, int32_t* out, long long n,
+                 const uint32_t* p, unsigned n0, void* stream) {
+  bls_kernels::fp12_mul_kernel<<<grid_for(n), kThreads, 0,
+                                 (cudaStream_t)stream>>>(
+      in, out, n, bls::make_modulus<bls::kFpWords>(p, n0));
+  return (int)cudaGetLastError();
+}
+
+int bls_fp12_sqr(const int32_t* in, int32_t* out, long long n,
+                 const uint32_t* p, unsigned n0, void* stream) {
+  bls_kernels::fp12_sqr_kernel<<<grid_for(n), kThreads, 0,
+                                 (cudaStream_t)stream>>>(
+      in, out, n, bls::make_modulus<bls::kFpWords>(p, n0));
+  return (int)cudaGetLastError();
+}
+
+int bls_miller_dbl_run(const int32_t* in, const int32_t* valid, int32_t* out,
+                       long long n, int count, const uint32_t* p, unsigned n0,
+                       void* stream) {
+  bls_kernels::miller_dbl_run_kernel<<<grid_for(n), kThreads, 0,
+                                       (cudaStream_t)stream>>>(
+      in, valid, out, n, count, bls::make_modulus<bls::kFpWords>(p, n0));
+  return (int)cudaGetLastError();
+}
+
+int bls_miller_add(const int32_t* in, const int32_t* valid, int32_t* out,
+                   long long n, const uint32_t* p, unsigned n0, void* stream) {
+  bls_kernels::miller_add_kernel<<<grid_for(n), kThreads, 0,
+                                   (cudaStream_t)stream>>>(
+      in, valid, out, n, bls::make_modulus<bls::kFpWords>(p, n0));
+  return (int)cudaGetLastError();
+}
+
+int bls_exp_x(const int32_t* in, int32_t* out, long long n, const int* lens,
+              const int* muls, int nseg, const uint32_t* p, unsigned n0,
+              void* stream) {
+  if (nseg < 0 || nseg > kMaxSegments) return (int)cudaErrorInvalidValue;
+  ExpSegments segs = {};
+  segs.count = nseg;
+  for (int s = 0; s < nseg; ++s) {
+    segs.len[s] = lens[s];
+    segs.mul[s] = muls[s];
+  }
+  bls_kernels::exp_x_kernel<<<grid_for(n), kThreads, 0,
+                              (cudaStream_t)stream>>>(
+      in, out, n, bls::make_modulus<bls::kFpWords>(p, n0), segs);
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

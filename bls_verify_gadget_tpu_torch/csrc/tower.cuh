@@ -1,0 +1,325 @@
+// Device layer of the port's pairing kernels (pairing_kernels.cu): Fp2, Fp6
+// and Fp12 arithmetic, the CLN Miller steps and the Granger-Scott square,
+// for one batch element per thread, over field.cuh's 32-bit words.
+//
+// Each function is the counterpart of a JAX kernel body in
+// bls_verify_gadget_tpu/ops/pallas/kernels.py (named beside it) and returns
+// canonical values (< p).  The arithmetic is exact, so the formulas must be
+// the JAX bodies' own only where a different formula gives a different
+// value: a Miller line is fixed only up to an Fp2 factor, and the
+// Granger-Scott square equals a square only on cyclotomic elements.
+//
+// mont_mul takes operands below 2p: the only unreduced values here are the
+// Karatsuba sums of two canonical values (fp_lazy_add), which stay below 2p.
+//
+// Code size: the products are __noinline__ (fp_mul, the Fp2 product and
+// square, the Fp6/Fp12 products, the Miller steps, the Granger-Scott
+// square).  A doubling iteration has 176 Montgomery products; inlined they
+// would take nvcc minutes and overflow the instruction cache.  Additions
+// and subtractions (two 12-word carry chains each) are inlined.
+#pragma once
+
+#include "field.cuh"
+
+namespace bls {
+
+constexpr int kFpWords = 12;
+using FpModulus = Modulus<kFpWords>;
+
+struct Fp {
+  uint32_t w[kFpWords];
+};
+struct Fp2 {
+  Fp c0, c1;
+};
+struct Fp6 {
+  Fp2 c0, c1, c2;
+};
+struct Fp12 {
+  Fp6 c0, c1;
+};
+struct G2Proj {  // homogeneous projective point on the twist
+  Fp2 X, Y, Z;
+};
+struct Line {  // sparse line value c0 + c1 v + c4 v w
+  Fp2 c0, c1, c4;
+};
+
+// ---------------------------------------------------------------- Fp
+
+__device__ __forceinline__ Fp fp_zero() {
+  Fp r;
+#pragma unroll
+  for (int j = 0; j < kFpWords; ++j) r.w[j] = 0;
+  return r;
+}
+
+__device__ __forceinline__ Fp fp_add(const Fp& a, const Fp& b,
+                                     const FpModulus& M) {
+  Fp r;
+  mod_add<kFpWords>(a.w, b.w, r.w, M);
+  return r;
+}
+
+__device__ __forceinline__ Fp fp_sub(const Fp& a, const Fp& b,
+                                     const FpModulus& M) {
+  Fp r;
+  mod_sub<kFpWords>(a.w, b.w, r.w, M);
+  return r;
+}
+
+// a + b unreduced (< 2p): a mont_mul operand only.
+__device__ __forceinline__ Fp fp_lazy_add(const Fp& a, const Fp& b) {
+  Fp r;
+  add_words<kFpWords>(a.w, b.w, r.w);
+  return r;
+}
+
+__device__ __noinline__ Fp fp_mul(const Fp& a, const Fp& b,
+                                  const FpModulus& M) {
+  Fp r;
+  mont_mul<kFpWords>(a.w, b.w, r.w, M);
+  return r;
+}
+
+// a / 2 mod p (_half_rows, kernels.py:340): add p when a is odd
+// (a + p < 2^382), then shift the 384-bit value right by one.
+__device__ __forceinline__ Fp fp_half(const Fp& a, const FpModulus& M) {
+  Fp t, s, r;
+  add_words<kFpWords>(a.w, M.p, t.w);
+  select_words<kFpWords>((a.w[0] & 1u) != 0, t.w, a.w, s.w);
+#pragma unroll
+  for (int j = 0; j < kFpWords - 1; ++j) {
+    r.w[j] = (s.w[j] >> 1) | (s.w[j + 1] << 31);
+  }
+  r.w[kFpWords - 1] = s.w[kFpWords - 1] >> 1;
+  return r;
+}
+
+// ---------------------------------------------------------------- Fp2
+// _F2Rows (kernels.py:350): Fp2 = Fp[u]/(u^2 + 1).
+
+__device__ __forceinline__ Fp2 f2_add(const Fp2& a, const Fp2& b,
+                                      const FpModulus& M) {
+  return {fp_add(a.c0, b.c0, M), fp_add(a.c1, b.c1, M)};
+}
+
+__device__ __forceinline__ Fp2 f2_sub(const Fp2& a, const Fp2& b,
+                                      const FpModulus& M) {
+  return {fp_sub(a.c0, b.c0, M), fp_sub(a.c1, b.c1, M)};
+}
+
+__device__ __forceinline__ Fp2 f2_neg(const Fp2& a, const FpModulus& M) {
+  const Fp z = fp_zero();
+  return {fp_sub(z, a.c0, M), fp_sub(z, a.c1, M)};
+}
+
+// * xi = 1 + u
+__device__ __forceinline__ Fp2 f2_xi(const Fp2& a, const FpModulus& M) {
+  return {fp_sub(a.c0, a.c1, M), fp_add(a.c0, a.c1, M)};
+}
+
+// 3a
+__device__ __forceinline__ Fp2 f2_triple(const Fp2& a, const FpModulus& M) {
+  return f2_add(f2_add(a, a, M), a, M);
+}
+
+// Karatsuba with 3 Montgomery products (_fp2_mul_rows; the fp2_mul kernel).
+__device__ __noinline__ Fp2 f2_mul(const Fp2& a, const Fp2& b,
+                                   const FpModulus& M) {
+  const Fp v0 = fp_mul(a.c0, b.c0, M);
+  const Fp v1 = fp_mul(a.c1, b.c1, M);
+  const Fp v2 = fp_mul(fp_lazy_add(a.c0, a.c1), fp_lazy_add(b.c0, b.c1), M);
+  return {fp_sub(v0, v1, M), fp_sub(fp_sub(v2, v0, M), v1, M)};
+}
+
+// (a0 + a1)(a0 - a1) + 2 a0 a1 u with 2 Montgomery products (_F2Rows.sqr).
+__device__ __noinline__ Fp2 f2_sqr(const Fp2& a, const FpModulus& M) {
+  const Fp re = fp_mul(fp_lazy_add(a.c0, a.c1), fp_sub(a.c0, a.c1, M), M);
+  const Fp m = fp_mul(a.c0, a.c1, M);
+  return {re, fp_add(m, m, M)};
+}
+
+// * an Fp scalar (_F2Rows.muls)
+__device__ __forceinline__ Fp2 f2_muls(const Fp2& a, const Fp& s,
+                                       const FpModulus& M) {
+  return {fp_mul(a.c0, s, M), fp_mul(a.c1, s, M)};
+}
+
+__device__ __forceinline__ Fp2 f2_half(const Fp2& a, const FpModulus& M) {
+  return {fp_half(a.c0, M), fp_half(a.c1, M)};
+}
+
+// ---------------------------------------------------------------- Fp6
+// Fp6 = Fp2[v]/(v^3 - xi) (kernels.py:466-532).
+
+__device__ __forceinline__ Fp6 f6_add(const Fp6& a, const Fp6& b,
+                                      const FpModulus& M) {
+  return {f2_add(a.c0, b.c0, M), f2_add(a.c1, b.c1, M),
+          f2_add(a.c2, b.c2, M)};
+}
+
+__device__ __forceinline__ Fp6 f6_sub(const Fp6& a, const Fp6& b,
+                                      const FpModulus& M) {
+  return {f2_sub(a.c0, b.c0, M), f2_sub(a.c1, b.c1, M),
+          f2_sub(a.c2, b.c2, M)};
+}
+
+// * v (_f6_mul_v_rows)
+__device__ __forceinline__ Fp6 f6_mul_v(const Fp6& a, const FpModulus& M) {
+  return {f2_xi(a.c2, M), a.c0, a.c1};
+}
+
+// Toom/Karatsuba product with 6 Fp2 products (_f6_mul).
+__device__ __noinline__ Fp6 f6_mul(const Fp6& a, const Fp6& b,
+                                   const FpModulus& M) {
+  const Fp2 v0 = f2_mul(a.c0, b.c0, M);
+  const Fp2 v1 = f2_mul(a.c1, b.c1, M);
+  const Fp2 v2 = f2_mul(a.c2, b.c2, M);
+  const Fp2 t12 = f2_mul(f2_add(a.c1, a.c2, M), f2_add(b.c1, b.c2, M), M);
+  const Fp2 t01 = f2_mul(f2_add(a.c0, a.c1, M), f2_add(b.c0, b.c1, M), M);
+  const Fp2 t02 = f2_mul(f2_add(a.c0, a.c2, M), f2_add(b.c0, b.c2, M), M);
+  return {
+      f2_add(v0, f2_xi(f2_sub(t12, f2_add(v1, v2, M), M), M), M),
+      f2_add(f2_sub(t01, f2_add(v0, v1, M), M), f2_xi(v2, M), M),
+      f2_add(f2_sub(t02, f2_add(v0, v2, M), M), v1, M),
+  };
+}
+
+// (a0, a1, a2)(d0 + d1 v) (_f6_mul_by_01)
+__device__ __forceinline__ Fp6 f6_mul_by_01(const Fp6& a, const Fp2& d0,
+                                            const Fp2& d1,
+                                            const FpModulus& M) {
+  const Fp2 p0 = f2_mul(a.c0, d0, M);
+  const Fp2 p1 = f2_mul(a.c2, d1, M);
+  const Fp2 p2 = f2_mul(a.c0, d1, M);
+  const Fp2 p3 = f2_mul(a.c1, d0, M);
+  const Fp2 p4 = f2_mul(a.c1, d1, M);
+  const Fp2 p5 = f2_mul(a.c2, d0, M);
+  return {f2_add(p0, f2_xi(p1, M), M), f2_add(p2, p3, M), f2_add(p4, p5, M)};
+}
+
+// (a0, a1, a2)(d1 v) (_f6_mul_by_1)
+__device__ __forceinline__ Fp6 f6_mul_by_1(const Fp6& a, const Fp2& d1,
+                                           const FpModulus& M) {
+  return {f2_xi(f2_mul(a.c2, d1, M), M), f2_mul(a.c0, d1, M),
+          f2_mul(a.c1, d1, M)};
+}
+
+// ---------------------------------------------------------------- Fp12
+// Fp12 = Fp6[w]/(w^2 - v) (kernels.py:492-544).
+
+// Karatsuba over Fp6: 3 Fp6 products, 54 Montgomery products (_f12_mul).
+__device__ __noinline__ Fp12 f12_mul(const Fp12& a, const Fp12& b,
+                                     const FpModulus& M) {
+  const Fp6 v0 = f6_mul(a.c0, b.c0, M);
+  const Fp6 v1 = f6_mul(a.c1, b.c1, M);
+  const Fp6 v2 = f6_mul(f6_add(a.c0, a.c1, M), f6_add(b.c0, b.c1, M), M);
+  return {f6_add(v0, f6_mul_v(v1, M), M),
+          f6_sub(v2, f6_add(v0, v1, M), M)};
+}
+
+// Generic square: 2 Fp6 products, 36 Montgomery products (_f12_sqr).
+__device__ __noinline__ Fp12 f12_sqr(const Fp12& a, const FpModulus& M) {
+  const Fp6 s = f6_add(a.c0, a.c1, M);
+  const Fp6 t_in = f6_add(a.c0, f6_mul_v(a.c1, M), M);
+  const Fp6 v0 = f6_mul(a.c0, a.c1, M);
+  const Fp6 t = f6_mul(s, t_in, M);
+  return {f6_sub(f6_sub(t, v0, M), f6_mul_v(v0, M), M), f6_add(v0, v0, M)};
+}
+
+// f * (c0 + c1 v + c4 v w): 15 Fp2 products (_f12_mul_014).
+__device__ __noinline__ Fp12 f12_mul_014(const Fp12& f, const Line& l,
+                                         const FpModulus& M) {
+  const Fp6 v0 = f6_mul_by_01(f.c0, l.c0, l.c1, M);
+  const Fp6 v1 = f6_mul_by_1(f.c1, l.c4, M);
+  const Fp6 t =
+      f6_mul_by_01(f6_add(f.c0, f.c1, M), l.c0, f2_add(l.c1, l.c4, M), M);
+  return {f6_add(v0, f6_mul_v(v1, M), M), f6_sub(t, f6_add(v0, v1, M), M)};
+}
+
+// Granger-Scott square of a cyclotomic element: 9 Fp2 squares, 18
+// Montgomery products (_gs_body, kernels.py:1377, in the z-ordering
+// z = (a0, b1, b0, a2, a1, b2) of f = ((a0, a1, a2), (b0, b1, b2))).
+__device__ __noinline__ Fp12 f12_cyclotomic_sqr(const Fp12& f,
+                                                const FpModulus& M) {
+  const Fp2 z0 = f.c0.c0, z1 = f.c1.c1, z2 = f.c1.c0;
+  const Fp2 z3 = f.c0.c2, z4 = f.c0.c1, z5 = f.c1.c2;
+  const Fp2 s0 = f2_sqr(z0, M), s1 = f2_sqr(z1, M), s2 = f2_sqr(z2, M);
+  const Fp2 s3 = f2_sqr(z3, M), s4 = f2_sqr(z4, M), s5 = f2_sqr(z5, M);
+  const Fp2 s01 = f2_sqr(f2_add(z0, z1, M), M);
+  const Fp2 s23 = f2_sqr(f2_add(z2, z3, M), M);
+  const Fp2 s45 = f2_sqr(f2_add(z4, z5, M), M);
+  const Fp2 t00 = f2_add(s0, f2_xi(s1, M), M);
+  const Fp2 t20 = f2_add(s2, f2_xi(s3, M), M);
+  const Fp2 t40 = f2_add(s4, f2_xi(s5, M), M);
+  const Fp2 t01 = f2_sub(s01, f2_add(s0, s1, M), M);
+  const Fp2 t21 = f2_sub(s23, f2_add(s2, s3, M), M);
+  const Fp2 t41 = f2_sub(s45, f2_add(s4, s5, M), M);
+  // 3t - 2z and 3t + 2z
+  auto m3m2 = [&M](const Fp2& t, const Fp2& z) {
+    const Fp2 r = f2_sub(t, z, M);
+    return f2_add(f2_add(r, r, M), t, M);
+  };
+  auto p3p2 = [&M](const Fp2& t, const Fp2& z) {
+    const Fp2 r = f2_add(t, z, M);
+    return f2_add(f2_add(r, r, M), t, M);
+  };
+  const Fp2 n0 = m3m2(t00, z0), n1 = p3p2(t01, z1);
+  const Fp2 n2 = p3p2(f2_xi(t41, M), z2), n3 = m3m2(t40, z3);
+  const Fp2 n4 = m3m2(t20, z4), n5 = p3p2(t21, z5);
+  return {{n0, n4, n3}, {n2, n1, n5}};
+}
+
+// ---------------------------------------------------------------- Miller
+// CLN steps in homogeneous projective coordinates on the M-twist
+// (kernels.py:620-685).
+
+// Doubling step: T <- 2T, returns the line (e - b, 3 X^2 xp, -h yp).  The
+// twist coefficient b' = 4(1 + u) enters as e = 4 xi(3 Z^2), without a
+// product (_miller_dbl_rows).
+__device__ __noinline__ Line miller_dbl_step(G2Proj& T, const Fp& xp,
+                                             const Fp& yp,
+                                             const FpModulus& M) {
+  const Fp2 a = f2_half(f2_mul(T.X, T.Y, M), M);
+  const Fp2 b = f2_sqr(T.Y, M);
+  const Fp2 c = f2_sqr(T.Z, M);
+  Fp2 e = f2_xi(f2_triple(c, M), M);
+  e = f2_add(e, e, M);
+  e = f2_add(e, e, M);
+  const Fp2 f = f2_triple(e, M);
+  const Fp2 g = f2_half(f2_add(b, f, M), M);
+  const Fp2 h = f2_sub(f2_sqr(f2_add(T.Y, T.Z, M), M), f2_add(b, c, M), M);
+  const Fp2 i = f2_sub(e, b, M);
+  const Fp2 j = f2_sqr(T.X, M);
+  const Fp2 e2 = f2_sqr(e, M);
+  T.X = f2_mul(a, f2_sub(b, f, M), M);
+  T.Y = f2_sub(f2_sqr(g, M), f2_triple(e2, M), M);
+  T.Z = f2_mul(b, h, M);
+  return {i, f2_muls(f2_triple(j, M), xp, M), f2_muls(f2_neg(h, M), yp, M)};
+}
+
+// Mixed addition step with affine Q = (xq, yq): T <- T + Q, returns the
+// line (theta xq - lambda yq, -theta xp, lambda yp) (_miller_add_rows).
+__device__ __noinline__ Line miller_add_step(G2Proj& T, const Fp2& xq,
+                                             const Fp2& yq, const Fp& xp,
+                                             const Fp& yp,
+                                             const FpModulus& M) {
+  const Fp2 th = f2_sub(T.Y, f2_mul(yq, T.Z, M), M);
+  const Fp2 lm = f2_sub(T.X, f2_mul(xq, T.Z, M), M);
+  const Fp2 cc = f2_sqr(th, M);
+  const Fp2 dd = f2_sqr(lm, M);
+  const Fp2 e = f2_mul(lm, dd, M);
+  const Fp2 f = f2_mul(T.Z, cc, M);
+  const Fp2 g = f2_mul(T.X, dd, M);
+  const Fp2 h = f2_sub(f2_add(e, f, M), f2_add(g, g, M), M);
+  const Fp2 x3 = f2_mul(lm, h, M);
+  const Fp2 z3 = f2_mul(T.Z, e, M);
+  const Fp2 y3 = f2_sub(f2_mul(th, f2_sub(g, h, M), M), f2_mul(e, T.Y, M), M);
+  const Line l = {f2_sub(f2_mul(th, xq, M), f2_mul(lm, yq, M), M),
+                  f2_muls(f2_neg(th, M), xp, M), f2_muls(lm, yp, M)};
+  T = {x3, y3, z3};
+  return l;
+}
+
+}  // namespace bls

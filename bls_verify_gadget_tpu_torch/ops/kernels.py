@@ -1,17 +1,22 @@
-"""The port's CUDA field kernels: nvcc build, ctypes loader, and one torch
-wrapper per kernel (the counterpart of the JAX package's
-ops/pallas/kernels.py FieldKernels.mul/add/sub/fp2_mul/fp2_sqr).
+"""The port's CUDA kernels: nvcc build, ctypes loader, and one torch wrapper
+per kernel (the counterpart of the JAX package's ops/pallas/kernels.py
+FieldKernels.mul/add/sub/fp2_mul/fp2_sqr/fp12_mul/fp12_sqr/miller_dbl_run/
+miller_add/exp_x).
 
-The sources in csrc/ are compiled on first use with nvcc for sm_90a into a
-shared library with a plain C interface under build/ (named by a hash of
-the sources and flags, so an edited source rebuilds).  Nothing is built or
+The sources in csrc/ are compiled on first use with nvcc for sm_90a, one
+nvcc per .cu file, all started together, and linked into one shared
+library with a plain C interface under build/ (named by a hash of the
+sources and flags, so an edited source rebuilds).  Nothing is built or
 loaded when the module is imported.
 
-Every wrapper takes int32 (..., nlimb) limb tensors that broadcast against
-each other.  A tensor on the CPU goes to the kernel's plain PyTorch version
-(ops/fp.py, ops/tower.py); a CUDA tensor launches the kernel on the current
-stream or raises -- there is no fallback from a CUDA tensor to the plain
-version.  Each launch adds one to the kernel's count in COUNTS.
+The field wrappers take int32 (..., nlimb) limb tensors that broadcast
+against each other; the pairing wrappers take packed (c, N, 24) tensors
+(an Fp12 is 12 coordinates, coefficient-major) and pack their operands into
+one contiguous buffer per launch.  A tensor on the CPU goes to the kernel's
+plain PyTorch version (ops/fp.py, ops/tower.py, ops/pairing.py); a CUDA
+tensor launches the kernel on the current stream or raises -- there is no
+fallback from a CUDA tensor to the plain version.  Each launch adds one to
+the kernel's count in COUNTS.
 """
 
 import collections
@@ -28,12 +33,18 @@ import torch
 PKG_DIR = pathlib.Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "build"
-SOURCES = ("field.cuh", "field_kernels.cu")
+UNITS = ("field_kernels.cu", "pairing_kernels.cu")  # one nvcc each
+SOURCES = ("field.cuh", "tower.cuh", *UNITS)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-KERNELS = ("mul", "add", "sub", "fp2_mul", "fp2_sqr")
+KERNELS = (
+    "mul", "add", "sub", "fp2_mul", "fp2_sqr",
+    "fp12_mul", "fp12_sqr", "miller_dbl_run", "miller_add", "exp_x",
+)
+PAIRS = 2  # pairs per Miller launch (csrc/pairing_kernels.cu kPairs)
+MAX_SEGMENTS = 64  # exp_x runs (csrc/pairing_kernels.cu kMaxSegments)
 
 
 class LaunchCounts:
@@ -82,22 +93,43 @@ def library_path() -> pathlib.Path:
 
 
 def build() -> pathlib.Path:
-    """Compile csrc/ into the shared library unless it is already built.
-    The compiler's report (registers, spills) lands beside it as .log."""
+    """Compile csrc/ into the shared library unless it is already built:
+    one nvcc per unit, all running at once, then one link.  The compilers'
+    reports (registers, stack, spills) land beside it as .log."""
     so = library_path()
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = nvcc_path()
     tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / "field_kernels.cu")]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    so.with_suffix(".log").write_text(res.stdout + res.stderr)
-    if res.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed ({res.returncode}): {' '.join(cmd)}\n{res.stderr}"
-        )
-    os.replace(tmp, so)
+    objs = [tmp.with_name(f"{tmp.name}.{pathlib.Path(u).stem}.o") for u in UNITS]
+    logs = [o.with_suffix(".log") for o in objs]
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(CSRC_DIR / u)]
+            for o, u in zip(objs, UNITS)]
+    procs = []
+    try:
+        for cmd, log in zip(cmds, logs):
+            with open(log, "w") as fh:
+                procs.append(subprocess.Popen(cmd, stdout=fh, stderr=subprocess.STDOUT))
+        rcs = [p.wait() for p in procs]
+        report = "".join(log.read_text() for log in logs)
+        link = [nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp), *map(str, objs)]
+        if not any(rcs):
+            res = subprocess.run(link, capture_output=True, text=True)
+            report += res.stdout + res.stderr
+            rcs.append(res.returncode)
+        so.with_suffix(".log").write_text(report)
+        if any(rcs):
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(f"nvcc failed ({rcs}):\n{report}")
+        os.replace(tmp, so)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in objs + logs:
+            f.unlink(missing_ok=True)
     return so
 
 
@@ -108,8 +140,13 @@ def _declare(lib):
     lib.bls_sub.argtypes = [vp, vp, vp, i64, i32, vp, vp]
     lib.bls_fp2_mul.argtypes = [vp, vp, vp, vp, vp, vp, i64, vp, u32, vp]
     lib.bls_fp2_sqr.argtypes = [vp, vp, vp, vp, i64, vp, u32, vp]
-    for fn in (lib.bls_mul, lib.bls_add, lib.bls_sub, lib.bls_fp2_mul, lib.bls_fp2_sqr):
-        fn.restype = ctypes.c_int
+    lib.bls_fp12_mul.argtypes = [vp, vp, i64, vp, u32, vp]
+    lib.bls_fp12_sqr.argtypes = [vp, vp, i64, vp, u32, vp]
+    lib.bls_miller_dbl_run.argtypes = [vp, vp, vp, i64, i32, vp, u32, vp]
+    lib.bls_miller_add.argtypes = [vp, vp, vp, i64, vp, u32, vp]
+    lib.bls_exp_x.argtypes = [vp, vp, i64, vp, vp, i32, vp, u32, vp]
+    for name in KERNELS:
+        getattr(lib, f"bls_{name}").restype = ctypes.c_int
 
 
 def library():
@@ -239,3 +276,116 @@ def fp2_sqr(field, a0, a1):
         _check_rc("fp2_sqr", rc)
         COUNTS.record("fp2_sqr", n)
     return c0, c1
+
+
+# ----------------------------------------------------------------------------
+# pairing kernels (csrc/pairing_kernels.cu) on packed (c, N, 24) operands
+# ----------------------------------------------------------------------------
+
+def _pairing_launch(name, field, packed, n_in, n_out, *args, valid=None):
+    """Launch kernel `name` on the packed (n_in, N, 24) CUDA operand (with
+    the (k, N) int32 `valid` masks when given) and return its (n_out, N, 24)
+    output.  A contiguous operand is passed as it is, without a copy; the
+    wrappers that take several operands pack them with one torch.cat."""
+    if field.nlimb != 24:
+        raise ValueError(f"the pairing kernels take Fp (24 limbs), not {field.nlimb}")
+    (packed,) = _cuda_operands(field, [packed])
+    if packed.dim() != 3 or packed.shape[0] != n_in:
+        raise ValueError(f"{name} takes a packed ({n_in}, N, 24) operand, "
+                         f"got {tuple(packed.shape)}")
+    n = packed.shape[1]
+    out = packed.new_empty((n_out, n, field.nlimb))
+    if n:
+        ptrs = [packed.data_ptr()] + ([] if valid is None else [valid.data_ptr()])
+        rc = getattr(library(), f"bls_{name}")(
+            *ptrs, out.data_ptr(), n, *args, _p_words(field), field.n0_word, _stream(packed)
+        )
+        _check_rc(name, rc)
+        COUNTS.record(name, n)
+    return out
+
+
+def _miller_pack(f, t, per_pair, valid):
+    """Check the pair count and the (k, N) valid masks of a Miller launch;
+    -> (one packed operand: f, then per pair its T and its `per_pair`
+    tensors, (k, N) int32 masks).  _pairing_launch checks the limbs."""
+    k, n = t.shape[0], f.shape[-2]
+    if k != PAIRS:
+        raise ValueError(f"the Miller kernels take {PAIRS} pairs, got {k}")
+    if valid.device != f.device or tuple(valid.shape) != (k, n):
+        raise ValueError(f"expected a ({k}, {n}) valid mask on {f.device}, got "
+                         f"{tuple(valid.shape)} on {valid.device}")
+    parts = [f]
+    for p in range(k):
+        parts += [t[p], *(x[p].reshape(-1, n, 24) for x in per_pair)]
+    return torch.cat(parts), valid.to(torch.int32).contiguous()
+
+
+def fp12_mul(field, a, b):
+    """Fp12 product of packed (12, N, 24) operands -> (12, N, 24)
+    (replaces FieldKernels.fp12_mul)."""
+    if a.device.type == "cpu":
+        from . import tower
+
+        return tower.fp12_mul_plain(a, b)
+    return _pairing_launch("fp12_mul", field, torch.cat([a, b]), 24, 12)
+
+
+def fp12_sqr(field, a):
+    """Fp12 square of a packed (12, N, 24) operand (replaces
+    FieldKernels.fp12_sqr)."""
+    if a.device.type == "cpu":
+        from . import tower
+
+        return tower.fp12_sqr_plain(a)
+    return _pairing_launch("fp12_sqr", field, a, 12, 12)
+
+
+def miller_dbl_run(field, f, t, xp, yp, valid, count: int):
+    """`count` Miller doubling iterations [f <- f^2; per pair: T, line <-
+    dbl_step(T); f <- f * line, neutral where the pair is invalid]
+    (replaces FieldKernels.miller_dbl_run).  f (12, N, 24); per pair t
+    (k, 6, N, 24) = X, Y, Z, xp and yp (k, N, 24), valid (k, N) bool.
+    Returns (f', t')."""
+    if f.device.type == "cpu":
+        from . import pairing
+
+        return pairing.miller_dbl_run_plain(f, t, xp, yp, valid, count)
+    if count < 1:
+        raise ValueError(f"a doubling run has at least one iteration, got {count}")
+    packed, mask = _miller_pack(f, t, (xp, yp), valid)
+    out = _pairing_launch("miller_dbl_run", field, packed, 12 + 8 * PAIRS,
+                          12 + 6 * PAIRS, count, valid=mask)
+    return out[:12], out[12:].view(PAIRS, 6, *out.shape[1:])
+
+
+def miller_add(field, f, t, q, xp, yp, valid):
+    """One Miller addition block: per pair T, line <- add_step(T, Q);
+    f <- f * line, neutral where the pair is invalid (replaces
+    FieldKernels.miller_add).  As miller_dbl_run, with q (k, 4, N, 24) =
+    the affine Q's x, y (Fp2 each).  Returns (f', t')."""
+    if f.device.type == "cpu":
+        from . import pairing
+
+        return pairing.miller_add_plain(f, t, q, xp, yp, valid)
+    packed, mask = _miller_pack(f, t, (q, xp, yp), valid)
+    out = _pairing_launch("miller_add", field, packed, 12 + 12 * PAIRS,
+                          12 + 6 * PAIRS, valid=mask)
+    return out[:12], out[12:].view(PAIRS, 6, *out.shape[1:])
+
+
+def exp_x(field, m, segments):
+    """m^e for a packed cyclotomic m (12, N, 24), from f = m at e's top bit:
+    per (squares, multiply) in `segments`, that many Granger-Scott squares,
+    then f <- f * m if multiply (replaces FieldKernels.exp_x)."""
+    if m.device.type == "cpu":
+        from . import pairing
+
+        return pairing.exp_x_plain(m, segments)
+    if len(segments) > MAX_SEGMENTS:
+        raise ValueError(f"exp_x takes at most {MAX_SEGMENTS} segments, got {len(segments)}")
+    nseg = len(segments)
+    lens = (ctypes.c_int * max(nseg, 1))(*[int(s) for s, _ in segments])
+    muls = (ctypes.c_int * max(nseg, 1))(*[int(bool(b)) for _, b in segments])
+    return _pairing_launch("exp_x", field, m, 12, 12, ctypes.addressof(lens),
+                           ctypes.addressof(muls), nseg)

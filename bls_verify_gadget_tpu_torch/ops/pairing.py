@@ -1,21 +1,44 @@
 """Batched optimal-ate pairing (counterpart of the JAX package's
-ops/pairing.py, unfused path).
+ops/pairing.py, fused path).
 
 Miller loop in homogeneous projective coordinates on the M-twist with
 sparse mul_by_014 line application (Costello-Lange-Naehrig step formulas);
 the negative BLS parameter is handled by a final conjugation.  A shared
 multi-pairing keeps one f accumulator; per-pair validity masks make an
-invalid pair contribute the neutral line.  The loop has the static run
-structure (doubling runs plus one addition block per set bit of |x|).
+invalid pair contribute the neutral line.
+
+The loop follows the run structure of |x|: one miller_dbl_run launch per
+doubling run and one miller_add launch per set bit (11 launches), each
+carrying every pair.  Each exp-by-x chain of the final exponentiation is
+one exp_x launch.  The plain versions of those three kernels are here, over
+the plain Fp12 layer of ops/tower.py.
 """
 
 import torch
 
 from .. import constants as C
 from .fp import FP
+from . import kernels as K
 from . import tower as T
+from .tower import F2
 
-_ABS_X_BITS_MSB = C.ABS_X_BITS[::-1]  # MSB first
+
+def _runs(bits_msb):
+    """The runs of an exponent after its top bit: [(length, ends on a set
+    bit)], MSB first."""
+    runs, run = [], 0
+    for bit in bits_msb[1:]:
+        run += 1
+        if bit:
+            runs.append((run, True))
+            run = 0
+    if run:
+        runs.append((run, False))
+    return runs
+
+
+# |x| = 0xd201000000010000: runs 1, 2, 3, 9, 32 ending on set bits, then 16
+X_RUNS = _runs(C.ABS_X_BITS[::-1])
 
 
 def fp_half(a):
@@ -27,114 +50,105 @@ def fp_half(a):
     return (s >> 1) | torch.cat([up[..., 1:], torch.zeros_like(up[..., :1])], -1)
 
 
-def fp2_half(a):
-    return (fp_half(a[0]), fp_half(a[1]))
-
-
 # ----------------------------------------------------------------------------
-# sparse Fp12 multiplication by a line value c0 + c1 v + c4 vw
-# ----------------------------------------------------------------------------
-
-def fp12_mul_by_014(f, c0, c1, c4):
-    """f * (g0 + g1 w) with g0 = (c0, c1, 0), g1 = (0, c4, 0)."""
-    a, b = f
-    v0 = _fp6_mul_by_01(a, c0, c1)
-    v1 = _fp6_mul_by_1(b, c4)
-    c1c4 = T.fp2_add(c1, c4)
-    t = _fp6_mul_by_01(T.fp6_add(a, b), c0, c1c4)
-    out0 = T.fp6_add(v0, T.fp6_mul_v(v1))
-    out1 = T.fp6_sub(t, T.fp6_add(v0, v1))
-    return (out0, out1)
-
-
-def _fp6_mul_by_01(a, d0, d1):
-    """(a0,a1,a2) * (d0 + d1 v) =
-    (a0 d0 + xi a2 d1, a0 d1 + a1 d0, a1 d1 + a2 d0)."""
-    p = T.fp2_mul_pairs([
-        (a[0], d0), (a[2], d1), (a[0], d1), (a[1], d0), (a[1], d1), (a[2], d0),
-    ])
-    return (
-        T.fp2_add(p[0], T.fp2_mul_xi(p[1])),
-        T.fp2_add(p[2], p[3]),
-        T.fp2_add(p[4], p[5]),
-    )
-
-
-def _fp6_mul_by_1(a, d1):
-    """(a0,a1,a2) * (d1 v) = (xi a2 d1, a0 d1, a1 d1)."""
-    p = T.fp2_mul_pairs([(a[2], d1), (a[0], d1), (a[1], d1)])
-    return (T.fp2_mul_xi(p[0]), p[1], p[2])
-
-
-# ----------------------------------------------------------------------------
-# Miller loop steps (CLN homogeneous projective, M-twist)
+# plain versions of the Miller kernels: points and lines are (k, 3, 2, N, 24)
+# stacks (X, Y, Z) and (c0, c1, c4), one row per pair
 # ----------------------------------------------------------------------------
 
 def _dbl_step(t, xp, yp):
-    """Doubling step: returns (new T, line coeffs (c0, c1, c4))."""
-    X, Y, Z = t
-    a_, b_, c_ = T.fp2_mul_pairs([(X, Y), (Y, Y), (Z, Z)])
-    a_ = fp2_half(a_)
-    c3 = T.fp2_add(T.fp2_add(c_, c_), c_)
-    # e = 3 b' Z^2 with b' = 4(1+u): b'*c = 4*xi(c) -- multiplication-free
-    e_ = T.fp2_mul_xi(c3)
-    e_ = T.fp2_add(e_, e_)
-    e_ = T.fp2_add(e_, e_)
-    f_ = T.fp2_add(T.fp2_add(e_, e_), e_)           # 3e
-    g_ = fp2_half(T.fp2_add(b_, f_))
-    h_ = T.fp2_sub(T.fp2_sqr(T.fp2_add(Y, Z)), T.fp2_add(b_, c_))  # 2YZ
-    i_ = T.fp2_sub(e_, b_)
-    j_ = T.fp2_sqr(X)
-    e2 = T.fp2_sqr(e_)
-    x3, z3 = T.fp2_mul_pairs([(a_, T.fp2_sub(b_, f_)), (b_, h_)])
-    y3 = T.fp2_sub(T.fp2_sqr(g_), T.fp2_add(T.fp2_add(e2, e2), e2))
-    # line: c0 = e - b, c1 = 3 X^2 * xp, c4 = -h * yp
-    j3 = T.fp2_add(T.fp2_add(j_, j_), j_)
-    c1l = T.fp2_muls(j3, xp)
-    c4l = T.fp2_muls(T.fp2_neg(h_), yp)
-    return (x3, y3, z3), (i_, c1l, c4l)
+    """CLN doubling step of every pair at once (the JAX kernels'
+    _miller_dbl_rows) -> (2T, line (e - b, 3 X^2 xp, -h yp)).  The twist
+    coefficient b' = 4(1 + u) enters as e = 4 xi(3 Z^2), without a
+    product."""
+    X, Y, Z = t.unbind(-4)
+    a, b, c = F2.mul(F2.stack(X, Y, Z), F2.stack(Y, Y, Z)).unbind(-4)
+    a = fp_half(a)
+    e = F2.xi(F2.triple(c))
+    e = F2.add(e, e)
+    e = F2.add(e, e)
+    f = F2.triple(e)
+    g = fp_half(F2.add(b, f))
+    yz, bc = F2.add(F2.stack(Y, b), F2.stack(Z, c)).unbind(-4)
+    yz2, j, e2 = F2.sqr(F2.stack(yz, X, e)).unbind(-4)
+    h = F2.sub(yz2, bc)
+    i, bf = F2.sub(F2.stack(e, b), F2.stack(b, f)).unbind(-4)
+    x3, z3 = F2.mul(F2.stack(a, b), F2.stack(bf, h)).unbind(-4)
+    y3 = F2.sub(F2.sqr(g), F2.triple(e2))
+    c1, c4 = F2.muls(F2.stack(F2.triple(j), F2.neg(h)), torch.stack([xp, yp], -3)).unbind(-4)
+    return F2.stack(x3, y3, z3), F2.stack(i, c1, c4)
 
 
 def _add_step(t, q, xp, yp):
-    """Mixed addition step with affine q = (xq, yq): (new T, line)."""
-    X, Y, Z = t
-    xq, yq = q
-    yqz, xqz = T.fp2_mul_pairs([(yq, Z), (xq, Z)])
-    th = T.fp2_sub(Y, yqz)        # theta
-    lm = T.fp2_sub(X, xqz)        # lambda
-    cc = T.fp2_sqr(th)
-    dd = T.fp2_sqr(lm)
-    e_, f_, g_ = T.fp2_mul_pairs([(lm, dd), (Z, cc), (X, dd)])
-    h_ = T.fp2_sub(T.fp2_add(e_, f_), T.fp2_add(g_, g_))
-    x3, z3 = T.fp2_mul_pairs([(lm, h_), (Z, e_)])
-    t1, t2 = T.fp2_mul_pairs([(th, T.fp2_sub(g_, h_)), (e_, Y)])
-    y3 = T.fp2_sub(t1, t2)
-    # line: c0 = theta xq - lambda yq, c1 = -theta xp, c4 = lambda yp
-    p1, p2 = T.fp2_mul_pairs([(th, xq), (lm, yq)])
-    c0l = T.fp2_sub(p1, p2)
-    c1l = T.fp2_muls(T.fp2_neg(th), xp)
-    c4l = T.fp2_muls(lm, yp)
-    return (x3, y3, z3), (c0l, c1l, c4l)
+    """CLN mixed addition of the affine q (k, 2, 2, N, 24) = (xq, yq) to
+    every pair's T at once (_miller_add_rows) -> (T + Q, line
+    (theta xq - lambda yq, -theta xp, lambda yp))."""
+    X, Y, Z = t.unbind(-4)
+    xq, yq = q.unbind(-4)
+    yqz, xqz = F2.mul(F2.stack(yq, xq), Z.unsqueeze(-4)).unbind(-4)
+    th, lm = F2.sub(F2.stack(Y, X), F2.stack(yqz, xqz)).unbind(-4)
+    cc, dd = F2.sqr(F2.stack(th, lm)).unbind(-4)
+    e, f, g = F2.mul(F2.stack(lm, Z, X), F2.stack(dd, cc, dd)).unbind(-4)
+    h = F2.sub(F2.add(e, f), F2.add(g, g))
+    x3, z3, t1, t2, p1, p2 = F2.mul(
+        F2.stack(lm, Z, th, e, th, lm), F2.stack(h, e, F2.sub(g, h), Y, xq, yq)
+    ).unbind(-4)
+    y3, c0 = F2.sub(F2.stack(t1, p1), F2.stack(t2, p2)).unbind(-4)
+    c1, c4 = F2.muls(F2.stack(F2.neg(th), lm), torch.stack([xp, yp], -3)).unbind(-4)
+    return F2.stack(x3, y3, z3), F2.stack(c0, c1, c4)
 
 
-def _neutral_line(c0, c1, c4, valid):
-    one = T.fp2_one_like(c0)
-    zero = T.fp2_zero_like(c0)
-    return (
-        T.fp2_cmov(valid, c0, one),
-        T.fp2_cmov(valid, c1, zero),
-        T.fp2_cmov(valid, c4, zero),
+def _f6_mul_by_01(a, d0, d1):
+    """(a0, a1, a2)(d0 + d1 v) = (a0 d0 + xi a2 d1, a0 d1 + a1 d0,
+    a1 d1 + a2 d0) on a (3, 2, N, 24) a."""
+    p = F2.mul(a[[0, 2, 0, 1, 1, 2]], torch.stack([d0, d1, d1, d0, d1, d0]))
+    return F2.add(p[0::2], torch.stack([F2.xi(p[1]), p[3], p[5]]))
+
+
+def _f6_mul_by_1(a, d1):
+    """(a0, a1, a2)(d1 v) = (xi a2 d1, a0 d1, a1 d1)."""
+    p = F2.mul(a[[2, 0, 1]], d1)
+    return torch.stack([F2.xi(p[0]), p[1], p[2]])
+
+
+def _line_apply(f, line, valid):
+    """f * line for a packed f (the JAX kernels' _miller_line_apply): the
+    line (3, 2, N, 24) = (c0, c1, c4) is the neutral (1, 0, 0) where valid
+    (N,) is false, and multiplies in sparsely as c0 + c1 v + c4 v w
+    (_f12_mul_014, 15 Fp2 products)."""
+    neutral = torch.zeros_like(line)
+    neutral[0, 0] = FP.const("ONE", line.device)
+    c0, c1, c4 = torch.where(valid[:, None], line, neutral).unbind(0)
+    a, b = T.fp12_view(f).unbind(0)
+    v0 = _f6_mul_by_01(a, c0, c1)
+    v1 = _f6_mul_by_1(b, c4)
+    t = _f6_mul_by_01(F2.add(a, b), c0, F2.add(c1, c4))
+    out0, v01 = F2.add(torch.stack([v0, v0]), torch.stack([T.fp6_mul_v_plain(v1), v1])).unbind(0)
+    return torch.stack([out0, F2.sub(t, v01)]).flatten(0, 2)
+
+
+def miller_dbl_run_plain(f, t, xp, yp, valid, count: int):
+    """Plain version of the miller_dbl_run kernel (ops/kernels.py, same
+    operands): `count` times [f <- f^2; every pair's doubling step; each
+    pair's line into f, in pair order]."""
+    k = t.shape[0]
+    pts = t.reshape(k, 3, 2, *t.shape[-2:])
+    for _ in range(count):
+        f = T.fp12_sqr_plain(f)
+        pts, lines = _dbl_step(pts, xp, yp)
+        for i in range(k):
+            f = _line_apply(f, lines[i], valid[i])
+    return f, pts.reshape(t.shape)
+
+
+def miller_add_plain(f, t, q, xp, yp, valid):
+    """Plain version of the miller_add kernel (same operands)."""
+    k = t.shape[0]
+    pts, lines = _add_step(
+        t.reshape(k, 3, 2, *t.shape[-2:]), q.reshape(k, 2, 2, *q.shape[-2:]), xp, yp
     )
-
-
-def _cat2(f2s):
-    return (torch.cat([a[0] for a in f2s]), torch.cat([a[1] for a in f2s]))
-
-
-def _fp12_one_like_from(fp2_sample):
-    one2 = T.fp2_one_like(fp2_sample)
-    z2 = T.fp2_zero_like(fp2_sample)
-    return ((one2, z2, z2), (z2, z2, z2))
+    for i in range(k):
+        f = _line_apply(f, lines[i], valid[i])
+    return f, pts.reshape(t.shape)
 
 
 def multi_miller_loop(pairs):
@@ -142,52 +156,43 @@ def multi_miller_loop(pairs):
     tensors (B, 24), q_aff = (xq, yq) Fp2 pairs, valid a (B,) bool mask.
     Returns the shared Miller accumulator f (Fp12), conjugated for x < 0.
 
-    The k pairs are stacked along the batch axis, so each Miller step
-    (doubling or addition plus line coefficients) runs once at k*B; the
-    line applications into the shared f stay sequential."""
-    B = pairs[0][0][0].shape[0]
-    valids = [v for _, _, v in pairs]
-    xp = torch.cat([p[0] for p, _, _ in pairs])
-    yp = torch.cat([p[1] for p, _, _ in pairs])
-    q = (_cat2([q[0] for _, q, _ in pairs]), _cat2([q[1] for _, q, _ in pairs]))
-
-    def apply_lines(f, lines):
-        c0, c1, c4 = lines
-        for i, valid in enumerate(valids):
-            sl = slice(i * B, (i + 1) * B)
-            l0, l1, l4 = _neutral_line(
-                (c0[0][sl], c0[1][sl]), (c1[0][sl], c1[1][sl]),
-                (c4[0][sl], c4[1][sl]), valid,
-            )
-            f = fp12_mul_by_014(f, l0, l1, l4)
-        return f
-
-    f = _fp12_one_like_from(pairs[0][1][0])
-    t = (q[0], q[1], T.fp2_one_like(q[0]))
-    # doubling runs + one addition block per set bit (static bit pattern)
-    for bit in _ABS_X_BITS_MSB[1:]:
-        f = T.fp12_sqr(f)
-        t, lines = _dbl_step(t, xp, yp)
-        f = apply_lines(f, lines)
-        if bit:
-            t, lines = _add_step(t, q, xp, yp)
-            f = apply_lines(f, lines)
-    return T.fp12_conj(f)  # x < 0
+    The pairs ride stacked through every launch: T starts at (xq, yq, 1),
+    each doubling run of |x| is one miller_dbl_run launch and each set bit
+    one miller_add launch."""
+    xp = torch.stack([p[0] for p, _, _ in pairs])
+    yp = torch.stack([p[1] for p, _, _ in pairs])
+    q = torch.stack([torch.stack([*qa[0], *qa[1]]) for _, qa, _ in pairs])
+    valid = torch.stack([v for _, _, v in pairs])
+    z = torch.zeros_like(xp)
+    t = torch.cat([q, torch.stack([FP.one_like(xp), z], 1)], 1)
+    f = torch.cat([FP.one_like(xp[:1]), z[:1].expand(11, *z.shape[1:])])
+    for length, add in X_RUNS:
+        f, t = K.miller_dbl_run(FP, f, t, xp, yp, valid, length)
+        if add:
+            f, t = K.miller_add(FP, f, t, q, xp, yp, valid)
+    return T.fp12_conj(T.fp12_unpack(f))  # x < 0
 
 
 # ----------------------------------------------------------------------------
 # final exponentiation
 # ----------------------------------------------------------------------------
 
+def exp_x_plain(m, segments):
+    """Plain version of the exp_x kernel: from f = m, per (squares,
+    multiply) segment that many Granger-Scott squares, then f <- f * m."""
+    f = m
+    for length, mul in segments:
+        for _ in range(length):
+            f = T.fp12_cyclotomic_sqr_plain(f)
+        if mul:
+            f = T.fp12_mul_plain(f, m)
+    return f
+
+
 def _exp_by_neg_x(m):
-    """m^x (x the negative BLS parameter) for m in the cyclotomic
-    subgroup: Granger-Scott squaring runs + one multiply per set bit."""
-    f = m  # top set bit
-    for bit in _ABS_X_BITS_MSB[1:]:
-        f = T.fp12_cyclotomic_sqr(f)
-        if bit:
-            f = T.fp12_mul(f, m)
-    return T.fp12_conj(f)
+    """m^x (x the negative BLS parameter) for m in the cyclotomic subgroup:
+    ONE exp_x launch over the runs of |x|, then the conjugation."""
+    return T.fp12_conj(T.fp12_unpack(K.exp_x(FP, T.fp12_pack(m), X_RUNS)))
 
 
 def final_exponentiation(f):
@@ -204,4 +209,3 @@ def final_exponentiation(f):
     )
     m3 = T.fp12_mul(T.fp12_sqr(m), m)
     return T.fp12_mul(t3, m3)
-

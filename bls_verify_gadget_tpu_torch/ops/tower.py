@@ -12,7 +12,11 @@ Independent products and sums are stacked along a new leading axis and
 issued as ONE field op, so a whole group costs one kernel launch.  Fp2
 products and squares go to the fp2_mul / fp2_sqr CUDA kernels
 (ops/kernels.py); their plain versions, fp2_mul_plain and fp2_sqr_plain,
-live here.  Fp6/Fp12 are compositions of those and of FP.mul/add/sub.
+live here.  The Fp12 product and square are ONE fused kernel launch each
+(fp12_mul / fp12_sqr) on a packed (12, N, 24) operand; their plain
+versions, and the Granger-Scott square that the exp_x kernel repeats, are
+the plain Fp12 layer at the end of this file.  Fp6 and the Fp12 inverse
+and Frobenius maps stay compositions of the field kernels.
 """
 
 import torch
@@ -232,10 +236,6 @@ def fp2_sgn0(a):
 # Fp6
 # ----------------------------------------------------------------------------
 
-def fp6_add(a, b):
-    return tuple(fp2_add_many(list(zip(a, b))))
-
-
 def fp6_sub(a, b):
     return tuple(fp2_sub_many(list(zip(a, b))))
 
@@ -331,63 +331,28 @@ def fp12_one_like(a):
     return ((one2, z2, z2), (z2, z2, z2))
 
 
+def fp12_pack(a):
+    """Fp12 tuple -> the pairing kernels' packed (12, N, 24) operand
+    (coefficient-major: c0.c0.re, c0.c0.im, ..., c1.c2.im)."""
+    ts = [c for f6 in a for f2 in f6 for c in f2]
+    return _stack(ts, _shape_of(ts))
+
+
+def fp12_unpack(x):
+    """Packed (12, N, 24) -> Fp12 tuple of (N, 24) views."""
+    c = x.unbind(0)
+    f2 = [(c[2 * i], c[2 * i + 1]) for i in range(6)]
+    return ((f2[0], f2[1], f2[2]), (f2[3], f2[4], f2[5]))
+
+
 def fp12_mul(a, b):
-    """Karatsuba over Fp6: 3 Fp6 products in one stacked schedule."""
-    a0, a1 = a
-    b0, b1 = b
-    pre = fp2_add_many(list(zip(a0, a1)) + list(zip(b0, b1)))
-    asum, bsum = tuple(pre[:3]), tuple(pre[3:])
-    v0, v1, v2 = fp6_mul_pairs([(a0, b0), (a1, b1), (asum, bsum)])
-    c0 = fp6_add(v0, fp6_mul_v(v1))
-    c1 = fp6_sub(v2, fp6_add(v0, v1))
-    return (c0, c1)
+    """Fp12 product: ONE fp12_mul kernel launch."""
+    return fp12_unpack(K.fp12_mul(FP, fp12_pack(a), fp12_pack(b)))
 
 
 def fp12_sqr(a):
-    a0, a1 = a
-    pre = fp2_add_many(list(zip(a0, a1)) + list(zip(a0, fp6_mul_v(a1))))
-    s, t_in = tuple(pre[:3]), tuple(pre[3:])
-    v0, t = fp6_mul_pairs([(a0, a1), (s, t_in)])
-    c0 = fp6_sub(fp6_sub(t, v0), fp6_mul_v(v0))
-    c1 = fp6_add(v0, v0)
-    return (c0, c1)
-
-
-def fp12_cyclotomic_sqr(f):
-    """Granger-Scott squaring for cyclotomic-subgroup elements: 9 Fp2
-    squares in one fp2_sqr launch + stacked combinations."""
-    a, b = f
-    z = (a[0], b[1], b[0], a[2], a[1], b[2])
-    sums = fp2_add_many([(z[0], z[1]), (z[2], z[3]), (z[4], z[5])])
-    sq = fp2_sqr_many([z[0], z[1], z[2], z[3], z[4], z[5]] + sums)
-    # fp4 squares: c0 = t0 + xi t1, c1 = (a+b)^2 - t0 - t1
-    xi_t1 = fp2_mul_xi_many([sq[1], sq[3], sq[5]])
-    t00 = fp2_add(sq[0], xi_t1[0])
-    t20 = fp2_add(sq[2], xi_t1[1])
-    t40 = fp2_add(sq[4], xi_t1[2])
-    t01, t21, t41 = fp2_sub_many([
-        (sq[6], fp2_add(sq[0], sq[1])),
-        (sq[7], fp2_add(sq[2], sq[3])),
-        (sq[8], fp2_add(sq[4], sq[5])),
-    ])
-
-    def m3m2(t, zz):  # 3t - 2z
-        r = fp2_sub(t, zz)
-        r = fp2_add(r, r)
-        return fp2_add(r, t)
-
-    def p3p2(t, zz):  # 3t + 2z
-        r = fp2_add(t, zz)
-        r = fp2_add(r, r)
-        return fp2_add(r, t)
-
-    z0n = m3m2(t00, z[0])
-    z1n = p3p2(t01, z[1])
-    z2n = p3p2(fp2_mul_xi(t41), z[2])
-    z3n = m3m2(t40, z[3])
-    z4n = m3m2(t20, z[4])
-    z5n = p3p2(t21, z[5])
-    return ((z0n, z4n, z3n), (z2n, z1n, z5n))
+    """Generic Fp12 square: ONE fp12_sqr kernel launch."""
+    return fp12_unpack(K.fp12_sqr(FP, fp12_pack(a)))
 
 
 def fp12_conj(a):
@@ -426,3 +391,127 @@ def fp12_is_one(a):
 
 def fp12_decode(a):
     return tuple(tuple(fp2_decode(c2) for c2 in c6) for c6 in a)
+
+
+# ----------------------------------------------------------------------------
+# plain Fp12 layer: the plain versions of the pairing kernels' tower
+# ----------------------------------------------------------------------------
+# A packed (12, N, 24) Fp12 is viewed as (2, 3, 2, N, 24): an Fp2 is a
+# (..., 2, N, 24) tensor and an Fp6 a (..., 3, 2, N, 24) one; leading axes
+# stack independent values, so a group of Fp2 products is ONE fp2_mul_plain
+# call.  The bodies compute what the JAX kernel bodies compute
+# (ops/pallas/kernels.py _f6_mul .. _f12_sqr, _gs_body) and call only the
+# plain field functions, so they launch none of the port's kernels on any
+# device.
+
+class F2:
+    """Plain Fp2 arithmetic on (..., 2, N, 24) tensors (the counterpart of
+    the JAX kernels' _F2Rows); operands broadcast, results are canonical."""
+
+    @staticmethod
+    def add(a, b):
+        return FP.add_plain(*torch.broadcast_tensors(a, b))
+
+    @staticmethod
+    def sub(a, b):
+        return FP.sub_plain(*torch.broadcast_tensors(a, b))
+
+    @staticmethod
+    def neg(a):
+        return FP.sub_plain(torch.zeros_like(a), a)
+
+    @staticmethod
+    def triple(a):
+        return FP.add_plain(FP.add_plain(a, a), a)
+
+    @staticmethod
+    def xi(a):
+        """a * (1 + u)"""
+        a0, a1 = a.unbind(-3)
+        return torch.stack([FP.sub_plain(a0, a1), FP.add_plain(a0, a1)], -3)
+
+    @staticmethod
+    def mul(a, b):
+        a, b = torch.broadcast_tensors(a, b)
+        return torch.stack(fp2_mul_plain(*a.unbind(-3), *b.unbind(-3)), -3)
+
+    @staticmethod
+    def sqr(a):
+        return torch.stack(fp2_sqr_plain(*a.unbind(-3)), -3)
+
+    @staticmethod
+    def muls(a, s):
+        """a * s for an Fp scalar s (..., N, 24)"""
+        return FP.mul_plain(*torch.broadcast_tensors(a, s.unsqueeze(-3)))
+
+    @staticmethod
+    def stack(*xs):
+        """Fp2 tensors -> one (..., len(xs), 2, N, 24) stack."""
+        return torch.stack(xs, -4)
+
+
+def fp6_mul_v_plain(a):
+    """(a0, a1, a2) * v = (xi a2, a0, a1) on (..., 3, 2, N, 24)."""
+    return torch.cat([F2.xi(a[..., 2:, :, :, :]), a[..., :2, :, :, :]], -4)
+
+
+def fp6_mul_plain(a, b):
+    """Toom/Karatsuba Fp6 product on (..., 3, 2, N, 24) tensors: its 6 Fp2
+    products in one call (the JAX kernels' _f6_mul)."""
+    a, b = torch.broadcast_tensors(a, b)
+    (a0, a1, a2), (b0, b1, b2) = a.unbind(-4), b.unbind(-4)
+    s = F2.add(F2.stack(a1, a0, a0, b1, b0, b0), F2.stack(a2, a1, a2, b2, b1, b2))
+    v0, v1, v2, t12, t01, t02 = F2.mul(
+        torch.cat([a, s[..., :3, :, :, :]], -4), torch.cat([b, s[..., 3:, :, :, :]], -4)
+    ).unbind(-4)
+    sums = F2.add(F2.stack(v1, v0, v0), F2.stack(v2, v1, v2))
+    d12, d01, d02 = F2.sub(F2.stack(t12, t01, t02), sums).unbind(-4)
+    x12, x2 = F2.xi(F2.stack(d12, v2)).unbind(-4)
+    return F2.add(F2.stack(v0, d01, d02), F2.stack(x12, x2, v1))
+
+
+def fp12_view(x):
+    """Packed (12, N, 24) -> its (2, 3, 2, N, 24) view."""
+    return x.reshape(2, 3, 2, *x.shape[-2:])
+
+
+def fp12_mul_plain(a, b):
+    """Plain version of the fp12_mul kernel on packed (12, N, 24) operands:
+    Karatsuba over Fp6, its 3 Fp6 products in one call (_f12_mul)."""
+    (a0, a1), (b0, b1) = fp12_view(a).unbind(0), fp12_view(b).unbind(0)
+    asum, bsum = F2.add(torch.stack([a0, b0]), torch.stack([a1, b1])).unbind(0)
+    v0, v1, v2 = fp6_mul_plain(torch.stack([a0, a1, asum]), torch.stack([b0, b1, bsum])).unbind(0)
+    c0, v01 = F2.add(torch.stack([v0, v0]), torch.stack([fp6_mul_v_plain(v1), v1])).unbind(0)
+    return torch.stack([c0, F2.sub(v2, v01)]).flatten(0, 2)
+
+
+def fp12_sqr_plain(a):
+    """Plain version of the fp12_sqr kernel: (a0 + a1 w)^2 from the two Fp6
+    products a0 a1 and (a0 + a1)(a0 + v a1) (_f12_sqr)."""
+    a0, a1 = fp12_view(a).unbind(0)
+    s, t_in = F2.add(torch.stack([a0, a0]), torch.stack([a1, fp6_mul_v_plain(a1)])).unbind(0)
+    v0, t = fp6_mul_plain(torch.stack([a0, s]), torch.stack([a1, t_in])).unbind(0)
+    c0 = F2.sub(F2.sub(t, v0), fp6_mul_v_plain(v0))
+    return torch.stack([c0, F2.add(v0, v0)]).flatten(0, 2)
+
+
+# Granger-Scott z-ordering z = (a0, b1, b0, a2, a1, b2) of f = ((a0, a1, a2),
+# (b0, b1, b2)), as Fp2 indices of the packed element
+_GS_Z = [0, 4, 3, 2, 1, 5]
+
+
+def fp12_cyclotomic_sqr_plain(f):
+    """Granger-Scott square of a packed cyclotomic (12, N, 24) element
+    (_gs_body): its 9 Fp2 squares in one call.  On an element outside the
+    cyclotomic subgroup it computes the same formula, not a square."""
+    z = f.reshape(6, 2, *f.shape[-2:])[_GS_Z]
+    sq = F2.sqr(torch.cat([z, F2.add(z[0::2], z[1::2])]))  # z_i^2, (z0+z1)^2 ...
+    t0 = F2.add(sq[0:6:2], F2.xi(sq[1:6:2]))  # t00, t20, t40
+    t1 = F2.sub(sq[6:], F2.add(sq[0:6:2], sq[1:6:2]))  # t01, t21, t41
+    # 3t - 2z for (t00, z0), (t40, z3), (t20, z4); 3t + 2z for (t01, z1),
+    # (xi t41, z2), (t21, z5)
+    tm, tp = t0[[0, 2, 1]], torch.stack([t1[0], F2.xi(t1[2]), t1[1]])
+    r = torch.cat([F2.sub(tm, z[[0, 3, 4]]), F2.add(tp, z[[1, 2, 5]])])
+    r = F2.add(F2.add(r, r), torch.cat([tm, tp]))  # z0' z3' z4' z1' z2' z5'
+    # f' = ((z0', z4', z3'), (z2', z1', z5'))
+    return r[[0, 2, 1, 4, 3, 5]].reshape(f.shape)

@@ -27,6 +27,8 @@ bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "bls_verify_gadget_tpu"))
 print("BAD", bad)
 print("LOADED", kernels._lib is not None)
+print("SOURCES", all((kernels.CSRC_DIR / n).is_file() for n in kernels.SOURCES)
+      and set(kernels.UNITS) <= set(kernels.SOURCES))
 """
 
 
@@ -38,6 +40,7 @@ def test_port_imports_no_jax_and_builds_nothing():
     assert res.returncode == 0, res.stderr
     assert "BAD []" in res.stdout, res.stdout
     assert "LOADED False" in res.stdout, res.stdout
+    assert "SOURCES True" in res.stdout, res.stdout
 
 
 def test_source_imports_no_jax():
@@ -76,14 +79,22 @@ def test_kernel_wrappers_do_not_fall_back():
     """A tensor that is neither on the CPU nor on a card is refused; the
     plain version runs only for CPU tensors."""
     from bls_verify_gadget_tpu_torch.ops import kernels as K
+    from bls_verify_gadget_tpu_torch.ops import pairing as PR
     from bls_verify_gadget_tpu_torch.ops.fp import FP
 
     a = FP.encode([7, 11], "cpu").to("meta")
+    f, t, q = a.new_zeros(12, 2, 24), a.new_zeros(2, 6, 2, 24), a.new_zeros(2, 4, 2, 24)
+    xp, valid = a.new_zeros(2, 2, 24), torch.ones(2, 2, dtype=torch.bool, device="meta")
     for call in (
         lambda: K.add(FP, a, a),
         lambda: K.sub(FP, a, a),
         lambda: K.fp2_mul(FP, a, a, a, a),
         lambda: K.fp2_sqr(FP, a, a),
+        lambda: K.fp12_mul(FP, f, f),
+        lambda: K.fp12_sqr(FP, f),
+        lambda: K.miller_dbl_run(FP, f, t, xp, xp, valid, 1),
+        lambda: K.miller_add(FP, f, t, q, xp, xp, valid),
+        lambda: K.exp_x(FP, f, PR.X_RUNS),
     ):
         with pytest.raises(ValueError):
             call()

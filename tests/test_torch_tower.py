@@ -176,8 +176,9 @@ def test_fp12_inv_cyclotomic_sqr_is_one():
     gg = [GF.fp12_mul(GF.fp12_frob(u, 6), GF.fp12_inv(u)) for u in gx]
     gg = [GF.fp12_mul(GF.fp12_frob(u, 2), u) for u in gg]
     assert dec12(g) == gg
-    assert dec12(T.fp12_cyclotomic_sqr(g)) == [GF.fp12_cyclotomic_sqr(u) for u in gg]
-    assert dec12(T.fp12_cyclotomic_sqr(g)) == [GF.fp12_sqr(u) for u in gg]
+    gs = T.fp12_unpack(T.fp12_cyclotomic_sqr_plain(T.fp12_pack(g)))
+    assert dec12(gs) == [GF.fp12_cyclotomic_sqr(u) for u in gg]
+    assert dec12(gs) == [GF.fp12_sqr(u) for u in gg]
     one = T.fp12_mul(a, inv)
     assert T.fp12_is_one(one).tolist() == [True] * B
     assert T.fp12_is_one(a).tolist() == [False] * B
