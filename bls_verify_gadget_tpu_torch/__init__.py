@@ -1,9 +1,11 @@
 """bls_verify_gadget_tpu_torch: the PyTorch/CUDA port of bls_verify_gadget_tpu.
 
 Batched BLS12-381 signature verification (ETH2 ciphersuite) on an NVIDIA
-Hopper card.  The field arithmetic runs through hand-written CUDA C++
-kernels (csrc/, built with nvcc on first use and loaded with ctypes); the
-tower, curve, hash and pairing layers are plain PyTorch over those kernels.
+Hopper card.  The field arithmetic, the pairing's Miller runs and
+exp-by-x chains, the hash map and cofactor clearing, the subgroup ladders
+and the Fermat inverse run through hand-written CUDA C++ kernels (csrc/,
+built with nvcc on first use and loaded with ctypes); the glue between
+them is plain PyTorch.
 Every tensor entry point runs on `cuda` unless the caller passes
 device="cpu", where each kernel's plain PyTorch version runs instead.
 

@@ -1,13 +1,14 @@
 // The port's pairing kernels for Hopper (sm_90a), with a plain C interface
-// loaded through ctypes by ops/kernels.py: the Fp12 product and square,
+// loaded through ctypes by ops/kernels.py: the Fp6 product (of the Fp12
+// inverse), the Fp12 product and square,
 // the Miller loop's doubling runs and addition blocks, and the final
 // exponentiation's whole exp-by-|x| chain.
 //
 // Layout.  Every kernel reads ONE packed operand buffer and writes one
 // packed output buffer, both (c, n, 24) int32: coordinate j of batch
 // element i is the 24-limb row at ((j * n) + i) * 24, 16-bit Montgomery
-// limbs as in field_kernels.cu.  An Fp12 is 12 coordinates in
-// coefficient-major order (c0.c0.re, c0.c0.im, ..., c1.c2.im).  The Miller
+// limbs as in field_kernels.cu.  An Fp6 is 6 coordinates and an Fp12 12,
+// in coefficient-major order (c0.c0.re, c0.c0.im, ..., c1.c2.im).  The Miller
 // kernels also take the pairs' valid masks as (k, n) int32.
 //
 // What bounds them, and the design.  One thread runs one batch element
@@ -34,9 +35,7 @@ namespace {
 // One warp per block: at the main path's 4096 elements, 128 blocks spread
 // over 128 of the 132 SMs instead of stacking 2-4 warps on a quarter of them.
 constexpr int kThreads = 32;
-constexpr int kLimbs = 2 * bls::kFpWords;
 constexpr int kPairs = 2;  // pairs per Miller launch (ops/kernels.py PAIRS)
-constexpr int kMaxSegments = 64;  // runs of a 64-bit exponent
 
 inline unsigned grid_for(long long n) {
   return (unsigned)((n + kThreads - 1) / kThreads);
@@ -44,62 +43,42 @@ inline unsigned grid_for(long long n) {
 
 }  // namespace
 
-// The runs of the exponent after its top bit, by value in the parameter
-// bank: segment s squares len[s] times, then multiplies by m iff mul[s].
-struct ExpSegments {
-  int count;
-  int len[kMaxSegments];
-  int mul[kMaxSegments];
-};
-
 namespace bls_kernels {
 
 using bls::Fp;
 using bls::Fp12;
 using bls::Fp2;
+using bls::Fp6;
 using bls::FpModulus;
 using bls::G2Proj;
 using bls::Line;
+using bls::load_fp;
+using bls::load_fp2;
+using bls::store_fp;
+using bls::store_fp2;
 
-__device__ __forceinline__ Fp load_fp(const int32_t* buf, int j, long long n,
-                                      long long i) {
-  Fp r;
-  bls::load_words<bls::kFpWords>(buf + ((long long)j * n + i) * kLimbs, r.w);
-  return r;
+__device__ __forceinline__ Fp6 load_fp6(const int32_t* buf, int j,
+                                        long long n, long long i) {
+  return {load_fp2(buf, j, n, i), load_fp2(buf, j + 2, n, i),
+          load_fp2(buf, j + 4, n, i)};
 }
 
-__device__ __forceinline__ Fp2 load_fp2(const int32_t* buf, int j,
-                                        long long n, long long i) {
-  return {load_fp(buf, j, n, i), load_fp(buf, j + 1, n, i)};
+__device__ __forceinline__ void store_fp6(int32_t* buf, int j, long long n,
+                                          long long i, const Fp6& a) {
+  store_fp2(buf, j, n, i, a.c0);
+  store_fp2(buf, j + 2, n, i, a.c1);
+  store_fp2(buf, j + 4, n, i, a.c2);
 }
 
 __device__ __forceinline__ Fp12 load_fp12(const int32_t* buf, int j,
                                           long long n, long long i) {
-  return {{load_fp2(buf, j, n, i), load_fp2(buf, j + 2, n, i),
-           load_fp2(buf, j + 4, n, i)},
-          {load_fp2(buf, j + 6, n, i), load_fp2(buf, j + 8, n, i),
-           load_fp2(buf, j + 10, n, i)}};
-}
-
-__device__ __forceinline__ void store_fp(int32_t* buf, int j, long long n,
-                                         long long i, const Fp& a) {
-  bls::store_words<bls::kFpWords>(buf + ((long long)j * n + i) * kLimbs, a.w);
-}
-
-__device__ __forceinline__ void store_fp2(int32_t* buf, int j, long long n,
-                                          long long i, const Fp2& a) {
-  store_fp(buf, j, n, i, a.c0);
-  store_fp(buf, j + 1, n, i, a.c1);
+  return {load_fp6(buf, j, n, i), load_fp6(buf, j + 6, n, i)};
 }
 
 __device__ __forceinline__ void store_fp12(int32_t* buf, int j, long long n,
                                            long long i, const Fp12& a) {
-  store_fp2(buf, j, n, i, a.c0.c0);
-  store_fp2(buf, j + 2, n, i, a.c0.c1);
-  store_fp2(buf, j + 4, n, i, a.c0.c2);
-  store_fp2(buf, j + 6, n, i, a.c1.c0);
-  store_fp2(buf, j + 8, n, i, a.c1.c1);
-  store_fp2(buf, j + 10, n, i, a.c1.c2);
+  store_fp6(buf, j, n, i, a.c0);
+  store_fp6(buf, j + 6, n, i, a.c1);
 }
 
 __device__ __forceinline__ G2Proj load_point(const int32_t* buf, int j,
@@ -115,7 +94,20 @@ __device__ __forceinline__ void store_point(int32_t* buf, int j, long long n,
   store_fp2(buf, j + 4, n, i, t.Z);
 }
 
-// Replaces _fp12mul_kernel (bls_verify_gadget_tpu/ops/pallas/kernels.py:584):
+// Replaces _fp6mul_kernel (bls_verify_gadget_tpu/ops/pallas/kernels.py:291):
+// in (12, n) = a then b, out (6, n).  18 Montgomery products (6 Fp2
+// Karatsuba products), 18 Fp in or out per element: ~0.65 ns of operations
+// against ~0.5 ns of bytes.
+__global__ void __launch_bounds__(kThreads)
+    fp6_mul_kernel(const int32_t* __restrict__ in, int32_t* __restrict__ out,
+                   long long n, FpModulus M) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  store_fp6(out, 0, n, i,
+            bls::f6_mul(load_fp6(in, 0, n, i), load_fp6(in, 6, n, i), M));
+}
+
+// Replaces _fp12mul_kernel (kernels.py:584):
 // in (24, n) = a then b, out (12, n).  54 Montgomery products, 36 Fp in or
 // out per element: ~1.9 ns of operations against ~1.0 ns of bytes.
 __global__ void __launch_bounds__(kThreads)
@@ -220,7 +212,7 @@ __global__ void __launch_bounds__(kThreads)
 // against ~0.7 ns of bytes per element.
 __global__ void __launch_bounds__(kThreads)
     exp_x_kernel(const int32_t* __restrict__ in, int32_t* __restrict__ out,
-                 long long n, FpModulus M, ExpSegments segs) {
+                 long long n, FpModulus M, bls::Segments segs) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   const Fp12 m = load_fp12(in, 0, n, i);
@@ -235,6 +227,14 @@ __global__ void __launch_bounds__(kThreads)
 }  // namespace bls_kernels
 
 extern "C" {
+
+int bls_fp6_mul(const int32_t* in, int32_t* out, long long n,
+                const uint32_t* p, unsigned n0, void* stream) {
+  bls_kernels::fp6_mul_kernel<<<grid_for(n), kThreads, 0,
+                                (cudaStream_t)stream>>>(
+      in, out, n, bls::make_modulus<bls::kFpWords>(p, n0));
+  return (int)cudaGetLastError();
+}
 
 int bls_fp12_mul(const int32_t* in, int32_t* out, long long n,
                  const uint32_t* p, unsigned n0, void* stream) {
@@ -272,8 +272,8 @@ int bls_miller_add(const int32_t* in, const int32_t* valid, int32_t* out,
 int bls_exp_x(const int32_t* in, int32_t* out, long long n, const int* lens,
               const int* muls, int nseg, const uint32_t* p, unsigned n0,
               void* stream) {
-  if (nseg < 0 || nseg > kMaxSegments) return (int)cudaErrorInvalidValue;
-  ExpSegments segs = {};
+  if (nseg < 0 || nseg > bls::kMaxSegments) return (int)cudaErrorInvalidValue;
+  bls::Segments segs = {};
   segs.count = nseg;
   for (int s = 0; s < nseg; ++s) {
     segs.len[s] = lens[s];

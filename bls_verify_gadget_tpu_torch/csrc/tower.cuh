@@ -16,7 +16,9 @@
 // square, the Fp6/Fp12 products, the Miller steps, the Granger-Scott
 // square).  A doubling iteration has 176 Montgomery products; inlined they
 // would take nvcc minutes and overflow the instruction cache.  Additions
-// and subtractions (two 12-word carry chains each) are inlined.
+// and subtractions (two 12-word carry chains each) are inlined.  The
+// __noinline__ functions are static: nvcc emits a host definition of each,
+// and two units that include this header are linked into one library.
 #pragma once
 
 #include "field.cuh"
@@ -44,6 +46,51 @@ struct G2Proj {  // homogeneous projective point on the twist
 struct Line {  // sparse line value c0 + c1 v + c4 v w
   Fp2 c0, c1, c4;
 };
+
+// The runs of a host-constant exponent or scalar after its top bit, by
+// value in the parameter bank: segment s squares (doubles) len[s] times,
+// then multiplies (adds) the base iff mul[s].
+constexpr int kMaxSegments = 64;  // runs of a 64-bit exponent
+struct Segments {
+  int count;
+  int len[kMaxSegments];
+  int mul[kMaxSegments];
+};
+
+// Host side: an Fp from 12 host words (a Montgomery constant).
+inline Fp make_fp(const uint32_t* w) {
+  Fp r;
+  for (int j = 0; j < kFpWords; ++j) r.w[j] = w[j];
+  return r;
+}
+
+// ------------------------------------------------- packed (c, n, 24) operands
+// Coordinate j of batch element i is the 24-limb row at ((j * n) + i) * 24.
+
+constexpr int kLimbs = 2 * kFpWords;
+
+__device__ __forceinline__ Fp load_fp(const int32_t* buf, int j, long long n,
+                                      long long i) {
+  Fp r;
+  load_words<kFpWords>(buf + ((long long)j * n + i) * kLimbs, r.w);
+  return r;
+}
+
+__device__ __forceinline__ Fp2 load_fp2(const int32_t* buf, int j,
+                                        long long n, long long i) {
+  return {load_fp(buf, j, n, i), load_fp(buf, j + 1, n, i)};
+}
+
+__device__ __forceinline__ void store_fp(int32_t* buf, int j, long long n,
+                                         long long i, const Fp& a) {
+  store_words<kFpWords>(buf + ((long long)j * n + i) * kLimbs, a.w);
+}
+
+__device__ __forceinline__ void store_fp2(int32_t* buf, int j, long long n,
+                                          long long i, const Fp2& a) {
+  store_fp(buf, j, n, i, a.c0);
+  store_fp(buf, j + 1, n, i, a.c1);
+}
 
 // ---------------------------------------------------------------- Fp
 
@@ -75,7 +122,7 @@ __device__ __forceinline__ Fp fp_lazy_add(const Fp& a, const Fp& b) {
   return r;
 }
 
-__device__ __noinline__ Fp fp_mul(const Fp& a, const Fp& b,
+static __device__ __noinline__ Fp fp_mul(const Fp& a, const Fp& b,
                                   const FpModulus& M) {
   Fp r;
   mont_mul<kFpWords>(a.w, b.w, r.w, M);
@@ -125,7 +172,7 @@ __device__ __forceinline__ Fp2 f2_triple(const Fp2& a, const FpModulus& M) {
 }
 
 // Karatsuba with 3 Montgomery products (_fp2_mul_rows; the fp2_mul kernel).
-__device__ __noinline__ Fp2 f2_mul(const Fp2& a, const Fp2& b,
+static __device__ __noinline__ Fp2 f2_mul(const Fp2& a, const Fp2& b,
                                    const FpModulus& M) {
   const Fp v0 = fp_mul(a.c0, b.c0, M);
   const Fp v1 = fp_mul(a.c1, b.c1, M);
@@ -134,7 +181,7 @@ __device__ __noinline__ Fp2 f2_mul(const Fp2& a, const Fp2& b,
 }
 
 // (a0 + a1)(a0 - a1) + 2 a0 a1 u with 2 Montgomery products (_F2Rows.sqr).
-__device__ __noinline__ Fp2 f2_sqr(const Fp2& a, const FpModulus& M) {
+static __device__ __noinline__ Fp2 f2_sqr(const Fp2& a, const FpModulus& M) {
   const Fp re = fp_mul(fp_lazy_add(a.c0, a.c1), fp_sub(a.c0, a.c1, M), M);
   const Fp m = fp_mul(a.c0, a.c1, M);
   return {re, fp_add(m, m, M)};
@@ -171,7 +218,7 @@ __device__ __forceinline__ Fp6 f6_mul_v(const Fp6& a, const FpModulus& M) {
 }
 
 // Toom/Karatsuba product with 6 Fp2 products (_f6_mul).
-__device__ __noinline__ Fp6 f6_mul(const Fp6& a, const Fp6& b,
+static __device__ __noinline__ Fp6 f6_mul(const Fp6& a, const Fp6& b,
                                    const FpModulus& M) {
   const Fp2 v0 = f2_mul(a.c0, b.c0, M);
   const Fp2 v1 = f2_mul(a.c1, b.c1, M);
@@ -210,7 +257,7 @@ __device__ __forceinline__ Fp6 f6_mul_by_1(const Fp6& a, const Fp2& d1,
 // Fp12 = Fp6[w]/(w^2 - v) (kernels.py:492-544).
 
 // Karatsuba over Fp6: 3 Fp6 products, 54 Montgomery products (_f12_mul).
-__device__ __noinline__ Fp12 f12_mul(const Fp12& a, const Fp12& b,
+static __device__ __noinline__ Fp12 f12_mul(const Fp12& a, const Fp12& b,
                                      const FpModulus& M) {
   const Fp6 v0 = f6_mul(a.c0, b.c0, M);
   const Fp6 v1 = f6_mul(a.c1, b.c1, M);
@@ -220,7 +267,7 @@ __device__ __noinline__ Fp12 f12_mul(const Fp12& a, const Fp12& b,
 }
 
 // Generic square: 2 Fp6 products, 36 Montgomery products (_f12_sqr).
-__device__ __noinline__ Fp12 f12_sqr(const Fp12& a, const FpModulus& M) {
+static __device__ __noinline__ Fp12 f12_sqr(const Fp12& a, const FpModulus& M) {
   const Fp6 s = f6_add(a.c0, a.c1, M);
   const Fp6 t_in = f6_add(a.c0, f6_mul_v(a.c1, M), M);
   const Fp6 v0 = f6_mul(a.c0, a.c1, M);
@@ -229,7 +276,7 @@ __device__ __noinline__ Fp12 f12_sqr(const Fp12& a, const FpModulus& M) {
 }
 
 // f * (c0 + c1 v + c4 v w): 15 Fp2 products (_f12_mul_014).
-__device__ __noinline__ Fp12 f12_mul_014(const Fp12& f, const Line& l,
+static __device__ __noinline__ Fp12 f12_mul_014(const Fp12& f, const Line& l,
                                          const FpModulus& M) {
   const Fp6 v0 = f6_mul_by_01(f.c0, l.c0, l.c1, M);
   const Fp6 v1 = f6_mul_by_1(f.c1, l.c4, M);
@@ -241,7 +288,7 @@ __device__ __noinline__ Fp12 f12_mul_014(const Fp12& f, const Line& l,
 // Granger-Scott square of a cyclotomic element: 9 Fp2 squares, 18
 // Montgomery products (_gs_body, kernels.py:1377, in the z-ordering
 // z = (a0, b1, b0, a2, a1, b2) of f = ((a0, a1, a2), (b0, b1, b2))).
-__device__ __noinline__ Fp12 f12_cyclotomic_sqr(const Fp12& f,
+static __device__ __noinline__ Fp12 f12_cyclotomic_sqr(const Fp12& f,
                                                 const FpModulus& M) {
   const Fp2 z0 = f.c0.c0, z1 = f.c1.c1, z2 = f.c1.c0;
   const Fp2 z3 = f.c0.c2, z4 = f.c0.c1, z5 = f.c1.c2;
@@ -278,7 +325,7 @@ __device__ __noinline__ Fp12 f12_cyclotomic_sqr(const Fp12& f,
 // Doubling step: T <- 2T, returns the line (e - b, 3 X^2 xp, -h yp).  The
 // twist coefficient b' = 4(1 + u) enters as e = 4 xi(3 Z^2), without a
 // product (_miller_dbl_rows).
-__device__ __noinline__ Line miller_dbl_step(G2Proj& T, const Fp& xp,
+static __device__ __noinline__ Line miller_dbl_step(G2Proj& T, const Fp& xp,
                                              const Fp& yp,
                                              const FpModulus& M) {
   const Fp2 a = f2_half(f2_mul(T.X, T.Y, M), M);
@@ -301,7 +348,7 @@ __device__ __noinline__ Line miller_dbl_step(G2Proj& T, const Fp& xp,
 
 // Mixed addition step with affine Q = (xq, yq): T <- T + Q, returns the
 // line (theta xq - lambda yq, -theta xp, lambda yp) (_miller_add_rows).
-__device__ __noinline__ Line miller_add_step(G2Proj& T, const Fp2& xq,
+static __device__ __noinline__ Line miller_add_step(G2Proj& T, const Fp2& xq,
                                              const Fp2& yq, const Fp& xp,
                                              const Fp& yp,
                                              const FpModulus& M) {

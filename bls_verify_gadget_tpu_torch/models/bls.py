@@ -20,7 +20,7 @@ from ..ops.fp import FP, resolve_device
 from ..ops import tower as T
 from ..ops import curve as CV
 from ..ops import pairing as PR
-from ..ops.hash_to_g2 import hash_to_g2
+from ..ops.hash_to_g2 import hash_to_g2_steps
 
 
 @dataclasses.dataclass
@@ -51,14 +51,24 @@ class BatchedBLS:
             return tuple(self._to(v) for v in x)
         return x.to(self.device)
 
+    @staticmethod
+    def hash_parts(msg_len: int):
+        """Stage 1 as its ordered parts [(name, fn)]: hash_to_g2's steps,
+        then the affine conversion; each fn takes the previous part's
+        output, the first the (B, msg_len) message bytes."""
+        return [*hash_to_g2_steps(msg_len),
+                ("pt_to_affine", lambda h: CV.pt_to_affine(CV.FP2_OPS, h))]
+
     def hash_stage(self, msg_u8, msg_len: int | None = None):
         """Stage 1 of verify: h = hash_to_g2(msg) as affine coordinates
         (x, y, is_inf) for the mixed-addition Miller loop."""
         msg_u8 = self._to(msg_u8)
         if msg_len is not None and msg_len != msg_u8.shape[-1]:
             raise ValueError(f"msg_len {msg_len} != message width {msg_u8.shape[-1]}")
-        h_jac = hash_to_g2(msg_u8, msg_u8.shape[-1])
-        return CV.pt_to_affine(CV.FP2_OPS, h_jac)
+        x = msg_u8
+        for _, part in self.hash_parts(msg_u8.shape[-1]):
+            x = part(x)
+        return x
 
     def miller_stage(self, pk_aff, sig_aff, h_aff):
         """Stage 2a: validity checks + the shared two-pair Miller loop for

@@ -8,14 +8,19 @@ are Fp limb tensors for G1 and Fp2 pairs for G2.  All ops are complete
 
 Constant-scalar ladders use the static run structure (doubling runs plus
 one addition per set bit), the form the JAX package runs on its
-accelerator; Python loops replace its lax.scan.
+accelerator: each ladder is ONE pt_mul_const kernel launch, and the G2
+cofactor clearing ONE g2_cofactor launch (ops/kernels.py).  Their plain
+versions are here: the generic point bodies below over two coordinate
+adapters that call only the plain field functions.
 """
 
 import torch
 
 from .. import constants as C
 from .fp import FP
+from . import kernels as K
 from . import tower as T
+from .tower import F2
 
 
 class _FpOps:
@@ -57,8 +62,53 @@ class _Fp2Ops:
     const = staticmethod(T._bcast)
 
 
+def _plain_mul_pairs(mul):
+    def mul_pairs(pairs):
+        a, b = torch.broadcast_tensors(torch.stack([p[0] for p in pairs]),
+                                       torch.stack([p[1] for p in pairs]))
+        return list(mul(a, b).unbind(0))
+    return staticmethod(mul_pairs)
+
+
+class _FpPlainOps:
+    """Coordinate-field adapter of the plain versions: Fp as (N, 24)
+    tensors, plain field functions only (no kernel launch on any device)."""
+    name = "fp"
+
+    add = staticmethod(lambda a, b: FP.add_plain(*torch.broadcast_tensors(a, b)))
+    sub = staticmethod(lambda a, b: FP.sub_plain(*torch.broadcast_tensors(a, b)))
+    neg = staticmethod(lambda a: FP.sub_plain(torch.zeros_like(a), a))
+    sqr = staticmethod(lambda a: FP.mul_plain(a, a))
+    cmov = staticmethod(FP.cmov)
+    is_zero = staticmethod(FP.is_zero)
+    mul_pairs = _plain_mul_pairs(FP.mul_plain)
+    zero_like = staticmethod(torch.zeros_like)
+    one_like = staticmethod(FP.one_like)
+
+
+class _Fp2PlainOps:
+    """Coordinate-field adapter of the plain versions: Fp2 as (2, N, 24)
+    tensors (tower.F2)."""
+    name = "fp2"
+
+    add = staticmethod(F2.add)
+    sub = staticmethod(F2.sub)
+    neg = staticmethod(F2.neg)
+    sqr = staticmethod(F2.sqr)
+    cmov = staticmethod(lambda cond, a, b: torch.where(cond[..., :, None], a, b))
+    is_zero = staticmethod(F2.is_zero)
+    mul_pairs = _plain_mul_pairs(F2.mul)
+    zero_like = staticmethod(torch.zeros_like)
+
+    @staticmethod
+    def one_like(a):
+        return torch.stack([FP.one_like(a[0]), torch.zeros_like(a[1])])
+
+
 FP_OPS = _FpOps()
 FP2_OPS = _Fp2Ops()
+FP_PLAIN = _FpPlainOps()
+FP2_PLAIN = _Fp2PlainOps()
 
 
 # ----------------------------------------------------------------------------
@@ -202,18 +252,96 @@ def run_segments(scalar: int):
     return segs
 
 
+X_SEGMENTS = run_segments(C.ABS_X)  # |x|: runs 1, 2, 3, 9, 32 on set bits, then 16
+
+
+def _coords_of(ops, p):
+    return list(p) if ops.name == "fp" else [c for x in p for c in x]
+
+
+def pack_point(ops, p):
+    """Jacobian point of `ops` -> the point kernels' packed (3c, N, 24)
+    operand."""
+    coords = _coords_of(ops, p)
+    shape = torch.broadcast_shapes(*[c.shape for c in coords])
+    return torch.stack([c.expand(shape) for c in coords]).reshape(len(coords), -1, shape[-1])
+
+
+def unpack_point(ops, packed, shape=None):
+    """Packed (3c, N, 24) -> a Jacobian point of `ops`, each coordinate
+    viewed as `shape` (default (N, 24)): an Fp2 one a pair of them, or one
+    (2, N, 24) tensor for FP2_PLAIN."""
+    c = packed.view(packed.shape[0], *(shape or packed.shape[1:]))
+    if ops is FP2_PLAIN:
+        return tuple(c.view(3, 2, *c.shape[1:]).unbind(0))
+    c = c.unbind(0)
+    if ops.name == "fp":
+        return c
+    return ((c[0], c[1]), (c[2], c[3]), (c[4], c[5]))
+
+
+def _packed_call(ops, p, kernel, *args):
+    """A point kernel on the point p of `ops`, result shaped as p."""
+    shape = torch.broadcast_shapes(*[c.shape for c in _coords_of(ops, p)])
+    return unpack_point(ops, kernel(FP, pack_point(ops, p), *args), shape)
+
+
 def pt_mul_const(ops, p, scalar: int):
-    """p * scalar for a host-constant non-negative scalar: doubling runs
-    plus one complete addition per set bit (static bit pattern)."""
+    """p * scalar for a host-constant non-negative scalar: ONE pt_mul_const
+    launch runs the whole static ladder (doubling runs plus one complete
+    addition per set bit); scalar 1 returns p without a launch."""
     if scalar == 0:
         return pt_infinity_like(ops, p)
-    acc = p  # top set bit
-    for run, add in run_segments(scalar):
+    segs = run_segments(scalar)
+    if not segs:
+        return p
+    return _packed_call(ops, p, K.pt_mul_const, segs)
+
+
+def _ladder_plain(ops, base, segments):
+    """acc = base at the top bit, then per segment len doublings and a
+    complete addition of the base where it ends on a set bit (the JAX
+    kernels' _ladder_rows)."""
+    acc = base
+    for run, add in segments:
         for _ in range(run):
             acc = pt_double(ops, acc)
         if add:
-            acc = pt_add(ops, acc, p)
+            acc = pt_add(ops, acc, base)
     return acc
+
+
+def pt_mul_const_plain(p, segments):
+    """Plain version of the pt_mul_const kernel (same operands)."""
+    ops = FP_PLAIN if p.shape[0] == 3 else FP2_PLAIN
+    return pack_point(ops, _ladder_plain(ops, unpack_point(ops, p), segments))
+
+
+def g2_cofactor_plain(p, segments):
+    """Plain version of the g2_cofactor kernel: Budroni-Pintore in the order
+    of the JAX kernel's add schedule (_g2cofactor_kernel), which is that of
+    the JAX package's unfused g2_clear_cofactor."""
+    ops = FP2_PLAIN
+    P = unpack_point(ops, p)
+    dev = p.device
+    cx, cy = (torch.stack([FP.constant(c, dev) for c in k])[:, None] for k in (C.PSI_X, C.PSI_Y))
+    c2 = FP.constant(C.PSI2_X_C0, dev)[None]
+
+    def psi(q):
+        return (F2.mul(F2.conj(q[0]), cx), F2.mul(F2.conj(q[1]), cy), F2.conj(q[2]))
+
+    def psi2(q):
+        return (F2.muls(q[0], c2), F2.neg(q[1]), q[2])
+
+    xp = pt_neg(ops, _ladder_plain(ops, P, segments))       # [x]P
+    xxp = pt_neg(ops, _ladder_plain(ops, xp, segments))     # [x^2]P
+    neg_p = pt_neg(ops, P)
+    aux = pt_add(ops, xp, neg_p)                            # [x - 1]P
+    acc = pt_add(ops, xxp, pt_neg(ops, xp))
+    acc = pt_add(ops, acc, neg_p)                           # [x^2 - x - 1]P
+    acc = pt_add(ops, acc, psi(aux))
+    acc = pt_add(ops, acc, psi2(pt_double(ops, P)))         # + psi^2(2P)
+    return pack_point(ops, acc)
 
 
 # ----------------------------------------------------------------------------
@@ -238,13 +366,6 @@ def g2_psi(p):
     return (rx, ry, T.fp2_conj(z))
 
 
-def g2_psi2(p):
-    """psi^2 (x, y) = (PSI2_X x, -y)."""
-    x, y, z = p
-    rx = T.fp2_muls(x, FP_OPS.const(C.PSI2_X_C0, x[0]))
-    return (rx, T.fp2_neg(y), z)
-
-
 def g1_in_subgroup(p):
     """[|x|]([|x|]P) == -phi(P)."""
     xxp = pt_mul_const(FP_OPS, pt_mul_const(FP_OPS, p, C.ABS_X), C.ABS_X)
@@ -258,14 +379,9 @@ def g2_in_subgroup(p):
 
 
 def g2_clear_cofactor(p):
-    """Budroni-Pintore: [x^2 - x - 1]P + [x - 1]psi(P) + psi2(2P)."""
-    xp = pt_neg(FP2_OPS, pt_mul_const(FP2_OPS, p, C.ABS_X))       # [x]P
-    xxp = pt_neg(FP2_OPS, pt_mul_const(FP2_OPS, xp, C.ABS_X))     # [x^2]P
-    t = pt_add(FP2_OPS, xxp, pt_neg(FP2_OPS, xp))
-    t = pt_add(FP2_OPS, t, pt_neg(FP2_OPS, p))                    # [x^2-x-1]P
-    t2 = g2_psi(pt_add(FP2_OPS, xp, pt_neg(FP2_OPS, p)))          # psi([x-1]P)
-    t3 = g2_psi2(pt_double(FP2_OPS, p))                           # psi2(2P)
-    return pt_add(FP2_OPS, pt_add(FP2_OPS, t, t2), t3)
+    """Budroni-Pintore [x^2 - x - 1]P + [x - 1]psi(P) + psi2(2P): ONE
+    g2_cofactor launch."""
+    return _packed_call(FP2_OPS, p, K.g2_cofactor, X_SEGMENTS)
 
 
 # ----------------------------------------------------------------------------

@@ -6,11 +6,12 @@ tensors (..., nlimb): limbs canonical in [0, 2^16), values canonical in
 [0, m), in Montgomery form with R = 2^(16*nlimb).  One ModField serves Fp
 (24 limbs) and Fr (16 limbs): the instances FP and FR.
 
-mul/add/sub go through ops/kernels.py: a CUDA tensor launches the
-hand-written kernel, a CPU tensor runs the plain versions defined here
-(mul_plain/add_plain/sub_plain).  The plain versions compute in int64 --
-a 16x16-bit product overflows int32, and torch's CPU uint32 lacks add,
-shift and compare -- and return exactly the kernels' canonical limbs.
+mul/add/sub and the Fp power go through ops/kernels.py: a CUDA tensor
+launches the hand-written kernel, a CPU tensor runs the plain versions
+(mul_plain/add_plain/sub_plain here, pow_win_plain in ops/tower.py).  The
+plain versions compute in int64 -- a 16x16-bit product overflows int32,
+and torch's CPU uint32 lacks add, shift and compare -- and return exactly
+the kernels' canonical limbs.
 """
 
 import numpy as np
@@ -73,7 +74,6 @@ class ModField:
         # (CUDA kernels): different constants for the same R
         self.n0 = (-pow(modulus, -1, 1 << BITS)) % (1 << BITS)
         self.n0_word = (-pow(modulus, -1, 1 << 32)) % (1 << 32)
-        self.p_words = [(modulus >> (32 * i)) & 0xFFFFFFFF for i in range(nlimb // 2)]
         self._host = {
             "P": int_to_limbs(modulus, nlimb),
             "ONE": int_to_limbs(self.mont_r % modulus, nlimb),
@@ -254,20 +254,21 @@ class ModField:
     # ------------------------------------------------------------------
 
     def pow_const(self, a, exponent: int):
-        """a^exponent (Montgomery in/out) for a host-constant exponent:
-        4-bit windows, MSB first, 4 squarings + one table multiply each."""
+        """a^exponent (Montgomery in/out) for a host-constant exponent.  Fp:
+        ONE pow_win launch (table and every window in the kernel).  Fr (off
+        the verify path, and without a pow_win kernel in the JAX package):
+        4-bit windows, MSB first, 4 squarings + one table multiply each, on
+        the mul kernel."""
         if exponent == 0:
             return self.one_like(a).clone()
-        digits = []
-        e = exponent
-        while e:
-            digits.append(e & 15)
-            e >>= 4
+        if self.nlimb == C.NLIMB:
+            return K.pow_win(self, a.reshape(1, -1, self.nlimb), exponent).reshape(a.shape)
+        digits = K.pow_digits(exponent)
         tab = [self.one_like(a), a]
         for i in range(2, 16):
             tab.append(self.mul(tab[i - 1], a))
         f = self.one_like(a)
-        for d in reversed(digits):
+        for d in digits:
             for _ in range(4):
                 f = self.mul(f, f)
             f = self.mul(f, tab[d])

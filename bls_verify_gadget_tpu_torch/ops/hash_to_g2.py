@@ -1,14 +1,13 @@
 """Batched hash-to-G2 on the device, branch-free (counterpart of the JAX
-package's ops/hash_to_g2.py, unfused path).
+package's ops/hash_to_g2.py, fused path).
 
 Pipeline (RFC 9380 BLS12381G2_XMD:SHA-256_SSWU_RO_): expand_message_xmd
 (batched SHA-256) -> hash_to_field (512-bit -> Fp via Montgomery folding)
--> simplified SWU (9 mod 16 sqrt with candidate multipliers) -> 3-isogeny
--> point sum -> Budroni-Pintore cofactor clearing.
-
-All messages of a batch share one byte length.  The two field elements
-u0, u1 of each message go through ONE map call, concatenated along the
-batch axis: the same field values as two calls, half the launches.
+-> both simplified-SWU maps, their 3-isogeny and their sum in ONE
+sswu_map2 kernel launch -> Budroni-Pintore cofactor clearing in ONE
+g2_cofactor launch (ops/curve.py).  All messages of a batch share one byte
+length.  The plain version of sswu_map2 is here, beside the constant table
+that it and the kernel read.
 """
 
 import torch
@@ -16,80 +15,30 @@ import torch
 from .. import constants as C
 from ..golden import field as GF
 from .fp import FP
-from . import tower as T
+from . import kernels as K
 from . import curve as CV
+from .tower import F2, pow_win_plain
 from .sha256 import sha256_bytes
 
 # ----------------------------------------------------------------------------
 # sqrt in Fp2 for q == 9 mod 16: candidate multipliers
 # ----------------------------------------------------------------------------
 
-EXP_SQRT = (C.Q2 + 7) // 16  # z = a^((q+7)/16); true sqrt is z * one of CANDS
-
-# Frobenius split of the sqrt exponent: with p == 11 (mod 16) and
-# k = (p - 11)/16, a^((p^2+7)/16) = (conj(a) * a^11)^k * a^8 -- one 377-bit
-# chain plus 7 multiplies instead of a 764-bit chain.
-_SQRT_K = (C.P - 11) // 16
-assert C.P % 16 == 11 and _SQRT_K * C.P + 11 * _SQRT_K + 8 == EXP_SQRT
+# z = a^((q+7)/16); the true sqrt is z times one of 1, u, sqrt(u), sqrt(-u).
+# Frobenius split of the exponent: with p == 11 (mod 16) and k = (p - 11)/16,
+# a^((p^2+7)/16) = (conj(a) * a^11)^k * a^8 -- one 377-bit chain plus 7
+# multiplies instead of a 764-bit chain.
+SQRT_K = (C.P - 11) // 16
+assert C.P % 16 == 11 and SQRT_K * C.P + 11 * SQRT_K + 8 == (C.Q2 + 7) // 16
 
 
 def _compute_sqrt_candidates():
-    """1, sqrt(-1) = u, sqrt(u), sqrt(-u), from the host sqrt."""
-    one = (1, 0)
-    i_ = (0, 1)
-    sq_i = GF.fp2_sqrt(i_)
-    sq_mi = GF.fp2_sqrt(GF.fp2_neg(i_))
+    """sqrt(u), sqrt(-u) from the host sqrt."""
+    sq_i = GF.fp2_sqrt((0, 1))
+    sq_mi = GF.fp2_sqrt(GF.fp2_neg((0, 1)))
     assert sq_i is not None and sq_mi is not None
-    assert GF.fp2_sqr(sq_i) == i_ and GF.fp2_sqr(sq_mi) == GF.fp2_neg(i_)
-    return (one, i_, sq_i, sq_mi)
-
-
-SQRT_CANDS = _compute_sqrt_candidates()
-
-
-def _sqrt_from_candidate(z, target):
-    """Given z with z^2 = target * w for w an 8th root of unity, try the 4
-    candidate multipliers; returns (sqrt, found) branch-free."""
-    best = T.fp2_zero_like(target)
-    found = T.fp2_is_zero(target)  # sqrt(0) = 0
-    for cand in SQRT_CANDS:
-        (t,) = T.fp2_mul_pairs([(z, T._bcast(cand, target))])
-        ok = T.fp2_eq(T.fp2_sqr(t), target)
-        best = T.fp2_cmov(ok & ~found, t, best)
-        found = found | ok
-    return best, found
-
-
-def _fp2_pow_sqrt(a):
-    """a^EXP_SQRT via the Frobenius split: (conj(a) * a^11)^k * a^8."""
-    a2 = T.fp2_sqr(a)
-    a4 = T.fp2_sqr(a2)
-    a8 = T.fp2_sqr(a4)
-    (a3,) = T.fp2_mul_pairs([(a2, a)])
-    (a11,) = T.fp2_mul_pairs([(a8, a3)])
-    (b,) = T.fp2_mul_pairs([(T.fp2_conj(a), a11)])
-    bk = _fp2_pow_const(b, _SQRT_K)
-    (z,) = T.fp2_mul_pairs([(bk, a8)])
-    return z
-
-
-def _fp2_pow_const(a, exponent: int):
-    """a^exponent for a host-constant exponent: 4-bit windows, MSB first
-    (4 squarings + one table multiply per window)."""
-    digits = []
-    e = exponent
-    while e:
-        digits.append(e & 15)
-        e >>= 4
-    tab = [T.fp2_one_like(a), a]
-    for i in range(2, 16):
-        tab.append(T.fp2_mul(tab[i - 1], a))
-    f = T.fp2_one_like(a)
-    for d in reversed(digits):
-        for _ in range(4):
-            f = T.fp2_sqr(f)
-        f = T.fp2_mul(f, tab[d])
-    return f
+    assert GF.fp2_sqr(sq_i) == (0, 1) and GF.fp2_sqr(sq_mi) == GF.fp2_neg((0, 1))
+    return sq_i, sq_mi
 
 
 # ----------------------------------------------------------------------------
@@ -158,90 +107,189 @@ def hash_to_field_fp2(msg_u8, msg_len: int, count: int = 2, dst: bytes = C.DST_G
 
 
 # ----------------------------------------------------------------------------
-# simplified SWU for AB != 0 (9 mod 16), then 3-isogeny
+# both simplified-SWU maps (AB != 0, 9 mod 16) + 3-isogeny + their sum
 # ----------------------------------------------------------------------------
 
-# c1 = -B/A, c2 = -1/Z (host-precomputed)
-_C1_HOST = GF.fp2_mul(GF.fp2_neg(C.SSWU_B), GF.fp2_inv(C.SSWU_A))
-_C2_HOST = GF.fp2_neg(GF.fp2_inv(C.SSWU_Z))
 # Cz3 = (Z^3)^((q+7)/16): lets sqrt(gx2) reuse the gx1 exponentiation
 _Z3_HOST = GF.fp2_mul(GF.fp2_mul(C.SSWU_Z, C.SSWU_Z), C.SSWU_Z)
 assert not GF.fp2_is_square(_Z3_HOST), "Z^3 must be a non-residue"
-_CZ3_HOST = GF.fp2_pow(_Z3_HOST, (C.Q2 + 7) // 16)
+
+# Rows of the SSWU constant table (an Fp2 is two rows, Montgomery form):
+# the columns of the JAX kernel's constant block, in its order.
+SSWU_A, SSWU_B, SSWU_Z, SSWU_ZA, SSWU_Z3, SSWU_CZ3, SSWU_SQI, SSWU_SQMI = range(0, 16, 2)
+SSWU_XNUM, SSWU_XDEN, SSWU_YNUM, SSWU_YDEN = 16, 24, 30, 38
+SSWU_ROWS = 46
+_SSWU_VALUES = [
+    C.SSWU_A, C.SSWU_B, C.SSWU_Z, GF.fp2_mul(C.SSWU_Z, C.SSWU_A), _Z3_HOST,
+    GF.fp2_pow(_Z3_HOST, (C.Q2 + 7) // 16), *_compute_sqrt_candidates(),
+    *C.ISO3_XNUM, *C.ISO3_XDEN, *C.ISO3_YNUM, *C.ISO3_YDEN,
+]
+assert 2 * len(_SSWU_VALUES) == SSWU_ROWS
+_sswu_tables = {}
 
 
-def sswu_map(u):
-    """u (Fp2) -> affine point on E2' (branch-free, RFC 9380 F.2.1.2)."""
-    u2 = T.fp2_sqr(u)
-    (tv1,) = T.fp2_mul_pairs([(T._bcast(C.SSWU_Z, u), u2)])
-    tv2 = T.fp2_add(T.fp2_sqr(tv1), tv1)
-    inv_tv2 = T.fp2_inv(tv2)  # 0 -> 0
-    e1 = T.fp2_is_zero(tv2)
-    x1f = T.fp2_add(T.fp2_one_like(u), inv_tv2)
-    x1f = T.fp2_cmov(e1, T._bcast(_C2_HOST, u), x1f)
-    (x1,) = T.fp2_mul_pairs([(T._bcast(_C1_HOST, u), x1f)])
-    A = T._bcast(C.SSWU_A, u)
-    B = T._bcast(C.SSWU_B, u)
-    # gx1 = x1^3 + A x1 + B
-    x1sq = T.fp2_sqr(x1)
-    gx1_a, ax1 = T.fp2_mul_pairs([(x1sq, x1), (A, x1)])
-    gx1 = T.fp2_add(T.fp2_add(gx1_a, ax1), B)
-    # x2 = tv1 * x1 ; gx2 evaluated directly (exact for all u)
-    (x2,) = T.fp2_mul_pairs([(tv1, x1)])
-    x2sq = T.fp2_sqr(x2)
-    gx2_a, ax2 = T.fp2_mul_pairs([(x2sq, x2), (A, x2)])
-    gx2 = T.fp2_add(T.fp2_add(gx2_a, ax2), B)
-    # one shared exponentiation: z1 = gx1^((q+7)/16); z1 * Cz3 * u^3 gives
-    # the sqrt(gx2) candidates
-    z1 = _fp2_pow_sqrt(gx1)
-    y1, ok1 = _sqrt_from_candidate(z1, gx1)
-    (u3,) = T.fp2_mul_pairs([(u2, u)])
-    (zc,) = T.fp2_mul_pairs([(z1, T._bcast(_CZ3_HOST, u))])
-    (z2,) = T.fp2_mul_pairs([(zc, u3)])
-    y2, _ = _sqrt_from_candidate(z2, gx2)
-    x = T.fp2_cmov(ok1, x1, x2)
-    y = T.fp2_cmov(ok1, y1, y2)
-    # fix sign: sgn0(y) == sgn0(u)
-    flip = T.fp2_sgn0(u) != T.fp2_sgn0(y)
-    y = T.fp2_cmov(flip, T.fp2_neg(y), y)
-    return x, y
+def sswu_consts(device):
+    """The (46, 24) int32 table of the SSWU map's constants on `device`
+    (built once per device): the sswu_map2 kernel's device operand."""
+    dev = torch.device(device)
+    t = _sswu_tables.get(dev)
+    if t is None:
+        t = FP.encode([c for v in _SSWU_VALUES for c in v], dev)
+        _sswu_tables[dev] = t
+    return t
+
+
+def _sel(mask, a, b):
+    """Per element (..., N) mask: a where set, else b, for Fp2 tensors
+    (..., 2, N, 24)."""
+    return torch.where(mask[..., None, :, None], a, b)
+
+
+def _muli(a):
+    """a * u = -a1 + a0 u"""
+    a0, a1 = a.unbind(-3)
+    return torch.stack([FP.sub_plain(torch.zeros_like(a1), a1), a0], -3)
+
+
+def _cand_select(z, X, R, target, sqi, sqmi):
+    """Fraction-form sqrt candidate resolution (the JAX kernels'
+    _cand_select_rows): y = z c for the first c in (1, u, sqrt(u),
+    sqrt(-u)) with X c^2 == R, X = z^2 gxd; 0 where target == 0 (sqrt(0) =
+    0) or nothing passes.  -> (y numerator, found)."""
+    neg_x = F2.neg(X)
+    checks = [
+        (F2.eq(X, R), z),                                # c^2 = 1
+        (F2.eq(neg_x, R), _muli(z)),                     # c^2 = -1
+        (F2.eq(_muli(X), R), F2.mul(z, sqi)),            # c^2 = u
+        (F2.eq(torch.stack([X[..., 1, :, :], neg_x[..., 0, :, :]], -3), R),
+         F2.mul(z, sqmi)),                               # c^2 = -u
+    ]
+    found = F2.is_zero(target)
+    best = torch.zeros_like(z)
+    for ok, val in checks:
+        best = _sel(ok & ~found, val, best)
+        found = found | ok
+    return best, found
+
+
+def _sgn0(a):
+    """RFC 9380 sgn0 (m = 2) of Fp2 tensors (..., 2, N, 24) on their
+    canonical values: out of Montgomery form by a product with a raw 1."""
+    raw1 = torch.zeros_like(a[..., :1, :1, :])
+    raw1[..., 0] = 1
+    r0, r1 = FP.mul_plain(*torch.broadcast_tensors(a, raw1)).unbind(-3)
+    return torch.where(FP.is_zero(r0), r1[..., 0] & 1, r0[..., 0] & 1)
 
 
 def _horner(coeffs, x):
-    acc = T._bcast(coeffs[-1], x)
+    acc = coeffs[-1]
     for c in reversed(coeffs[:-1]):
-        (ax,) = T.fp2_mul_pairs([(acc, x)])
-        acc = T.fp2_add(ax, T._bcast(c, x))
+        acc = F2.add(F2.mul(acc, x), c)
     return acc
 
 
-def iso3_map_jacobian(x, y):
-    """3-isogeny E2' -> E2 in Jacobian coords (no inversion), Z = xd*yd:
-    X = xn*yd*Z, Y = y*yn*xd*Z^2.  xd == 0 or yd == 0 gives infinity."""
-    xn = _horner(C.ISO3_XNUM, x)
-    xd = _horner(C.ISO3_XDEN, x)
-    yn = _horner(C.ISO3_YNUM, x)
-    yd = _horner(C.ISO3_YDEN, x)
-    (z,) = T.fp2_mul_pairs([(xd, yd)])
-    xnyd, yxd = T.fp2_mul_pairs([(xn, yd), (y, xd)])
-    (X,) = T.fp2_mul_pairs([(xnyd, z)])
-    z2 = T.fp2_sqr(z)
-    (ynyxd,) = T.fp2_mul_pairs([(yn, yxd)])
-    (Y,) = T.fp2_mul_pairs([(ynyxd, z2)])
-    return (X, Y, z)
+def sswu_map2_plain(u):
+    """Plain version of the sswu_map2 kernel (_sswu_kernel): for the packed
+    (4, N, 24) u = u0, u1, iso3(map(u0)) + iso3(map(u1)) as a (6, N, 24)
+    Jacobian point.  Both maps ride stacked through one pass, as the TPU
+    kernel's lane-concatenated halves: fraction-form SSWU with one
+    Frobenius-split sqrt chain, one Fermat inversion of the four
+    denominators' norms (Montgomery's trick), affine x, y, the sgn0 fix,
+    the isogeny in Jacobian packing, then the complete addition."""
+    tab = sswu_consts(u.device)
+
+    def c2(row, n=1):  # n Fp2 constants from `row` on, each (2, 1, 24)
+        return [tab[row + 2 * i : row + 2 * i + 2, None] for i in range(n)]
+
+    (A,), (B,), (Z,), (ZA,) = c2(SSWU_A), c2(SSWU_B), c2(SSWU_Z), c2(SSWU_ZA)
+    (CZ3,), (SQI,), (SQMI,) = c2(SSWU_CZ3), c2(SSWU_SQI), c2(SSWU_SQMI)
+    n = u.shape[1]
+    U = u.view(2, 2, n, u.shape[-1])  # (map, re/im, N, 24)
+    one2 = torch.stack([FP.one_like(U[0, 0]), torch.zeros_like(U[0, 0])])
+
+    tv1 = F2.sqr(U)                                  # u^2
+    tv3 = F2.mul(Z, tv1)                             # Z u^2
+    t = F2.add(F2.sqr(tv3), tv3)
+    e1 = F2.is_zero(t)
+    xn = _sel(e1, B, F2.neg(F2.mul(B, F2.add(t, one2))))   # -B (t + 1)
+    xd = _sel(e1, ZA, F2.mul(A, t))                       # t == 0: B / (Z A)
+    xd2 = F2.sqr(xd)
+    xd3 = F2.mul(xd2, xd)
+
+    def gx_num(num):  # over gxd = xd^3
+        return F2.add(F2.add(F2.mul(F2.sqr(num), num), F2.mul(A, F2.mul(num, xd2))),
+                      F2.mul(B, xd3))
+
+    gxn, gxd = gx_num(xn), xd3
+    g2 = F2.sqr(gxd)
+    g4 = F2.sqr(g2)
+    g8 = F2.sqr(g4)
+    W = F2.mul(gxn, F2.mul(F2.mul(g8, g4), F2.mul(g2, gxd)))
+    w2 = F2.sqr(W)
+    w8 = F2.sqr(F2.sqr(w2))
+    b = F2.mul(F2.conj(W), F2.mul(w8, F2.mul(w2, W)))
+    # the sqrt chain b^k for both maps as one (2, 2N, 24) Fp2 operand
+    bk = pow_win_plain(b.transpose(0, 1).reshape(2, 2 * n, -1), SQRT_K)
+    z1 = F2.mul(bk.view(2, 2, n, -1).transpose(0, 1), w8)
+    yd = g8  # gxd^(q+7) = gxd^8
+    yd2 = F2.sqr(yd)
+    yn1, found1 = _cand_select(z1, F2.mul(F2.sqr(z1), gxd), F2.mul(gxn, yd2), gxn, SQI, SQMI)
+    x2n = F2.mul(tv3, xn)
+    gx2n = gx_num(x2n)
+    z2 = F2.mul(F2.mul(z1, CZ3), F2.mul(tv1, U))
+    yn2, _ = _cand_select(z2, F2.mul(F2.sqr(z2), gxd), F2.mul(gx2n, yd2), gx2n, SQI, SQMI)
+    xn = _sel(found1, xn, x2n)
+    yn = _sel(found1, yn1, yn2)
+
+    # one Fermat inversion for the four norms (xd, yd of each map)
+    xy_d = torch.stack([xd, yd], 1)  # (map, x/y, 2, N, 24)
+    d0, d1 = xy_d.unbind(-3)
+    ns = FP.add_plain(FP.mul_plain(d0, d0), FP.mul_plain(d1, d1)).reshape(4, n, -1)
+    pre1 = FP.mul_plain(ns[0], ns[1])
+    pre2 = FP.mul_plain(pre1, ns[2])
+    (tinv,) = pow_win_plain(FP.mul_plain(pre2, ns[3])[None], C.P - 2)
+    inv3 = FP.mul_plain(tinv, pre2)
+    tinv = FP.mul_plain(tinv, ns[3])
+    inv2 = FP.mul_plain(tinv, pre1)
+    tinv = FP.mul_plain(tinv, ns[2])
+    inv1 = FP.mul_plain(tinv, ns[0])
+    inv0 = FP.mul_plain(tinv, ns[1])
+    invs = torch.stack([inv0, inv1, inv2, inv3]).view(2, 2, n, -1)  # (map, x/y, N, 24)
+    ixd, iyd = F2.muls(F2.conj(xy_d), invs).unbind(1)
+
+    x = F2.mul(xn, ixd)
+    y = F2.mul(yn, iyd)
+    y = _sel(_sgn0(U) != _sgn0(y), F2.neg(y), y)
+    xnum = _horner(c2(SSWU_XNUM, 4), x)
+    xden = _horner(c2(SSWU_XDEN, 3), x)
+    ynum = _horner(c2(SSWU_YNUM, 4), x)
+    yden = _horner(c2(SSWU_YDEN, 4), x)
+    z = F2.mul(xden, yden)
+    X = F2.mul(F2.mul(xnum, yden), z)
+    Y = F2.mul(F2.mul(ynum, F2.mul(y, xden)), F2.sqr(z))
+    q0, q1 = ((X[m], Y[m], z[m]) for m in range(2))
+    return CV.pack_point(CV.FP2_PLAIN, CV.pt_add(CV.FP2_PLAIN, q0, q1))
 
 
-def map_to_curve_g2(u):
-    """SSWU + isogeny -> G2 Jacobian point."""
-    x, y = sswu_map(u)
-    return iso3_map_jacobian(x, y)
+def sswu_map2(u0, u1):
+    """iso3(map(u0)) + iso3(map(u1)) (Fp2 pairs, (B, 24) each) as a Jacobian
+    G2 point: ONE sswu_map2 kernel launch."""
+    return CV.unpack_point(CV.FP2_OPS, K.sswu_map2(FP, torch.stack([*u0, *u1])))
+
+
+def hash_to_g2_steps(msg_len: int, dst: bytes = C.DST_G2):
+    """hash_to_g2 as its ordered steps [(name, fn)]: each fn takes the
+    previous step's output, the first the (B, msg_len) message bytes."""
+    return [
+        ("xmd+hash_to_field", lambda msg: hash_to_field_fp2(msg, msg_len, 2, dst)),
+        ("sswu_map2", lambda u: sswu_map2(*u)),
+        ("g2_cofactor", CV.g2_clear_cofactor),
+    ]
 
 
 def hash_to_g2(msg_u8, msg_len: int, dst: bytes = C.DST_G2):
     """Full batched hash-to-G2 -> Jacobian G2 point (in the subgroup)."""
-    u0, u1 = hash_to_field_fp2(msg_u8, msg_len, 2, dst)
-    b = u0[0].shape[0]
-    q = map_to_curve_g2((torch.cat([u0[0], u1[0]]), torch.cat([u0[1], u1[1]])))
-    q0 = tuple((c[0][:b], c[1][:b]) for c in q)
-    q1 = tuple((c[0][b:], c[1][b:]) for c in q)
-    return CV.g2_clear_cofactor(CV.pt_add(CV.FP2_OPS, q0, q1))
+    x = msg_u8
+    for _, step in hash_to_g2_steps(msg_len, dst):
+        x = step(x)
+    return x

@@ -1,7 +1,7 @@
 """The port's CUDA kernels: nvcc build, ctypes loader, and one torch wrapper
 per kernel (the counterpart of the JAX package's ops/pallas/kernels.py
-FieldKernels.mul/add/sub/fp2_mul/fp2_sqr/fp12_mul/fp12_sqr/miller_dbl_run/
-miller_add/exp_x).
+FieldKernels.mul/add/sub/fp2_mul/fp2_sqr/fp6_mul/fp12_mul/fp12_sqr/
+miller_dbl_run/miller_add/exp_x/pow_win/pt_mul_const/g2_cofactor/sswu_map2).
 
 The sources in csrc/ are compiled on first use with nvcc for sm_90a, one
 nvcc per .cu file, all started together, and linked into one shared
@@ -10,10 +10,12 @@ sources and flags, so an edited source rebuilds).  Nothing is built or
 loaded when the module is imported.
 
 The field wrappers take int32 (..., nlimb) limb tensors that broadcast
-against each other; the pairing wrappers take packed (c, N, 24) tensors
-(an Fp12 is 12 coordinates, coefficient-major) and pack their operands into
-one contiguous buffer per launch.  A tensor on the CPU goes to the kernel's
-plain PyTorch version (ops/fp.py, ops/tower.py, ops/pairing.py); a CUDA
+against each other; the others take packed (c, N, 24) tensors (an Fp2 is 2
+coordinates, a Jacobian point 3 or 6, an Fp6 6, an Fp12 12,
+coefficient-major) and
+pack their operands into one contiguous buffer per launch.  A tensor on the
+CPU goes to the kernel's plain PyTorch version (ops/fp.py, ops/tower.py,
+ops/curve.py, ops/hash_to_g2.py, ops/pairing.py); a CUDA
 tensor launches the kernel on the current stream or raises -- there is no
 fallback from a CUDA tensor to the plain version.  Each launch adds one to
 the kernel's count in COUNTS.
@@ -33,18 +35,20 @@ import torch
 PKG_DIR = pathlib.Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "build"
-UNITS = ("field_kernels.cu", "pairing_kernels.cu")  # one nvcc each
-SOURCES = ("field.cuh", "tower.cuh", *UNITS)
+UNITS = ("field_kernels.cu", "pairing_kernels.cu", "hash_kernels.cu")  # one nvcc each
+SOURCES = ("field.cuh", "tower.cuh", "curve.cuh", *UNITS)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 KERNELS = (
-    "mul", "add", "sub", "fp2_mul", "fp2_sqr",
+    "mul", "add", "sub", "fp2_mul", "fp2_sqr", "fp6_mul",
     "fp12_mul", "fp12_sqr", "miller_dbl_run", "miller_add", "exp_x",
+    "pow_win", "pt_mul_const", "g2_cofactor", "sswu_map2",
 )
 PAIRS = 2  # pairs per Miller launch (csrc/pairing_kernels.cu kPairs)
-MAX_SEGMENTS = 64  # exp_x runs (csrc/pairing_kernels.cu kMaxSegments)
+MAX_SEGMENTS = 64  # runs of a ladder or exp_x chain (csrc/tower.cuh kMaxSegments)
+MAX_DIGITS = 192  # 4-bit windows of a pow_win exponent (csrc/curve.cuh kMaxDigits)
 
 
 class LaunchCounts:
@@ -140,11 +144,16 @@ def _declare(lib):
     lib.bls_sub.argtypes = [vp, vp, vp, i64, i32, vp, vp]
     lib.bls_fp2_mul.argtypes = [vp, vp, vp, vp, vp, vp, i64, vp, u32, vp]
     lib.bls_fp2_sqr.argtypes = [vp, vp, vp, vp, i64, vp, u32, vp]
+    lib.bls_fp6_mul.argtypes = [vp, vp, i64, vp, u32, vp]
     lib.bls_fp12_mul.argtypes = [vp, vp, i64, vp, u32, vp]
     lib.bls_fp12_sqr.argtypes = [vp, vp, i64, vp, u32, vp]
     lib.bls_miller_dbl_run.argtypes = [vp, vp, vp, i64, i32, vp, u32, vp]
     lib.bls_miller_add.argtypes = [vp, vp, vp, i64, vp, u32, vp]
     lib.bls_exp_x.argtypes = [vp, vp, i64, vp, vp, i32, vp, u32, vp]
+    lib.bls_pow_win.argtypes = [vp, vp, i64, i32, vp, i32, vp, u32, vp]
+    lib.bls_pt_mul_const.argtypes = [vp, vp, i64, i32, vp, vp, i32, vp, vp, u32, vp]
+    lib.bls_g2_cofactor.argtypes = [vp, vp, i64, vp, vp, i32, vp, vp, vp, u32, vp]
+    lib.bls_sswu_map2.argtypes = [vp, vp, vp, i64, vp, i32, vp, i32, vp, vp, u32, vp]
     for name in KERNELS:
         getattr(lib, f"bls_{name}").restype = ctypes.c_int
 
@@ -160,17 +169,37 @@ def library():
     return _lib
 
 
-_p_words_cache = {}
+_host_arrays = {}
+
+
+def _host_array(ctype, values):
+    """Address of a host array of `values` (cached, so it stays alive)."""
+    key = (ctype, tuple(values))
+    arr = _host_arrays.get(key)
+    if arr is None:
+        arr = (ctype * max(len(values), 1))(*values)
+        _host_arrays[key] = arr
+    return ctypes.addressof(arr)
+
+
+def _words(field, ints):
+    """Address of host ints < 2^384 as little-endian uint32 words, 12 per
+    int (the kernels' by-value Fp constants)."""
+    nw = field.nlimb // 2
+    return _host_array(ctypes.c_uint32, [(x >> (32 * j)) & 0xFFFFFFFF for x in ints
+                                         for j in range(nw)])
 
 
 def _p_words(field):
-    """Address of the modulus as a host uint32 word array (the array is
-    kept alive in the cache)."""
-    arr = _p_words_cache.get(field.modulus)
-    if arr is None:
-        arr = (ctypes.c_uint32 * len(field.p_words))(*field.p_words)
-        _p_words_cache[field.modulus] = arr
-    return ctypes.addressof(arr)
+    """Address of the modulus as host uint32 words."""
+    return _words(field, [field.modulus])
+
+
+def _mont_words(field, values):
+    """Address of host ints in Montgomery form as host uint32 words (the
+    one, the psi constants)."""
+    m = field.modulus
+    return _words(field, [v % m * field.mont_r % m for v in values])
 
 
 def _cuda_operands(field, ts):
@@ -279,16 +308,18 @@ def fp2_sqr(field, a0, a1):
 
 
 # ----------------------------------------------------------------------------
-# pairing kernels (csrc/pairing_kernels.cu) on packed (c, N, 24) operands
+# kernels on packed (c, N, 24) operands (csrc/pairing_kernels.cu,
+# csrc/hash_kernels.cu)
 # ----------------------------------------------------------------------------
 
-def _pairing_launch(name, field, packed, n_in, n_out, *args, valid=None):
-    """Launch kernel `name` on the packed (n_in, N, 24) CUDA operand (with
-    the (k, N) int32 `valid` masks when given) and return its (n_out, N, 24)
-    output.  A contiguous operand is passed as it is, without a copy; the
-    wrappers that take several operands pack them with one torch.cat."""
+def _packed_launch(name, field, packed, n_in, n_out, *args, aux=None):
+    """Launch kernel `name` on the packed (n_in, N, 24) CUDA operand (and
+    the second device operand `aux`, a kernel's masks or table, when given)
+    and return its (n_out, N, 24) output.  A contiguous operand is passed
+    as it is, without a copy; the wrappers that take several operands pack
+    them with one torch.cat."""
     if field.nlimb != 24:
-        raise ValueError(f"the pairing kernels take Fp (24 limbs), not {field.nlimb}")
+        raise ValueError(f"{name} takes Fp (24 limbs), not {field.nlimb}")
     (packed,) = _cuda_operands(field, [packed])
     if packed.dim() != 3 or packed.shape[0] != n_in:
         raise ValueError(f"{name} takes a packed ({n_in}, N, 24) operand, "
@@ -296,7 +327,7 @@ def _pairing_launch(name, field, packed, n_in, n_out, *args, valid=None):
     n = packed.shape[1]
     out = packed.new_empty((n_out, n, field.nlimb))
     if n:
-        ptrs = [packed.data_ptr()] + ([] if valid is None else [valid.data_ptr()])
+        ptrs = [packed.data_ptr()] + ([] if aux is None else [aux.data_ptr()])
         rc = getattr(library(), f"bls_{name}")(
             *ptrs, out.data_ptr(), n, *args, _p_words(field), field.n0_word, _stream(packed)
         )
@@ -308,7 +339,7 @@ def _pairing_launch(name, field, packed, n_in, n_out, *args, valid=None):
 def _miller_pack(f, t, per_pair, valid):
     """Check the pair count and the (k, N) valid masks of a Miller launch;
     -> (one packed operand: f, then per pair its T and its `per_pair`
-    tensors, (k, N) int32 masks).  _pairing_launch checks the limbs."""
+    tensors, (k, N) int32 masks).  _packed_launch checks the limbs."""
     k, n = t.shape[0], f.shape[-2]
     if k != PAIRS:
         raise ValueError(f"the Miller kernels take {PAIRS} pairs, got {k}")
@@ -321,6 +352,16 @@ def _miller_pack(f, t, per_pair, valid):
     return torch.cat(parts), valid.to(torch.int32).contiguous()
 
 
+def fp6_mul(field, a, b):
+    """Fp6 product of packed (6, N, 24) operands -> (6, N, 24)
+    (replaces FieldKernels.fp6_mul)."""
+    if a.device.type == "cpu":
+        from . import tower
+
+        return tower.fp6_mul_packed_plain(a, b)
+    return _packed_launch("fp6_mul", field, torch.cat([a, b]), 12, 6)
+
+
 def fp12_mul(field, a, b):
     """Fp12 product of packed (12, N, 24) operands -> (12, N, 24)
     (replaces FieldKernels.fp12_mul)."""
@@ -328,7 +369,7 @@ def fp12_mul(field, a, b):
         from . import tower
 
         return tower.fp12_mul_plain(a, b)
-    return _pairing_launch("fp12_mul", field, torch.cat([a, b]), 24, 12)
+    return _packed_launch("fp12_mul", field, torch.cat([a, b]), 24, 12)
 
 
 def fp12_sqr(field, a):
@@ -338,7 +379,7 @@ def fp12_sqr(field, a):
         from . import tower
 
         return tower.fp12_sqr_plain(a)
-    return _pairing_launch("fp12_sqr", field, a, 12, 12)
+    return _packed_launch("fp12_sqr", field, a, 12, 12)
 
 
 def miller_dbl_run(field, f, t, xp, yp, valid, count: int):
@@ -354,8 +395,8 @@ def miller_dbl_run(field, f, t, xp, yp, valid, count: int):
     if count < 1:
         raise ValueError(f"a doubling run has at least one iteration, got {count}")
     packed, mask = _miller_pack(f, t, (xp, yp), valid)
-    out = _pairing_launch("miller_dbl_run", field, packed, 12 + 8 * PAIRS,
-                          12 + 6 * PAIRS, count, valid=mask)
+    out = _packed_launch("miller_dbl_run", field, packed, 12 + 8 * PAIRS,
+                         12 + 6 * PAIRS, count, aux=mask)
     return out[:12], out[12:].view(PAIRS, 6, *out.shape[1:])
 
 
@@ -369,8 +410,8 @@ def miller_add(field, f, t, q, xp, yp, valid):
 
         return pairing.miller_add_plain(f, t, q, xp, yp, valid)
     packed, mask = _miller_pack(f, t, (q, xp, yp), valid)
-    out = _pairing_launch("miller_add", field, packed, 12 + 12 * PAIRS,
-                          12 + 6 * PAIRS, valid=mask)
+    out = _packed_launch("miller_add", field, packed, 12 + 12 * PAIRS,
+                         12 + 6 * PAIRS, aux=mask)
     return out[:12], out[12:].view(PAIRS, 6, *out.shape[1:])
 
 
@@ -382,10 +423,108 @@ def exp_x(field, m, segments):
         from . import pairing
 
         return pairing.exp_x_plain(m, segments)
+    lens, muls, nseg = _segments("exp_x", segments)
+    return _packed_launch("exp_x", field, m, 12, 12, lens, muls, nseg)
+
+
+# ----------------------------------------------------------------------------
+# hash-stage and subgroup kernels (csrc/hash_kernels.cu)
+# ----------------------------------------------------------------------------
+
+def _segments(name, segments):
+    """(run lengths, set-bit flags, count) of a ladder's or chain's segments
+    as host arrays for the kernel's by-value Segments."""
     if len(segments) > MAX_SEGMENTS:
-        raise ValueError(f"exp_x takes at most {MAX_SEGMENTS} segments, got {len(segments)}")
-    nseg = len(segments)
-    lens = (ctypes.c_int * max(nseg, 1))(*[int(s) for s, _ in segments])
-    muls = (ctypes.c_int * max(nseg, 1))(*[int(bool(b)) for _, b in segments])
-    return _pairing_launch("exp_x", field, m, 12, 12, ctypes.addressof(lens),
-                           ctypes.addressof(muls), nseg)
+        raise ValueError(f"{name} takes at most {MAX_SEGMENTS} segments, got {len(segments)}")
+    lens = _host_array(ctypes.c_int, [int(s) for s, _ in segments])
+    muls = _host_array(ctypes.c_int, [int(bool(b)) for _, b in segments])
+    return lens, muls, len(segments)
+
+
+def pow_digits(exponent: int):
+    """The MSB-first 4-bit digits of a positive exponent (no leading zero)."""
+    if exponent < 1:
+        raise ValueError(f"pow_win takes a positive exponent, got {exponent}")
+    digits = []
+    while exponent:
+        digits.append(exponent & 15)
+        exponent >>= 4
+    return digits[::-1]
+
+
+def _digits(exponent: int):
+    """(host digit array, count) of a pow_win exponent."""
+    digits = pow_digits(exponent)
+    if len(digits) > MAX_DIGITS:
+        raise ValueError(f"pow_win takes at most {MAX_DIGITS} digits, got {len(digits)}")
+    return _host_array(ctypes.c_ubyte, digits), len(digits)
+
+
+def _coords(name, a, per_elem):
+    """Coordinates per element (1 for Fp, 2 for Fp2) of a packed operand of
+    `per_elem` field elements."""
+    c = a.shape[0] // per_elem if a.dim() == 3 else 0
+    if c not in (1, 2) or a.shape[0] != c * per_elem:
+        raise ValueError(f"{name} takes a packed ({per_elem}, N, 24) Fp or "
+                         f"({2 * per_elem}, N, 24) Fp2 operand, got {tuple(a.shape)}")
+    return c
+
+
+def pow_win(field, a, exponent: int):
+    """a^exponent for a host-constant exponent > 0, on a packed (c, N, 24)
+    operand: c = 1 an Fp, c = 2 an Fp2 (replaces FieldKernels.pow_win)."""
+    if a.device.type == "cpu":
+        from . import tower
+
+        return tower.pow_win_plain(a, exponent)
+    c = _coords("pow_win", a, 1)
+    digits, ndig = _digits(exponent)
+    return _packed_launch("pow_win", field, a, c, c, c, digits, ndig)
+
+
+def pt_mul_const(field, p, segments):
+    """[k]P for the scalar k whose runs after its top bit are `segments`
+    (curve.run_segments), on a packed Jacobian point: (3, N, 24) in G1,
+    (6, N, 24) in G2 (replaces FieldKernels.pt_mul_const)."""
+    if p.device.type == "cpu":
+        from . import curve
+
+        return curve.pt_mul_const_plain(p, segments)
+    c = _coords("pt_mul_const", p, 3)
+    lens, muls, nseg = _segments("pt_mul_const", segments)
+    return _packed_launch("pt_mul_const", field, p, 3 * c, 3 * c, c, lens, muls, nseg,
+                          _mont_words(field, [1]))
+
+
+def g2_cofactor(field, p, segments):
+    """Budroni-Pintore cofactor clearing [x^2 - x - 1]P + [x - 1]psi(P) +
+    psi^2(2P) of a packed (6, N, 24) G2 Jacobian point, with the runs of
+    |x| as `segments` (replaces FieldKernels.g2_cofactor)."""
+    if p.device.type == "cpu":
+        from . import curve
+
+        return curve.g2_cofactor_plain(p, segments)
+    from .. import constants as C
+
+    lens, muls, nseg = _segments("g2_cofactor", segments)
+    psi = _mont_words(field, [*C.PSI_X, *C.PSI_Y, C.PSI2_X_C0])
+    return _packed_launch("g2_cofactor", field, p, 6, 6, lens, muls, nseg, psi,
+                          _mont_words(field, [1]))
+
+
+def sswu_map2(field, u):
+    """iso3(map(u0)) + iso3(map(u1)) as a (6, N, 24) Jacobian G2 point, for
+    the packed (4, N, 24) u = u0, u1 (Fp2 each) of hash_to_field: both
+    SSWU maps, the 3-isogeny and the complete addition in one launch
+    (replaces FieldKernels.sswu_map2)."""
+    from . import hash_to_g2
+
+    if u.device.type == "cpu":
+        return hash_to_g2.sswu_map2_plain(u)
+    if u.device.type != "cuda":
+        raise ValueError(f"sswu_map2 takes CPU or CUDA tensors, got {u.device}")
+    table = hash_to_g2.sswu_consts(u.device)
+    sqrt_digits, nsqrt = _digits(hash_to_g2.SQRT_K)
+    inv_digits, ninv = _digits(field.modulus - 2)
+    return _packed_launch("sswu_map2", field, u, 4, 6, sqrt_digits, nsqrt, inv_digits, ninv,
+                          _mont_words(field, [1]), aux=table)

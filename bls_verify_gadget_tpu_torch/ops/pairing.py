@@ -17,28 +17,11 @@ the plain Fp12 layer of ops/tower.py.
 import torch
 
 from .. import constants as C
+from .curve import X_SEGMENTS
 from .fp import FP
 from . import kernels as K
 from . import tower as T
 from .tower import F2
-
-
-def _runs(bits_msb):
-    """The runs of an exponent after its top bit: [(length, ends on a set
-    bit)], MSB first."""
-    runs, run = [], 0
-    for bit in bits_msb[1:]:
-        run += 1
-        if bit:
-            runs.append((run, True))
-            run = 0
-    if run:
-        runs.append((run, False))
-    return runs
-
-
-# |x| = 0xd201000000010000: runs 1, 2, 3, 9, 32 ending on set bits, then 16
-X_RUNS = _runs(C.ABS_X_BITS[::-1])
 
 
 def fp_half(a):
@@ -166,7 +149,7 @@ def multi_miller_loop(pairs):
     z = torch.zeros_like(xp)
     t = torch.cat([q, torch.stack([FP.one_like(xp), z], 1)], 1)
     f = torch.cat([FP.one_like(xp[:1]), z[:1].expand(11, *z.shape[1:])])
-    for length, add in X_RUNS:
+    for length, add in X_SEGMENTS:
         f, t = K.miller_dbl_run(FP, f, t, xp, yp, valid, length)
         if add:
             f, t = K.miller_add(FP, f, t, q, xp, yp, valid)
@@ -192,7 +175,7 @@ def exp_x_plain(m, segments):
 def _exp_by_neg_x(m):
     """m^x (x the negative BLS parameter) for m in the cyclotomic subgroup:
     ONE exp_x launch over the runs of |x|, then the conjugation."""
-    return T.fp12_conj(T.fp12_unpack(K.exp_x(FP, T.fp12_pack(m), X_RUNS)))
+    return T.fp12_conj(T.fp12_unpack(K.exp_x(FP, T.fp12_pack(m), X_SEGMENTS)))
 
 
 def final_exponentiation(f):

@@ -15,8 +15,11 @@ products and squares go to the fp2_mul / fp2_sqr CUDA kernels
 live here.  The Fp12 product and square are ONE fused kernel launch each
 (fp12_mul / fp12_sqr) on a packed (12, N, 24) operand; their plain
 versions, and the Granger-Scott square that the exp_x kernel repeats, are
-the plain Fp12 layer at the end of this file.  Fp6 and the Fp12 inverse
-and Frobenius maps stay compositions of the field kernels.
+the plain Fp12 layer at the end of this file.  A group of Fp6 products is
+ONE fp6_mul launch on packed (6, N, 24) operands.  The Fp6 and Fp12
+inverses and the Frobenius maps stay compositions of these kernels; the Fp
+inverse inside them is one pow_win launch (ops/fp.py).  The plain versions
+of fp6_mul and pow_win are here too.
 """
 
 import torch
@@ -246,45 +249,17 @@ def fp6_neg(a):
 
 
 def fp6_mul_pairs(pairs):
-    """k independent Fp6 products (Toom-style 6-mul schedule): one
-    fp2_mul launch for all 6k Fp2 products plus ~8 stacked add/sub calls."""
+    """k independent Fp6 products: ONE fp6_mul kernel launch, the k pairs
+    stacked along the batch axis of its packed (6, k*N, 24) operands."""
     k = len(pairs)
-    sum_jobs = []
-    for a, b in pairs:
-        sum_jobs += [(a[1], a[2]), (a[0], a[1]), (a[0], a[2]),
-                     (b[1], b[2]), (b[0], b[1]), (b[0], b[2])]
-    sums = fp2_add_many(sum_jobs)
-    mul_jobs = []
-    for i, (a, b) in enumerate(pairs):
-        sa12, sa01, sa02, sb12, sb01, sb02 = sums[6 * i : 6 * i + 6]
-        mul_jobs += [
-            (a[0], b[0]), (a[1], b[1]), (a[2], b[2]),
-            (sa12, sb12), (sa01, sb01), (sa02, sb02),
-        ]
-    vs = fp2_mul_pairs(mul_jobs)
-    s_jobs = []
-    for i in range(k):
-        v0, v1, v2 = vs[6 * i : 6 * i + 3]
-        s_jobs += [(v1, v2), (v0, v1), (v0, v2)]
-    ssum = fp2_add_many(s_jobs)
-    d_jobs = []
-    for i in range(k):
-        _, _, _, t12, t01, t02 = vs[6 * i : 6 * i + 6]
-        s12, s01, s02 = ssum[3 * i : 3 * i + 3]
-        d_jobs += [(t12, s12), (t01, s01), (t02, s02)]
-    ds = fp2_sub_many(d_jobs)
-    xi_jobs = []
-    for i in range(k):
-        xi_jobs += [ds[3 * i], vs[6 * i + 2]]
-    xis = fp2_mul_xi_many(xi_jobs)
-    out_jobs = []
-    for i in range(k):
-        v0, v1 = vs[6 * i], vs[6 * i + 1]
-        d01, d02 = ds[3 * i + 1], ds[3 * i + 2]
-        xi12, xiv2 = xis[2 * i], xis[2 * i + 1]
-        out_jobs += [(v0, xi12), (d01, xiv2), (d02, v1)]
-    outs = fp2_add_many(out_jobs)
-    return [tuple(outs[3 * i : 3 * i + 3]) for i in range(k)]
+    shape = _shape_of([c for p in pairs for x in p for f2 in x for c in f2])
+
+    def pack(side):
+        return torch.stack([_stack([p[side][i][j] for p in pairs], shape)
+                            for i in range(3) for j in range(2)]).reshape(6, -1, shape[-1])
+
+    o = K.fp6_mul(FP, pack(0), pack(1)).view(6, k, *shape)
+    return [tuple((o[2 * i, q], o[2 * i + 1, q]) for i in range(3)) for q in range(k)]
 
 
 def fp6_mul(a, b):
@@ -445,9 +420,45 @@ class F2:
         return FP.mul_plain(*torch.broadcast_tensors(a, s.unsqueeze(-3)))
 
     @staticmethod
+    def conj(a):
+        a0, a1 = a.unbind(-3)
+        return torch.stack([a0, FP.sub_plain(torch.zeros_like(a1), a1)], -3)
+
+    @staticmethod
+    def is_zero(a):
+        """(..., N) mask of the zero elements"""
+        return (a == 0).all(-1).all(-2)
+
+    @staticmethod
+    def eq(a, b):
+        return (a == b).all(-1).all(-2)
+
+    @staticmethod
     def stack(*xs):
         """Fp2 tensors -> one (..., len(xs), 2, N, 24) stack."""
         return torch.stack(xs, -4)
+
+
+def pow_win_plain(a, exponent: int):
+    """Plain version of the pow_win kernel: a^exponent (exponent > 0) for a
+    packed (c, N, 24) operand, c = 1 an Fp, c = 2 an Fp2.  The table a^1 ..
+    a^15, then f = a^d0 for the top 4-bit digit and per later digit 4
+    squarings and, unless it is 0, one table product (_pow_win_rows)."""
+    if a.shape[0] == 2:
+        mul, sqr = F2.mul, F2.sqr
+    else:
+        mul, sqr = FP.mul_plain, lambda x: FP.mul_plain(x, x)
+    digits = K.pow_digits(exponent)
+    tab = [None, a]
+    for _ in range(14):
+        tab.append(mul(tab[-1], a))
+    f = tab[digits[0]]
+    for d in digits[1:]:
+        for _ in range(4):
+            f = sqr(f)
+        if d:
+            f = mul(f, tab[d])
+    return f
 
 
 def fp6_mul_v_plain(a):
@@ -468,6 +479,11 @@ def fp6_mul_plain(a, b):
     d12, d01, d02 = F2.sub(F2.stack(t12, t01, t02), sums).unbind(-4)
     x12, x2 = F2.xi(F2.stack(d12, v2)).unbind(-4)
     return F2.add(F2.stack(v0, d01, d02), F2.stack(x12, x2, v1))
+
+
+def fp6_mul_packed_plain(a, b):
+    """Plain version of the fp6_mul kernel on packed (6, N, 24) operands."""
+    return fp6_mul_plain(a.view(3, 2, *a.shape[1:]), b.view(3, 2, *b.shape[1:])).reshape(a.shape)
 
 
 def fp12_view(x):

@@ -5,24 +5,34 @@
 
 Needs one CUDA card and nvcc.  Phases, each fatal on failure:
   1. device   -- card name and power limit (nvidia-smi), torch's name;
-  2. build    -- nvcc builds the ten kernels from csrc/ (one nvcc per
+  2. build    -- nvcc builds the 15 kernels from csrc/ (one nvcc per
      source, all at once) and prints ptxas's register/stack/spill report;
   3. main path -- BatchedBLS(device="cuda").verify at batch 4096 with
      32-byte messages: the decodable verify vectors tiled, plus tampered-
      message and identity-pk probes.  One warm-up run, then timed runs;
      launch counters are zeroed just before the first timed run and read
-     just after it: every kernel must have launched, the fused pairing
-     kernels once per product / run / chain; every element must equal its
-     expected result;
-  4. profile  -- device time by kernel over one more verify batch
-     (torch.profiler), and the device's busy share of the wall time;
+     just after it: every kernel must have launched, the fused kernels
+     the expected number of times (KERNELS); every element must equal its
+     expected result.  Then the hash stage split into its parts (XMD +
+     hash_to_field, sswu_map2, g2_cofactor, pt_to_affine), each closed by
+     a synchronize, and its result held to hash_stage's;
+  4. profile  -- one torch.profiler run over one verify batch, each part
+     of the pipeline (the four hash parts, miller, final_exp) in its own
+     range: device time by kernel, port and glue launches per part; the
+     device's busy share of the wall time;
   5. kernels  -- each kernel against its plain PyTorch version on the same
-     CUDA tensors (seeded random values plus edge values), at the element
-     counts the main path launched (miller_dbl_run at each run length), bit
-     for bit, with the launch counters unmoved by every plain call (the
-     plain versions launch no kernel of the port); device time per launch
-     from CUDA-graph replay, eager call time and plain time from CUDA
-     events, and the bound from bytes and integer multiply-adds.
+     CUDA tensors, at the element counts the main path launched, bit for
+     bit, with the launch counters unmoved by every plain call (the plain
+     versions launch no kernel of the port): the field and pairing kernels
+     on seeded random values plus edge values (miller_dbl_run at each run
+     length), the hash-stage and subgroup kernels on the main path's own
+     data (pow_win for Fp and Fp2, pt_mul_const for G1 and G2 on the
+     batch's points with infinity and off-subgroup probes, sswu_map2 on
+     hash_to_field's outputs with u = 0, g2_cofactor on sswu_map2's);
+     device time per launch from CUDA-graph replay, eager call time and
+     plain time from CUDA events (the slow plain versions of the hash-stage
+     kernels: their one comparison call), and the bound from bytes and
+     integer multiply-adds.
 Prints one JSON line of kernels, the card's name and power limit, and as
 its last line {"ok": true, "device": {...}}.  Imports nothing of JAX.
 """
@@ -49,6 +59,7 @@ MAD_PER_MONT = 600  # 12x12 word products for a*b and for m*p, lo + hi each
 
 FIELD_SRC = "bls_verify_gadget_tpu_torch/csrc/field_kernels.cu"
 PAIRING_SRC = "bls_verify_gadget_tpu_torch/csrc/pairing_kernels.cu"
+HASH_SRC = "bls_verify_gadget_tpu_torch/csrc/hash_kernels.cu"
 TPU_KERNELS = "bls_verify_gadget_tpu/ops/pallas/kernels.py"
 # name -> (TPU kernel replaced, source, launches per verify expected or None)
 KERNELS = {
@@ -57,11 +68,17 @@ KERNELS = {
     "sub": (f"{TPU_KERNELS}:241", FIELD_SRC, None),
     "fp2_mul": (f"{TPU_KERNELS}:262", FIELD_SRC, None),
     "fp2_sqr": (f"{TPU_KERNELS}:276", FIELD_SRC, None),
+    "fp6_mul": (f"{TPU_KERNELS}:291", PAIRING_SRC, 2),  # the two in fp12_inv
     "fp12_mul": (f"{TPU_KERNELS}:584", PAIRING_SRC, 9),
     "fp12_sqr": (f"{TPU_KERNELS}:596", PAIRING_SRC, 1),
     "miller_dbl_run": (f"{TPU_KERNELS}:1494", PAIRING_SRC, 6),
     "miller_add": (f"{TPU_KERNELS}:1537", PAIRING_SRC, 5),
     "exp_x": (f"{TPU_KERNELS}:1446", PAIRING_SRC, 5),
+    # pt_to_affine in the hash stage, fp12_inv in final_exp
+    "pow_win": (f"{TPU_KERNELS}:866", HASH_SRC, 2),
+    "pt_mul_const": (f"{TPU_KERNELS}:819", HASH_SRC, 3),  # G1 twice, G2 once
+    "g2_cofactor": (f"{TPU_KERNELS}:1219", HASH_SRC, 1),
+    "sswu_map2": (f"{TPU_KERNELS}:1023", HASH_SRC, 1),
 }
 PORT_KERNEL_NAME = re.compile(r"bls_kernels::(%s)_kernel\b" % "|".join(KERNELS))
 
@@ -174,7 +191,7 @@ def main_path_phase(torch, K):
     off = {k: launches[k] for k, (_, _, want_n) in KERNELS.items()
            if want_n is not None and launches[k] != want_n}
     if off:
-        raise RuntimeError(f"fused kernels launched other than once per run/chain/product: {off}")
+        raise RuntimeError(f"fused kernels launched other than expected: {off}")
     n_true = int(want.sum())
     totals = [sum(st) for st in stage_times]
     mean = sum(totals) / len(totals)
@@ -187,47 +204,110 @@ def main_path_phase(torch, K):
         log(f"[main] stage {name}: mean {sum(ms) / len(ms):.3f} ms ({[round(x, 3) for x in ms]})")
     log(f"[main] launches per verify batch: {launches} (total {sum(launches.values())})")
     log(f"[main] elements per verify batch: {elements}")
-    return launches, sizes, mean, run
+    parts = pipeline_parts(bls, pk, sig)
+    n_hash = len(bls.hash_parts(MSG_LEN))
+    hash_split(torch, parts[:n_hash], msg, bls.hash_stage(msg, MSG_LEN), stage_times)
+    return launches, sizes, mean, parts, want, {"pk": pk, "sig": sig, "msg": msg}
 
 
-def profile_phase(torch, run, verify_s):
-    """Device time by kernel over one verify batch (torch.profiler, CUPTI):
-    the port's kernels (each by name), all other kernels (torch glue), and
-    the device's busy share of the unprofiled wall time."""
-    from torch.profiler import ProfilerActivity, profile
+def pipeline_parts(bls, pk, sig):
+    """The verify pipeline as its parts, each a function of the previous
+    part's output, the first of the message bytes: the parts of
+    BatchedBLS.hash_stage (BatchedBLS.hash_parts), then miller_stage and
+    finalexp_stage."""
+    return [
+        *bls.hash_parts(MSG_LEN),
+        ("miller", lambda h: bls.miller_stage(pk, sig, h)),
+        ("final_exp", lambda f_ok: bls.finalexp_stage(*f_ok)),
+    ]
 
+
+def hash_split(torch, parts, msg, want, stage_times):
+    """Wall time of each hash part (closed by a synchronize) over
+    TIMED_RUNS runs; each run's result must equal hash_stage's."""
+    times = []
+    for i in range(TIMED_RUNS):
+        x, row = msg, []
+        for _, fn in parts:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            x = fn(x)
+            torch.cuda.synchronize()
+            row.append(time.perf_counter() - t0)
+        if not all(torch.equal(a, b) for a, b in zip(flat_outputs(x), flat_outputs(want))):
+            raise RuntimeError(f"hash split run {i} disagrees with hash_stage")
+        times.append(row)
+    hash_ms = sum(st[0] for st in stage_times) / len(stage_times) * 1e3
+    total = sum(sum(r) for r in times) / len(times) * 1e3
+    log(f"[main] hash split, {TIMED_RUNS} runs (each equal to hash_stage): total {total:.3f} ms "
+        f"(hash stage in the timed runs {hash_ms:.3f} ms)")
+    for j, (name, _) in enumerate(parts):
+        ms = [r[j] * 1e3 for r in times]
+        mean = sum(ms) / len(ms)
+        log(f"[main]   {name}: mean {mean:.3f} ms ({100 * mean / total:.2f}%) "
+            f"{[round(x, 3) for x in ms]}")
+
+
+def profile_phase(torch, parts, msg, want, verify_s):
+    """Device time by kernel over one verify batch, in ONE torch.profiler
+    run (CUPTI; back-to-back runs, one per part, lost a whole run's device
+    events): each part of the pipeline in its own record_function range,
+    closed by a synchronize, so every device kernel starts inside the range
+    of the part that launched it.  Per part the port's kernel launches and
+    time, and the other kernels' (torch glue); over the batch, the port
+    kernels by name, the heaviest glue kernels, and the device's busy share
+    of the unprofiled wall time."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    x = msg
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        run()
-    field_us = other_us = 0.0
-    n_other = 0
-    others, ours = [], {}
-    for ev in prof.key_averages():
-        # device-side events only: a CPU op's average also carries the
-        # device time of the kernels it launched, which would count twice
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
+        for name, fn in parts:
+            with record_function(f"part:{name}"):
+                x = fn(x)
+                torch.cuda.synchronize()
+    if not torch.equal(x, want):
+        raise RuntimeError("the profiled verify batch disagrees with the expected results")
+    cuda = torch.autograd.DeviceType.CUDA
+    events = prof.events()
+    ranges = sorted((ev.time_range.start, ev.time_range.end, ev.name[5:]) for ev in events
+                    if ev.name.startswith("part:") and ev.device_type != cuda)
+    names = [name for name, _ in parts] + ["(outside every part)"]
+    per_part = {n: [0.0, 0, 0.0, 0] for n in names}  # port us, launches, glue us, launches
+    ours, others = {}, {}
+    for ev in events:
+        # device-side kernels only (a CPU op's total also carries the device
+        # time of the kernels it launched, which would count twice)
+        if ev.device_type != cuda or ev.name.startswith("part:"):
             continue
-        us = ev.self_device_time_total
-        hit = PORT_KERNEL_NAME.search(ev.key)
-        if hit:
-            field_us += us
-            kus, kn = ours.get(hit.group(1), (0.0, 0))
-            ours[hit.group(1)] = (kus + us, kn + ev.count)
-        else:
-            other_us += us
-            n_other += ev.count
-            others.append((us, ev.count, ev.key[:80]))
-    if field_us + other_us == 0:
+        start, us = ev.time_range.start, ev.time_range.elapsed_us()
+        part = next((n for a, b, n in ranges if a <= start <= b), names[-1])
+        hit = PORT_KERNEL_NAME.search(ev.name)
+        acc, key = (ours, hit.group(1)) if hit else (others, ev.name[:80])
+        kus, kn = acc.get(key, (0.0, 0))
+        acc[key] = (kus + us, kn + 1)
+        row = per_part[part]
+        row[0 if hit else 2] += us
+        row[1 if hit else 3] += 1
+    port_us = sum(us for us, _ in ours.values())
+    other_us = sum(us for us, _ in others.values())
+    if port_us + other_us == 0:
         log("[profile] device time: not measured (the profiler saw no device activity)")
         return
-    busy = (field_us + other_us) / 1e3
-    log(f"[profile] one verify batch: port kernels {field_us / 1e3:.3f} ms, other kernels "
+    for name in names:
+        p_us, p_n, o_us, o_n = per_part[name]
+        if name in dict(parts) or p_n + o_n:
+            log(f"[profile] {name}: port kernels {p_us / 1e3:.3f} ms over {p_n} launches, "
+                f"glue {o_us / 1e3:.3f} ms over {o_n} launches")
+    busy = (port_us + other_us) / 1e3
+    n_other = sum(n for _, n in others.values())
+    log(f"[profile] one verify batch: port kernels {port_us / 1e3:.3f} ms, other kernels "
         f"{other_us / 1e3:.3f} ms over {n_other} launches; device busy {busy:.3f} ms of "
         f"{verify_s * 1e3:.3f} ms unprofiled wall = {100 * busy / (verify_s * 1e3):.2f}% "
         f"busy, {100 - 100 * busy / (verify_s * 1e3):.2f}% idle")
     for name, (us, count) in sorted(ours.items(), key=lambda kv: -kv[1][0]):
         log(f"[profile]   {us / 1e3:9.3f} ms {count:7d} launches  port kernel {name}")
-    for us, count, key in sorted(others, reverse=True)[:8]:
+    for key, (us, count) in sorted(others.items(), key=lambda kv: -kv[1][0])[:8]:
         log(f"[profile]   {us / 1e3:9.3f} ms {count:7d} launches  {key}")
 
 
@@ -281,7 +361,7 @@ def pairing_inputs(torch, rng, name, n, count=None):
     bit for bit."""
     import math
 
-    from bls_verify_gadget_tpu_torch.ops import pairing as PR
+    from bls_verify_gadget_tpu_torch.ops import curve as CV
     from bls_verify_gadget_tpu_torch.ops.fp import FP
 
     edges = edge_limbs(torch, FP)
@@ -297,16 +377,19 @@ def pairing_inputs(torch, rng, name, n, count=None):
 
     valid = torch.from_numpy(rng.random((2, n)) < 0.75).cuda()
     return {
+        "fp6_mul": lambda: (fp(6), fp(6)),
         "fp12_mul": lambda: (fp(12), fp(12)),
         "fp12_sqr": lambda: (fp(12),),
         "miller_dbl_run": lambda: (fp(12), fp(2, 6), fp(2), fp(2), valid, count),
         "miller_add": lambda: (fp(12), fp(2, 6), fp(2, 4), fp(2), fp(2), valid),
-        "exp_x": lambda: (fp(12), PR.X_RUNS),
+        "exp_x": lambda: (fp(12), CV.X_SEGMENTS),
     }[name]()
 
 
 def kernel_call(name):
     """(kernel wrapper, plain version) of `name`, both on the same operands."""
+    from bls_verify_gadget_tpu_torch.ops import curve as CV
+    from bls_verify_gadget_tpu_torch.ops import hash_to_g2 as H
     from bls_verify_gadget_tpu_torch.ops import kernels as K
     from bls_verify_gadget_tpu_torch.ops import pairing as PR
     from bls_verify_gadget_tpu_torch.ops import tower as T
@@ -315,9 +398,12 @@ def kernel_call(name):
     plain = {
         "mul": FP.mul_plain, "add": FP.add_plain, "sub": FP.sub_plain,
         "fp2_mul": T.fp2_mul_plain, "fp2_sqr": T.fp2_sqr_plain,
+        "fp6_mul": T.fp6_mul_packed_plain,
         "fp12_mul": T.fp12_mul_plain, "fp12_sqr": T.fp12_sqr_plain,
         "miller_dbl_run": PR.miller_dbl_run_plain, "miller_add": PR.miller_add_plain,
-        "exp_x": PR.exp_x_plain,
+        "exp_x": PR.exp_x_plain, "pow_win": T.pow_win_plain,
+        "pt_mul_const": CV.pt_mul_const_plain, "g2_cofactor": CV.g2_cofactor_plain,
+        "sswu_map2": H.sswu_map2_plain,
     }[name]
     return (lambda *a: getattr(K, name)(FP, *a)), plain
 
@@ -329,9 +415,11 @@ def work(name, n, args):
     update for every pair, the line and f * line only for valid pairs."""
     from bls_verify_gadget_tpu_torch.ops import kernels as K
 
+    if name in HASH_WORK:
+        return HASH_WORK[name](n, *args)
     k = K.PAIRS
     fp_io = {
-        "mul": 3, "add": 3, "sub": 3, "fp2_mul": 6, "fp2_sqr": 4, "fp12_mul": 36,
+        "mul": 3, "add": 3, "sub": 3, "fp2_mul": 6, "fp2_sqr": 4, "fp6_mul": 18, "fp12_mul": 36,
         "fp12_sqr": 24, "miller_dbl_run": 12 + 8 * k + 12 + 6 * k,
         "miller_add": 12 + 12 * k + 12 + 6 * k, "exp_x": 24,
     }[name]
@@ -346,8 +434,118 @@ def work(name, n, args):
         mont = sum(18 * s + 54 * bool(b) for s, b in args[-1])
     else:
         mont = {"mul": 1, "add": 0, "sub": 0, "fp2_mul": 3, "fp2_sqr": 2,
-                "fp12_mul": 54, "fp12_sqr": 36}[name]
+                "fp6_mul": 18, "fp12_mul": 54, "fp12_sqr": 36}[name]
     return nbytes, n * mont
+
+
+def _pow_products(c, exponent):
+    """Montgomery products of pow_win per element (csrc/curve.cuh pow_win):
+    14 table products, then per window after the first 4 squarings and a
+    product where its digit is not 0; an Fp2 product is 3, a square 2."""
+    from bls_verify_gadget_tpu_torch.ops import kernels as K
+
+    d = K.pow_digits(exponent)
+    nonzero = sum(1 for x in d[1:] if x)
+    sqr, mul = (1, 1) if c == 1 else (2, 3)
+    return 14 * mul + 4 * (len(d) - 1) * sqr + nonzero * mul
+
+
+def _ladder_products(c, segments):
+    """Montgomery products of one constant-scalar ladder per element
+    (csrc/curve.cuh ladder): a doubling is 8 (G1) or 17 (G2), a complete
+    addition 16 or 44.  The addition's doubling case (P == acc, finite)
+    does not arise in this data and is not counted."""
+    dbl, add = (8, 16) if c == 1 else (17, 44)
+    return sum(s for s, _ in segments) * dbl + sum(1 for _, b in segments if b) * add
+
+
+def _finite(p, c):
+    """Points of a packed (3c, N, 24) operand not at infinity (Z != 0).  The
+    function needs no products for the infinity, so the bound counts only
+    these; the kernels have no early exit and still run the whole ladder on
+    an infinity, which is part of their gap to the bound."""
+    return int((p[2 * c:] != 0).any(-1).any(0).sum())
+
+
+def _sswu_products():
+    """Montgomery products of sswu_map2 per element (csrc/hash_kernels.cu):
+    per map 112 around the sqrt chain plus the chain, and 67 for affine,
+    sgn0 and isogeny; then 8 + 3 for the four norms, the Fermat inverse,
+    6 for Montgomery's trick and 44 for q0 + q1.  The sqrt candidates'
+    products (at most 3 per check, where sqrt(+-u) passes) are not counted."""
+    from bls_verify_gadget_tpu_torch.ops import hash_to_g2 as H
+    from bls_verify_gadget_tpu_torch.ops.fp import FP
+
+    chain = _pow_products(2, H.SQRT_K)
+    return 2 * (112 + chain + 67) + 8 + 3 + _pow_products(1, FP.modulus - 2) + 6 + 44
+
+
+# (bytes, Montgomery products) of one hash-stage kernel call at n elements
+HASH_WORK = {
+    "pow_win": lambda n, a, e: (n * 2 * a.shape[0] * 96, n * _pow_products(a.shape[0], e)),
+    "pt_mul_const": lambda n, p, segs: (
+        n * 2 * p.shape[0] * 96,
+        _finite(p, p.shape[0] // 3) * _ladder_products(p.shape[0] // 3, segs)),
+    "g2_cofactor": lambda n, p, segs: (
+        n * 12 * 96, _finite(p, 2) * (2 * _ladder_products(2, segs) + 17 + 6 + 2 + 5 * 44)),
+    # u in, the point out, and the 46-row constant table read once
+    "sswu_map2": lambda n, u: (n * 10 * 96 + 46 * 96, n * _sswu_products()),
+}
+
+
+def off_subgroup_points():
+    """The first on-curve G1 point (x, y) and G2 point ((x0, 1), y) over
+    small x: outside the prime-order subgroup, as
+    tests/test_torch_curve_hash_pairing.py checks against the golden
+    oracle for these same points."""
+    from bls_verify_gadget_tpu_torch import constants as C
+    from bls_verify_gadget_tpu_torch.golden import field as GF
+
+    g1 = next((x, y) for x in range(1, 100)
+              if (y := GF.fp_sqrt((x**3 + 4) % C.P)) is not None)
+    g2 = next((x, y) for x in ((x0, 1) for x0 in range(1, 100))
+              if (y := GF.fp2_sqrt(GF.fp2_add(GF.fp2_mul(GF.fp2_sqr(x), x), C.B_G2)))
+              is not None)
+    return g1, g2
+
+
+def hash_cases(torch, rng, ctx):
+    """name -> [(label, args, launches per verify)] for the hash-stage and
+    subgroup kernels, on the main path's own data: pow_win on seeded Fp
+    values with edge values (e = p - 2, as FP.inv) and Fp2 values (e =
+    (p - 11)/16, the SSWU sqrt chain); pt_mul_const by |x| on the batch's
+    public keys (G1, with its identity probes) and signatures (G2), an
+    off-subgroup point in the first element of each; sswu_map2 on
+    hash_to_field's outputs for the batch's messages with u0 = u1 = 0 in
+    element 0 and u1 = 0 in element 1; g2_cofactor on sswu_map2's outputs
+    (points outside the subgroup)."""
+    from bls_verify_gadget_tpu_torch.ops import curve as CV
+    from bls_verify_gadget_tpu_torch.ops import hash_to_g2 as H
+    from bls_verify_gadget_tpu_torch.ops import kernels as K
+    from bls_verify_gadget_tpu_torch.ops.fp import FP
+
+    pk, sig, msg = ctx["pk"], ctx["sig"], ctx["msg"]
+    n = pk[0].shape[0]
+    off1, off2 = off_subgroup_points()
+    g1 = CV.pack_point(CV.FP_OPS, CV.pt_from_affine(CV.FP_OPS, *pk)).clone()
+    g1[:, :1] = CV.pack_point(CV.FP_OPS, CV.g1_encode_batch([off1], "cuda"))
+    g2 = CV.pack_point(CV.FP2_OPS, CV.pt_from_affine(CV.FP2_OPS, *sig)).clone()
+    g2[:, :1] = CV.pack_point(CV.FP2_OPS, CV.g2_encode_batch([off2], "cuda"))
+    a1 = field_inputs(torch, rng, "add", n)[0][None]
+    a2 = torch.stack(field_inputs(torch, rng, "fp2_mul", n)[:2])
+    u0, u1 = H.hash_to_field_fp2(msg, MSG_LEN)
+    u = torch.stack([*u0, *u1])
+    u[:, 0] = 0
+    u[2:, 1] = 0
+    q = K.sswu_map2(FP, u)
+    return {
+        "pow_win": [("Fp, e = p - 2", (a1, FP.modulus - 2), 2),
+                    ("Fp2, e = (p - 11)/16", (a2, H.SQRT_K), 0)],
+        "pt_mul_const": [("G1 by |x|", (g1, CV.X_SEGMENTS), 2),
+                         ("G2 by |x|", (g2, CV.X_SEGMENTS), 1)],
+        "sswu_map2": [("hash_to_field outputs", (u,), 1)],
+        "g2_cofactor": [("sswu_map2 outputs", (q, CV.X_SEGMENTS), 1)],
+    }
 
 
 def flat_outputs(out):
@@ -392,16 +590,81 @@ def device_ms(torch, fn, args, reps=20, replays=5):
     return start.elapsed_time(end) / (reps * replays)
 
 
-def kernel_phase(torch, K, launches, sizes, verify_s):
+def bound(name, n, args):
+    """(bound ms, "bytes" or "operations") of one call at n elements."""
+    nbytes, nmont = work(name, n, args)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = nmont * MAD_PER_MONT / INT32_MAD_PER_S * 1e3
+    return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
+
+
+def max_err(got, ref):
+    got, ref = flat_outputs(got), flat_outputs(ref)
+    if len(got) != len(ref):
+        raise RuntimeError(f"{len(got)} outputs, plain {len(ref)}")
+    return max(int((g.long() - r.long()).abs().max()) for g, r in zip(got, ref))
+
+
+def hash_kernel_row(torch, name, replaces, cases, launches, sizes, plain_call):
+    """One hash-stage or subgroup kernel against its plain version on each
+    case of hash_cases; a case that stands for main-path launches must have
+    an element count the main path launched it with.  The plain version is
+    slow on the card, so it runs once per case, timed with CUDA events;
+    device time per launch from CUDA-graph replay, eager call time, bound.
+    -> (row, device ms per verify)."""
+    kern, plain = kernel_call(name)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    out, kernel_ms = [], 0.0
+    for label, args, weight in cases:
+        n = args[0].shape[1]
+        if weight and n not in sizes[name]:
+            raise RuntimeError(f"kernel {name} ({label}) checked at {n} elements, but the "
+                               f"main path launched it at {sorted(sizes[name])}")
+        got = kern(*args)
+        torch.cuda.synchronize()
+        start.record()
+        ref = plain_call(name, plain, args)
+        end.record()
+        torch.cuda.synchronize()
+        err = max_err(got, ref)
+        if err != 0:
+            raise RuntimeError(f"kernel {name} ({label}) disagrees with its plain version: "
+                               f"max |err| {err}")
+        ms = device_ms(torch, kern, args, 3, 2)
+        bound_ms, bound_by = bound(name, n, args)
+        kernel_ms += ms * weight
+        out.append({"case": label, "elements": n, "max_abs_err": err, "ms": ms,
+                    "call_ms": call_ms(torch, kern, args, 3),
+                    "plain_ms": start.elapsed_time(end), "bound_ms": bound_ms,
+                    "bound_by": bound_by, "launches": weight})
+        c = out[-1]
+        log(f"[kernel] {name} ({label}): bit-equal to plain at {n} elements, COUNTS "
+            f"unchanged by plain; device {ms:.5f} ms, eager call {c['call_ms']:.5f} ms, "
+            f"plain {c['plain_ms']:.4f} ms (one call), bound {bound_ms:.5f} ms ({bound_by}); "
+            f"{weight} launches per verify")
+    main = out[0]
+    row = {
+        "name": name, "route": "cuda", "source": HASH_SRC, "replaces": replaces,
+        "launches": launches[name], "max_abs_err": max(c["max_abs_err"] for c in out),
+        **{k: main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+        "library_ms": None, "elements": main["elements"], "call_ms": main["call_ms"],
+        "cases": out,
+    }
+    return row, kernel_ms
+
+
+def kernel_phase(torch, K, launches, sizes, verify_s, ctx):
     """Each kernel against its plain version on the same CUDA tensors, bit
-    for bit, at every element count the main path launched it with (and
-    miller_dbl_run at each run length of |x|), with COUNTS unchanged across
-    every plain call.  Device time per launch (CUDA-graph replay), eager
-    call time and plain time at the main path's most frequent size
-    (miller_dbl_run: its longest run), and the bound of that call."""
+    for bit, with COUNTS unchanged across every plain call: the field and
+    pairing kernels at every element count the main path launched them
+    with (and miller_dbl_run at each run length of |x|), the hash-stage and
+    subgroup kernels on hash_cases.  Device time per launch (CUDA-graph
+    replay), eager call time and plain time at the main path's most
+    frequent size (miller_dbl_run: its longest run; pow_win: Fp;
+    pt_mul_const: G1), and the bound of that call."""
     import numpy as np
 
-    from bls_verify_gadget_tpu_torch.ops import pairing as PR
+    from bls_verify_gadget_tpu_torch.ops import curve as CV
 
     def plain_call(name, plain, args):
         before = dict(K.COUNTS.launches)
@@ -411,15 +674,23 @@ def kernel_phase(torch, K, launches, sizes, verify_s):
         return out
 
     rng = np.random.default_rng(SEED)
-    longest = max(c for c, _ in PR.X_RUNS)
+    longest = max(c for c, _ in CV.X_SEGMENTS)
     rows, kernel_ms = [], 0.0
+    hcases = hash_cases(torch, rng, ctx)
     for name, (replaces, source, _) in KERNELS.items():
+        if source == HASH_SRC:
+            row, ms = hash_kernel_row(torch, name, replaces, hcases[name], launches, sizes,
+                                      plain_call)
+            rows.append(row)
+            kernel_ms += ms
+            continue
         kern, plain = kernel_call(name)
         field = source == FIELD_SRC
         hist = sizes[name]
         n_main = max(hist, key=lambda s: (hist[s], s))
         if name == "miller_dbl_run":  # each run length once per verify
-            cases = [(n, c, hist[n] / len(PR.X_RUNS)) for n in sorted(hist) for c, _ in PR.X_RUNS]
+            cases = [(n, c, hist[n] / len(CV.X_SEGMENTS))
+                     for n in sorted(hist) for c, _ in CV.X_SEGMENTS]
         else:
             cases = [(n, None, hist[n]) for n in sorted(hist)]
         worst, main = 0, None
@@ -428,12 +699,7 @@ def kernel_phase(torch, K, launches, sizes, verify_s):
                 args = field_inputs(torch, rng, name, n)
             else:
                 args = pairing_inputs(torch, rng, name, n, count)
-            got = flat_outputs(kern(*args))
-            ref = flat_outputs(plain_call(name, plain, args))
-            if len(got) != len(ref):
-                raise RuntimeError(f"kernel {name}: {len(got)} outputs, plain {len(ref)}")
-            for g, r in zip(got, ref):
-                worst = max(worst, int((g.long() - r.long()).abs().max()))
+            worst = max(worst, max_err(kern(*args), plain_call(name, plain, args)))
             ms = device_ms(torch, kern, args, *((20, 5) if field else (3, 2)))
             kernel_ms += ms * weight
             if n == n_main and count in (None, longest):
@@ -443,14 +709,11 @@ def kernel_phase(torch, K, launches, sizes, verify_s):
         n, count, args, ms = main
         eager_ms = call_ms(torch, kern, args, 50 if field else 3)
         plain_ms = call_ms(torch, lambda *a: plain_call(name, plain, a), args, 3 if field else 1)
-        nbytes, nmont = work(name, n, args)
-        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        ops_ms = nmont * MAD_PER_MONT / INT32_MAD_PER_S * 1e3
-        bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
+        bound_ms, bound_by = bound(name, n, args)
         row = {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches[name], "max_abs_err": worst, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms), "bound_by": bound_by,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": None, "elements": n, "call_ms": eager_ms,
         }
         if count is not None:
@@ -461,7 +724,7 @@ def kernel_phase(torch, K, launches, sizes, verify_s):
         log(f"[kernel] {name}: bit-equal to plain at {len(cases)} main-path calls "
             f"({'run lengths' if name == 'miller_dbl_run' else 'sizes'} {checked}), COUNTS "
             f"unchanged by plain; at {at}: device {ms:.5f} ms, eager call {eager_ms:.5f} "
-            f"ms, plain {plain_ms:.4f} ms, bound {max(bytes_ms, ops_ms):.5f} ms "
+            f"ms, plain {plain_ms:.4f} ms, bound {bound_ms:.5f} ms "
             f"({bound_by}); {launches[name]} launches per verify")
     from bls_verify_gadget_tpu_torch.ops.fp import FR
 
@@ -492,9 +755,9 @@ def main():
 
     smi, kind = device_phase(torch)
     build_phase(K)
-    launches, sizes, verify_s, run = main_path_phase(torch, K)
-    profile_phase(torch, run, verify_s)
-    rows = kernel_phase(torch, K, launches, sizes, verify_s)
+    launches, sizes, verify_s, parts, want, ctx = main_path_phase(torch, K)
+    profile_phase(torch, parts, ctx["msg"], want, verify_s)
+    rows = kernel_phase(torch, K, launches, sizes, verify_s, ctx)
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

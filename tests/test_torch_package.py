@@ -78,23 +78,42 @@ def test_entry_points_need_a_card_unless_cpu():
 def test_kernel_wrappers_do_not_fall_back():
     """A tensor that is neither on the CPU nor on a card is refused; the
     plain version runs only for CPU tensors."""
+    from bls_verify_gadget_tpu_torch.ops import curve as CV
     from bls_verify_gadget_tpu_torch.ops import kernels as K
-    from bls_verify_gadget_tpu_torch.ops import pairing as PR
     from bls_verify_gadget_tpu_torch.ops.fp import FP
 
     a = FP.encode([7, 11], "cpu").to("meta")
     f, t, q = a.new_zeros(12, 2, 24), a.new_zeros(2, 6, 2, 24), a.new_zeros(2, 4, 2, 24)
     xp, valid = a.new_zeros(2, 2, 24), torch.ones(2, 2, dtype=torch.bool, device="meta")
+    g1, g2, u = a.new_zeros(3, 2, 24), a.new_zeros(6, 2, 24), a.new_zeros(4, 2, 24)
     for call in (
         lambda: K.add(FP, a, a),
         lambda: K.sub(FP, a, a),
         lambda: K.fp2_mul(FP, a, a, a, a),
         lambda: K.fp2_sqr(FP, a, a),
+        lambda: K.fp6_mul(FP, g2, g2),
         lambda: K.fp12_mul(FP, f, f),
         lambda: K.fp12_sqr(FP, f),
         lambda: K.miller_dbl_run(FP, f, t, xp, xp, valid, 1),
         lambda: K.miller_add(FP, f, t, q, xp, xp, valid),
-        lambda: K.exp_x(FP, f, PR.X_RUNS),
+        lambda: K.exp_x(FP, f, CV.X_SEGMENTS),
+        lambda: K.pow_win(FP, a[None], FP.modulus - 2),
+        lambda: K.pow_win(FP, xp, FP.modulus - 2),
+        lambda: K.pt_mul_const(FP, g1, CV.X_SEGMENTS),
+        lambda: K.pt_mul_const(FP, g2, CV.X_SEGMENTS),
+        lambda: K.g2_cofactor(FP, g2, CV.X_SEGMENTS),
+        lambda: K.sswu_map2(FP, u),
     ):
         with pytest.raises(ValueError):
             call()
+
+
+def test_sources_name_every_csrc_file():
+    """library_path() hashes SOURCES only: a csrc/ file left out of it
+    would keep a stale library after an edit."""
+    from bls_verify_gadget_tpu_torch.ops import kernels as K
+
+    files = {p.name for p in K.CSRC_DIR.iterdir() if p.suffix in (".cu", ".cuh")}
+    assert files == set(K.SOURCES)
+    assert {p.name for p in K.CSRC_DIR.iterdir()} == files
+    assert set(K.UNITS) == {n for n in files if n.endswith(".cu")}

@@ -1,5 +1,5 @@
 """The port's pairing kernels (bls_verify_gadget_tpu_torch/ops/kernels.py
-fp12_mul, fp12_sqr, miller_dbl_run, miller_add, exp_x) through their
+fp6_mul, fp12_mul, fp12_sqr, miller_dbl_run, miller_add, exp_x) through their
 wrappers on CPU tensors, i.e. their plain versions, against the JAX
 package's jnp compositions under jax.jit (on the CPU the JAX package runs
 no Pallas kernel, so these are the references its fused kernels are held
@@ -22,7 +22,8 @@ from bls_verify_gadget_tpu.ops import tower as JT
 from bls_verify_gadget_tpu.ops.fp import FP as JFP
 from bls_verify_gadget_tpu_torch.convert import limbs_from_numpy, limbs_to_numpy
 from bls_verify_gadget_tpu_torch.ops import kernels as K
-from bls_verify_gadget_tpu_torch.ops import pairing as PR
+from bls_verify_gadget_tpu_torch.ops import tower as T
+from bls_verify_gadget_tpu_torch.ops import curve as CV
 from bls_verify_gadget_tpu_torch.ops.fp import FP
 
 B = 4
@@ -62,6 +63,27 @@ def test_fp12_kernels_match_jax(op):
         want = jax.jit(JT.fp12_sqr)(JT._unflat12(a))
         got = K.fp12_sqr(FP, port(a))
     assert_same(got, JT._flat12(want))
+
+
+def test_fp6_mul_kernel_matches_jax():
+    """fp6_mul on packed (6, B, 24) operands, and the port's fp6_mul_pairs,
+    which stacks its k = 2 pairs into one fp6_mul call, against the JAX
+    package's fp6_mul_pairs (its composition on the CPU)."""
+    rng = np.random.default_rng(44)
+    a, b, c = ([rand_fp(rng) for _ in range(6)] for _ in range(3))
+
+    def fp6(coords):
+        return tuple((coords[2 * i], coords[2 * i + 1]) for i in range(3))
+
+    def flat6(x):
+        return [t for f2 in x for t in f2]
+
+    want = jax.jit(JT.fp6_mul_pairs)([(fp6(a), fp6(b)), (fp6(c), fp6(a))])
+    assert_same(K.fp6_mul(FP, port(a), port(b)), flat6(want[0]))
+    tensors = [fp6(port(x).unbind(0)) for x in (a, b, c)]
+    got = T.fp6_mul_pairs([(tensors[0], tensors[1]), (tensors[2], tensors[0])])
+    for g, w in zip(got, want):
+        assert_same(torch.stack(flat6(g)), flat6(w))
 
 
 def test_miller_dbl_run_and_add_match_jax():
@@ -142,5 +164,5 @@ def test_exp_x_matches_jax():
     rng = np.random.default_rng(43)
     m = rand_fp12(rng)
     want = jax.jit(lambda x: JT.fp12_conj(JPR._exp_by_neg_x(x)))(JT._unflat12(m))
-    assert PR.X_RUNS == [(1, True), (2, True), (3, True), (9, True), (32, True), (16, False)]
-    assert_same(K.exp_x(FP, port(m), PR.X_RUNS), JT._flat12(want))
+    assert CV.X_SEGMENTS == [(1, True), (2, True), (3, True), (9, True), (32, True), (16, False)]
+    assert_same(K.exp_x(FP, port(m), CV.X_SEGMENTS), JT._flat12(want))
