@@ -1,8 +1,9 @@
 """bls_verify_gadget_tpu_torch: the PyTorch/CUDA port of bls_verify_gadget_tpu.
 
-Batched BLS12-381 signature verification (ETH2 ciphersuite) on an NVIDIA
-Hopper card.  The field arithmetic, the pairing's Miller runs and
-exp-by-x chains, the hash map and cofactor clearing, the subgroup ladders
+Batched BLS12-381 signature verification, keygen, signing and
+aggregation (ETH2 ciphersuite) on an NVIDIA Hopper card.  The field
+arithmetic, the pairing's Miller runs and exp-by-x chains, the hash map and
+cofactor clearing, the subgroup and scalar ladders, the point additions
 and the Fermat inverse run through hand-written CUDA C++ kernels (csrc/,
 built with nvcc on first use and loaded with ctypes); the glue between
 them is plain PyTorch.

@@ -40,6 +40,26 @@ def _tree(x, device):
     return limbs_from_numpy(arr, device)
 
 
+def scalars_from_numpy(arr, device="cuda") -> torch.Tensor:
+    """The JAX package's encode_scalars array ((B, 16) uint32 raw Fr limbs)
+    -> the port's (B, 16) int32 scalars on `device`."""
+    arr = np.asarray(arr)
+    if arr.ndim != 2 or arr.shape[-1] != 16:
+        raise ValueError(f"expected (B, 16) scalar limbs, got {arr.shape}")
+    return limbs_from_numpy(arr, device)
+
+
+def points_from_numpy(pt, device="cuda"):
+    """A JAX Jacobian point tuple, G1 (X, Y, Z) or G2 ((X0, X1), (Y0, Y1),
+    (Z0, Z1)), of uint32 limb arrays -> the port's tuple on `device`."""
+    return _tree(pt, device)
+
+
+def bitmap_from_numpy(bitmap, device="cuda") -> torch.Tensor:
+    """A participation bitmap (any integer or bool array) -> bool tensor."""
+    return torch.from_numpy(np.asarray(bitmap) != 0).to(resolve_device(device))
+
+
 def batch_from_numpy(pk_aff, sig_aff, msg_u8, device="cuda"):
     """The JAX package's encode_pubkeys / encode_signatures /
     encode_messages outputs (as numpy) -> the port's (pk_aff, sig_aff,

@@ -35,7 +35,6 @@ namespace {
 // One warp per block: at the main path's 4096 elements, 128 blocks spread
 // over 128 of the 132 SMs instead of stacking 2-4 warps on a quarter of them.
 constexpr int kThreads = 32;
-constexpr int kPairs = 2;  // pairs per Miller launch (ops/kernels.py PAIRS)
 
 inline unsigned grid_for(long long n) {
   return (unsigned)((n + kThreads - 1) / kThreads);
@@ -130,6 +129,10 @@ __global__ void __launch_bounds__(kThreads)
   store_fp12(out, 0, n, i, bls::f12_sqr(load_fp12(in, 0, n, i), M));
 }
 
+// The Miller kernels are templates over the pair count K, instantiated for
+// K = 1 (aggregate_verify_distinct's one pair of n + 1 elements) and K = 2
+// (verify's two pairs); the C entry points take k and refuse any other.
+
 // Replaces _millerdbl_kernel (kernels.py:1494): `count` iterations of
 // [f <- f^2; per pair in order: T, line <- dbl_step(T); f <- f * line].
 // in (12 + 8k, n) = f, then per pair X, Y, Z (Fp2 each), xp, yp; out
@@ -140,7 +143,8 @@ __global__ void __launch_bounds__(kThreads)
 // f * line where the pair is valid.  An invalid pair needs only its 19, so
 // the bound counts 36 + 19k + 51 per valid pair (176 with both valid:
 // ~6.3 ns per element and iteration of operations against ~1.5 ns of bytes
-// for the whole launch).
+// for the whole launch; 106 for one valid pair).
+template <int K>
 __global__ void __launch_bounds__(kThreads)
     miller_dbl_run_kernel(const int32_t* __restrict__ in,
                           const int32_t* __restrict__ valid,
@@ -149,11 +153,11 @@ __global__ void __launch_bounds__(kThreads)
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   Fp12 f = load_fp12(in, 0, n, i);
-  G2Proj t[kPairs];
-  Fp xp[kPairs], yp[kPairs];
-  bool ok[kPairs];
+  G2Proj t[K];
+  Fp xp[K], yp[K];
+  bool ok[K];
 #pragma unroll
-  for (int p = 0; p < kPairs; ++p) {
+  for (int p = 0; p < K; ++p) {
     const int b = 12 + 8 * p;
     t[p] = load_point(in, b, n, i);
     xp[p] = load_fp(in, b + 6, n, i);
@@ -163,14 +167,14 @@ __global__ void __launch_bounds__(kThreads)
   for (int it = 0; it < count; ++it) {
     f = bls::f12_sqr(f, M);
 #pragma unroll
-    for (int p = 0; p < kPairs; ++p) {
+    for (int p = 0; p < K; ++p) {
       const Line l = bls::miller_dbl_step(t[p], xp[p], yp[p], M);
       if (ok[p]) f = bls::f12_mul_014(f, l, M);
     }
   }
   store_fp12(out, 0, n, i, f);
 #pragma unroll
-  for (int p = 0; p < kPairs; ++p) store_point(out, 12 + 6 * p, n, i, t[p]);
+  for (int p = 0; p < K; ++p) store_point(out, 12 + 6 * p, n, i, t[p]);
 }
 
 // Replaces _milleradd_kernel (kernels.py:1537): per pair in order,
@@ -180,7 +184,8 @@ __global__ void __launch_bounds__(kThreads)
 // for the step (31 for T, 10 for the line) and 45 for f * line where the
 // pair is valid; the bound counts 31 per pair and 55 per valid pair (172
 // with both valid: ~6.2 ns of operations against ~1.7 ns of bytes per
-// element).
+// element; 86 for one valid pair).
+template <int K>
 __global__ void __launch_bounds__(kThreads)
     miller_add_kernel(const int32_t* __restrict__ in,
                       const int32_t* __restrict__ valid,
@@ -189,7 +194,7 @@ __global__ void __launch_bounds__(kThreads)
   if (i >= n) return;
   Fp12 f = load_fp12(in, 0, n, i);
 #pragma unroll
-  for (int p = 0; p < kPairs; ++p) {
+  for (int p = 0; p < K; ++p) {
     const int b = 12 + 12 * p;
     G2Proj t = load_point(in, b, n, i);
     const Line l =
@@ -253,19 +258,36 @@ int bls_fp12_sqr(const int32_t* in, int32_t* out, long long n,
 }
 
 int bls_miller_dbl_run(const int32_t* in, const int32_t* valid, int32_t* out,
-                       long long n, int count, const uint32_t* p, unsigned n0,
-                       void* stream) {
-  bls_kernels::miller_dbl_run_kernel<<<grid_for(n), kThreads, 0,
-                                       (cudaStream_t)stream>>>(
-      in, valid, out, n, count, bls::make_modulus<bls::kFpWords>(p, n0));
+                       long long n, int k, int count, const uint32_t* p,
+                       unsigned n0, void* stream) {
+  const auto M = bls::make_modulus<bls::kFpWords>(p, n0);
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (k == 1) {
+    bls_kernels::miller_dbl_run_kernel<1>
+        <<<grid_for(n), kThreads, 0, s>>>(in, valid, out, n, count, M);
+  } else if (k == 2) {
+    bls_kernels::miller_dbl_run_kernel<2>
+        <<<grid_for(n), kThreads, 0, s>>>(in, valid, out, n, count, M);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
   return (int)cudaGetLastError();
 }
 
 int bls_miller_add(const int32_t* in, const int32_t* valid, int32_t* out,
-                   long long n, const uint32_t* p, unsigned n0, void* stream) {
-  bls_kernels::miller_add_kernel<<<grid_for(n), kThreads, 0,
-                                   (cudaStream_t)stream>>>(
-      in, valid, out, n, bls::make_modulus<bls::kFpWords>(p, n0));
+                   long long n, int k, const uint32_t* p, unsigned n0,
+                   void* stream) {
+  const auto M = bls::make_modulus<bls::kFpWords>(p, n0);
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (k == 1) {
+    bls_kernels::miller_add_kernel<1>
+        <<<grid_for(n), kThreads, 0, s>>>(in, valid, out, n, M);
+  } else if (k == 2) {
+    bls_kernels::miller_add_kernel<2>
+        <<<grid_for(n), kThreads, 0, s>>>(in, valid, out, n, M);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
   return (int)cudaGetLastError();
 }
 

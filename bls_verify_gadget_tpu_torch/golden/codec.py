@@ -1,7 +1,8 @@
-"""ZCash/ETH2 compressed point decoding on the host (own copy of the
-reference package's golden/bls.py decompression): 48-byte G1 and 96-byte
-G2 encodings with the c/b/a flag bits.  Decoding happens at the host I/O
-boundary; the device path consumes the decoded affine points."""
+"""ZCash/ETH2 compressed point encoding and decoding on the host (own copy
+of the reference package's golden/bls.py compression and decompression):
+48-byte G1 and 96-byte G2 encodings with the c/b/a flag bits.  Both happen
+at the host I/O boundary; the device path consumes and produces affine
+points (ops/curve.py g1_decode / g2_decode)."""
 
 from ..constants import P, B_G1, B_G2
 from . import field as F
@@ -18,6 +19,27 @@ def _fp2_is_largest(y) -> bool:
     if y[1] != 0:
         return _fp_is_largest(y[1])
     return _fp_is_largest(y[0])
+
+
+def g1_compress(pt) -> bytes:
+    """Affine G1 point (or None, the infinity) -> 48 bytes."""
+    if pt is None:
+        return bytes([0xC0]) + bytes(47)
+    x, y = pt
+    raw = bytearray(x.to_bytes(48, "big"))
+    raw[0] |= 0x80 | (0x20 if _fp_is_largest(y) else 0)
+    return bytes(raw)
+
+
+def g2_compress(pt) -> bytes:
+    """Affine G2 point (or None) -> 96 bytes: x1 (the u coefficient), then
+    x0."""
+    if pt is None:
+        return bytes([0xC0]) + bytes(95)
+    (x0, x1), y = pt
+    raw = bytearray(x1.to_bytes(48, "big") + x0.to_bytes(48, "big"))
+    raw[0] |= 0x80 | (0x20 if _fp2_is_largest(y) else 0)
+    return bytes(raw)
 
 
 def _decompress_flags(data: bytes, nbytes: int):

@@ -1,9 +1,13 @@
-"""Batched BLS verify on the device (ETH2 min-pubkey-size: pk in G1, sig in
-G2), the counterpart of the JAX package's models/bls.py verify path.
+"""Batched BLS on the device (ETH2 min-pubkey-size: pk in G1, sig in G2),
+the counterpart of the JAX package's models/bls.py: keygen, sign, verify,
+distinct-message aggregate verification and aggregation.
 
-Semantics mirror the reference: identity-pk rejection, on-curve and
-subgroup checks for pk and sig, then e(-g1, sig) * e(pk, H(m)) == 1.
-Invalid inputs are masked to False, never raised.
+Semantics mirror the reference:
+  * verify = identity-pk rejection + on-curve/subgroup checks for pk and
+    sig + e(-g1, sig) * e(pk, H(m)) == 1; invalid inputs are masked to
+    False, never raised;
+  * sign = H(m) * sk, with zero keys flagged invalid;
+  * aggregation = projective sums by a halving tree.
 
 Every tensor lives on the instance's device: `cuda` unless the caller
 passes device="cpu", where each kernel's plain PyTorch version runs.
@@ -20,7 +24,8 @@ from ..ops.fp import FP, resolve_device
 from ..ops import tower as T
 from ..ops import curve as CV
 from ..ops import pairing as PR
-from ..ops.hash_to_g2 import hash_to_g2_steps
+from ..ops.hash_to_g2 import hash_to_g2, hash_to_g2_steps
+from ..ops.limbs import ints_to_limbs
 
 
 @dataclasses.dataclass
@@ -38,8 +43,9 @@ class Params:
 
 
 class BatchedBLS:
-    """Batch-first BLS verify over the torch ops on one device.  Batches
-    are 1-D: pk (B, 24) limbs, sig Fp2 pairs of (B, 24), messages (B, L)."""
+    """Batch-first BLS over the torch ops on one device.  Batches are 1-D:
+    pk (B, 24) limbs, sig Fp2 pairs of (B, 24), messages (B, L), secret
+    keys (B, 16) raw Fr limbs."""
 
     def __init__(self, params: Params | None = None, device="cuda"):
         self.device = resolve_device(device)
@@ -50,6 +56,40 @@ class BatchedBLS:
         if isinstance(x, tuple):
             return tuple(self._to(v) for v in x)
         return x.to(self.device)
+
+    def _msg(self, msg_u8, msg_len):
+        msg_u8 = self._to(msg_u8)
+        if msg_len is not None and msg_len != msg_u8.shape[-1]:
+            raise ValueError(f"msg_len {msg_len} != message width {msg_u8.shape[-1]}")
+        return msg_u8
+
+    # ------------------------------------------------------------------
+    # keygen / sign
+    # ------------------------------------------------------------------
+
+    def derive_pubkeys(self, sk_limbs):
+        """sk_limbs: (B, 16) raw (non-Montgomery) Fr limbs -> G1 Jacobian
+        pubkeys [sk]g1: ONE pt_mul_var launch over 255 bits."""
+        sk = self._to(sk_limbs)
+        gen = CV.g1_generator((*sk.shape[:-1], C.NLIMB), self.device)
+        return CV.pt_mul_var(CV.FP_OPS, gen, sk, 255)
+
+    def hash_to_g2(self, msg_u8, msg_len: int | None = None):
+        """H(m) as a Jacobian G2 point, one message length per batch."""
+        msg_u8 = self._msg(msg_u8, msg_len)
+        return hash_to_g2(msg_u8, msg_u8.shape[-1])
+
+    def sign(self, sk_limbs, msg_u8, msg_len: int | None = None):
+        """-> (sig Jacobian G2 [sk]H(m), valid mask): ONE pt_mul_var launch
+        after the hash.  Zero keys give valid = False (the reference
+        rejects them).  All messages of a batch share one length."""
+        sk = self._to(sk_limbs)
+        sig = CV.pt_mul_var(CV.FP2_OPS, self.hash_to_g2(msg_u8, msg_len), sk, 255)
+        return sig, ~(sk == 0).all(-1)
+
+    # ------------------------------------------------------------------
+    # verify
+    # ------------------------------------------------------------------
 
     @staticmethod
     def hash_parts(msg_len: int):
@@ -62,10 +102,7 @@ class BatchedBLS:
     def hash_stage(self, msg_u8, msg_len: int | None = None):
         """Stage 1 of verify: h = hash_to_g2(msg) as affine coordinates
         (x, y, is_inf) for the mixed-addition Miller loop."""
-        msg_u8 = self._to(msg_u8)
-        if msg_len is not None and msg_len != msg_u8.shape[-1]:
-            raise ValueError(f"msg_len {msg_len} != message width {msg_u8.shape[-1]}")
-        x = msg_u8
+        x = msg_u8 = self._msg(msg_u8, msg_len)
         for _, part in self.hash_parts(msg_u8.shape[-1]):
             x = part(x)
         return x
@@ -76,18 +113,7 @@ class BatchedBLS:
         pk_x, pk_y, pk_inf = self._to(pk_aff)
         sig_x, sig_y, sig_inf = self._to(sig_aff)
         h_x, h_y, h_inf = self._to(h_aff)
-
-        pk_jac = CV.pt_from_affine(CV.FP_OPS, pk_x, pk_y, pk_inf)
-        sig_jac = CV.pt_from_affine(CV.FP2_OPS, sig_x, sig_y, sig_inf)
-        pk_ok = ~pk_inf & CV.pt_on_curve_affine(
-            CV.FP_OPS, pk_x, pk_y, CV.FP_OPS.const(C.B_G1, pk_x)
-        )
-        sig_on_curve = CV.pt_on_curve_affine(
-            CV.FP2_OPS, sig_x, sig_y, T._bcast(C.B_G2, sig_x)
-        )
-        sig_ok = sig_inf | sig_on_curve
-        pk_ok = pk_ok & CV.g1_in_subgroup(pk_jac)
-        sig_ok = sig_ok & (sig_inf | CV.g2_in_subgroup(sig_jac))
+        pk_ok, sig_ok = _point_checks((pk_x, pk_y, pk_inf), (sig_x, sig_y, sig_inf))
 
         neg_g1 = (
             self.params.g1_x.expand(pk_x.shape),
@@ -120,6 +146,76 @@ class BatchedBLS:
         -> False; else the pairing product test."""
         return self.pairing_stage(pk_aff, sig_aff, self.hash_stage(msg_u8, msg_len))
 
+    def aggregate_verify_distinct(self, pk_aff, sig_aff, msg_u8, msg_len: int | None = None):
+        """Distinct-message aggregate verification (IETF AggregateVerify):
+        n pubkeys sign n messages of one length, one aggregated signature.
+
+        pk_aff: (x, y, inf) over the n pubkeys; sig_aff: the aggregated G2
+        signature with a leading dim of 1; msg_u8: (n, L).  The n + 1 pairs
+        (pk_i, H(m_i)) and (-g1, sig) ride the batch axis of ONE one-pair
+        Miller loop, then an fp12_mul halving tree and one final
+        exponentiation.  Returns a 0-dim bool tensor: false if any pk is
+        the identity or fails its checks, or sig fails its checks."""
+        pk_x, pk_y, pk_inf = self._to(pk_aff)
+        sig_x, sig_y, sig_inf = self._to(sig_aff)
+        pk_ok, sig_ok = _point_checks((pk_x, pk_y, pk_inf), (sig_x, sig_y, sig_inf))
+        h_x, h_y, h_inf = self.hash_stage(msg_u8, msg_len)
+
+        def cat(a, b):
+            return torch.cat([a, b[:1]])
+
+        p_x = cat(pk_x, self.params.g1_x[None])
+        p_y = cat(pk_y, FP.neg(self.params.g1_y)[None])
+        q_x = (cat(h_x[0], sig_x[0]), cat(h_x[1], sig_x[1]))
+        q_y = (cat(h_y[0], sig_y[0]), cat(h_y[1], sig_y[1]))
+        f = PR.multi_miller_loop([((p_x, p_y), (q_x, q_y), cat(~h_inf, ~sig_inf))])
+        total = T._tree(lambda c: c[None], T.fp12_prod(f))
+        paired_one = T.fp12_is_one(PR.final_exponentiation(total))[0]
+        return paired_one & pk_ok.all() & sig_ok.all()
+
+    # ------------------------------------------------------------------
+    # aggregation
+    # ------------------------------------------------------------------
+
+    def aggregate_pubkeys(self, pk_jac, axis: int = 0):
+        """Projective sum of G1 Jacobian pubkeys over a batch axis: ONE
+        pt_add launch per tree level.  Empty input is the host's concern."""
+        return CV.pt_sum(CV.FP_OPS, self._to(pk_jac), axis)
+
+    def aggregate_signatures(self, sig_jac, axis: int = 0):
+        """Projective sum of G2 Jacobian signatures over a batch axis."""
+        return CV.pt_sum(CV.FP2_OPS, self._to(sig_jac), axis)
+
+    def aggregate_pubkeys_masked(self, pk_jac, bitmap, axis: int = 0):
+        """Bitmap-gated aggregation: the sum of pk_i where bitmap_i is set
+        (the others replaced by the infinity), and the count of set bits --
+        the device analogue of the reference's mapped_aggregate."""
+        pk_jac = self._to(pk_jac)
+        sel = self._to(bitmap) > 0
+        inf = CV.pt_infinity_like(CV.FP_OPS, pk_jac)
+        masked = CV.pt_cmov(CV.FP_OPS, sel, pk_jac, inf)
+        return CV.pt_sum(CV.FP_OPS, masked, axis), sel.sum(axis)
+
+
+def _point_checks(pk_aff, sig_aff):
+    """Per-element validity of affine pubkeys and signatures: pk not the
+    identity, on the curve and in the subgroup; sig the identity, or on the
+    curve and in the subgroup."""
+    pk_x, pk_y, pk_inf = pk_aff
+    sig_x, sig_y, sig_inf = sig_aff
+    pk_jac = CV.pt_from_affine(CV.FP_OPS, pk_x, pk_y, pk_inf)
+    sig_jac = CV.pt_from_affine(CV.FP2_OPS, sig_x, sig_y, sig_inf)
+    pk_ok = ~pk_inf & CV.pt_on_curve_affine(
+        CV.FP_OPS, pk_x, pk_y, CV.FP_OPS.const(C.B_G1, pk_x)
+    )
+    sig_on_curve = CV.pt_on_curve_affine(
+        CV.FP2_OPS, sig_x, sig_y, T._bcast(C.B_G2, sig_x)
+    )
+    sig_ok = sig_inf | sig_on_curve
+    pk_ok = pk_ok & CV.g1_in_subgroup(pk_jac)
+    sig_ok = sig_ok & (sig_inf | CV.g2_in_subgroup(sig_jac))
+    return pk_ok, sig_ok
+
 
 # ----------------------------------------------------------------------------
 # host-side convenience: decoded points -> device batches
@@ -141,6 +237,13 @@ def encode_signatures(points, device="cuda"):
     y = [(1, 0) if p is None else p[1] for p in points]
     inf = torch.tensor([p is None for p in points], device=dev)
     return T.fp2_encode_batch(x, dev), T.fp2_encode_batch(y, dev), inf
+
+
+def encode_scalars(sks, device="cuda"):
+    """Host ints -> (B, 16) int32 raw (non-Montgomery) Fr limbs, reduced
+    mod r."""
+    dev = resolve_device(device)
+    return torch.from_numpy(ints_to_limbs([s % C.R for s in sks], C.NLIMB_FR)).to(dev)
 
 
 def encode_messages(msgs, device="cuda"):

@@ -5,8 +5,9 @@ batch-first.
   kernels.py    nvcc build, ctypes loader, one wrapper per CUDA kernel
   fp.py         Fp/Fr Montgomery arithmetic (+ plain mul/add/sub)
   tower.py      Fp2/Fp6/Fp12 extension towers (+ plain tower, plain pow_win)
-  curve.py      G1/G2 Jacobian point ops, subgroup checks, cofactor
-                (+ plain ladders and cofactor clearing)
+  curve.py      G1/G2 Jacobian point ops, scalar ladders, point sums,
+                subgroup checks, cofactor (+ plain point kernels, ladders
+                and cofactor clearing)
   sha256.py     batched SHA-256
   hash_to_g2.py XMD + hash_to_field + both SSWU maps + isogeny + cofactor
                 (+ plain sswu_map2)

@@ -6,11 +6,14 @@ are Fp limb tensors for G1 and Fp2 pairs for G2.  All ops are complete
 (exceptional cases resolved with cmov).  Neither E(Fp) nor E'(Fp2) has
 2-torsion, so Y != 0 for every finite point and doubling is complete.
 
-Constant-scalar ladders use the static run structure (doubling runs plus
-one addition per set bit), the form the JAX package runs on its
-accelerator: each ladder is ONE pt_mul_const kernel launch, and the G2
-cofactor clearing ONE g2_cofactor launch (ops/kernels.py).  Their plain
-versions are here: the generic point bodies below over two coordinate
+On the kernel adapters FP_OPS / FP2_OPS a doubling and a complete
+addition are ONE pt_dbl / pt_add kernel launch each, as the JAX package
+runs them on its accelerator (config.fuse_pt).  Constant-scalar ladders use
+the static run structure (doubling runs plus one addition per set bit):
+each is ONE pt_mul_const launch, the G2 cofactor clearing ONE g2_cofactor
+launch, a variable-scalar ladder ONE pt_mul_var launch, and each level of
+a pt_sum tree ONE pt_add launch (ops/kernels.py).  The plain versions of
+those kernels are here: the generic point bodies below over two coordinate
 adapters that call only the plain field functions.
 """
 
@@ -78,7 +81,6 @@ class _FpPlainOps:
     add = staticmethod(lambda a, b: FP.add_plain(*torch.broadcast_tensors(a, b)))
     sub = staticmethod(lambda a, b: FP.sub_plain(*torch.broadcast_tensors(a, b)))
     neg = staticmethod(lambda a: FP.sub_plain(torch.zeros_like(a), a))
-    sqr = staticmethod(lambda a: FP.mul_plain(a, a))
     cmov = staticmethod(FP.cmov)
     is_zero = staticmethod(FP.is_zero)
     mul_pairs = _plain_mul_pairs(FP.mul_plain)
@@ -94,7 +96,6 @@ class _Fp2PlainOps:
     add = staticmethod(F2.add)
     sub = staticmethod(F2.sub)
     neg = staticmethod(F2.neg)
-    sqr = staticmethod(F2.sqr)
     cmov = staticmethod(lambda cond, a, b: torch.where(cond[..., :, None], a, b))
     is_zero = staticmethod(F2.is_zero)
     mul_pairs = _plain_mul_pairs(F2.mul)
@@ -132,20 +133,29 @@ def pt_cmov(ops, cond, p, q):
     return tuple(ops.cmov(cond, a, b) for a, b in zip(p, q))
 
 
+def _fused(ops):
+    return ops is FP_OPS or ops is FP2_OPS
+
+
 def pt_double(ops, p):
     """Complete Jacobian doubling for a = 0 curves.  Infinity stays
-    infinity because Z3 = 2 Y Z."""
+    infinity because Z3 = 2 Y Z.  On FP_OPS / FP2_OPS: ONE pt_dbl launch;
+    on the plain adapters, the body below (the kernel's plain version): the
+    JAX package's formula, its independent products grouped into three
+    stacked calls (the values are exact, so grouping changes no limb)."""
+    if _fused(ops):
+        return _packed_call(ops, [p], K.pt_dbl, 1)
     x, y, z = p
-    a_, b_, c_ = ops.mul_pairs([(x, x), (y, y), (z, z)])   # XX, YY, ZZ
-    (d_,) = ops.mul_pairs([(b_, b_)])                      # YYYY
+    yz = ops.add(y, z)
+    a_, b_, c_, yz2 = ops.mul_pairs([(x, x), (y, y), (z, z), (yz, yz)])  # XX, YY, ZZ
+    m = ops.add(ops.add(a_, a_), a_)  # M = 3*XX (a = 0)
+    xb = ops.add(x, b_)
+    d_, t, mm = ops.mul_pairs([(b_, b_), (xb, xb), (m, m)])  # YYYY, (X+YY)^2, M^2
     # S = 2*((X+YY)^2 - XX - YYYY)
-    t = ops.sqr(ops.add(x, b_))
     s = ops.sub(ops.sub(t, a_), d_)
     s = ops.add(s, s)
-    # M = 3*XX (a = 0)
-    m = ops.add(ops.add(a_, a_), a_)
     # X3 = M^2 - 2S
-    x3 = ops.sub(ops.sqr(m), ops.add(s, s))
+    x3 = ops.sub(mm, ops.add(s, s))
     # Y3 = M*(S - X3) - 8*YYYY
     d8 = ops.add(d_, d_)
     d8 = ops.add(d8, d8)
@@ -153,31 +163,31 @@ def pt_double(ops, p):
     (my,) = ops.mul_pairs([(m, ops.sub(s, x3))])
     y3 = ops.sub(my, d8)
     # Z3 = (Y+Z)^2 - YY - ZZ  (= 2YZ)
-    z3 = ops.sub(ops.sub(ops.sqr(ops.add(y, z)), b_), c_)
+    z3 = ops.sub(ops.sub(yz2, b_), c_)
     return (x3, y3, z3)
 
 
 def pt_add(ops, p, q):
     """Complete Jacobian addition: generic add, with doubling / infinity /
-    inverse cases resolved by cmov."""
+    inverse cases resolved by cmov in the JAX bodies' order.  On FP_OPS /
+    FP2_OPS: ONE pt_add launch; on the plain adapters, the body below, its
+    independent products grouped into six stacked calls."""
+    if _fused(ops):
+        return _packed_call(ops, [p, q], K.pt_add)
     x1, y1, z1 = p
     x2, y2, z2 = q
-    z1z1, z2z2 = ops.mul_pairs([(z1, z1), (z2, z2)])
+    z1z1, z2z2, z1z2 = ops.mul_pairs([(z1, z1), (z2, z2), (z1, z2)])
     u1, u2, t1, t2 = ops.mul_pairs([
         (x1, z2z2), (x2, z1z1), (y1, z2z2), (y2, z1z1),
     ])
     s1, s2 = ops.mul_pairs([(t1, z2), (t2, z1)])
     h = ops.sub(u2, u1)
     r = ops.sub(s2, s1)
-    hh = ops.sqr(h)
+    hh, rr, z3 = ops.mul_pairs([(h, h), (r, r), (z1z2, h)])
     hhh, v = ops.mul_pairs([(h, hh), (u1, hh)])
-    rr = ops.sqr(r)
     x3 = ops.sub(ops.sub(rr, hhh), ops.add(v, v))
-    (ry,) = ops.mul_pairs([(r, ops.sub(v, x3))])
-    (s1hhh,) = ops.mul_pairs([(s1, hhh)])
+    ry, s1hhh = ops.mul_pairs([(r, ops.sub(v, x3)), (s1, hhh)])
     y3 = ops.sub(ry, s1hhh)
-    (z1z2,) = ops.mul_pairs([(z1, z2)])
-    (z3,) = ops.mul_pairs([(z1z2, h)])
     res = (x3, y3, z3)
 
     h_zero = ops.is_zero(h)
@@ -259,11 +269,11 @@ def _coords_of(ops, p):
     return list(p) if ops.name == "fp" else [c for x in p for c in x]
 
 
-def pack_point(ops, p):
+def pack_point(ops, p, shape=None):
     """Jacobian point of `ops` -> the point kernels' packed (3c, N, 24)
-    operand."""
+    operand, each coordinate broadcast to `shape` (default: theirs)."""
     coords = _coords_of(ops, p)
-    shape = torch.broadcast_shapes(*[c.shape for c in coords])
+    shape = shape or torch.broadcast_shapes(*[c.shape for c in coords])
     return torch.stack([c.expand(shape) for c in coords]).reshape(len(coords), -1, shape[-1])
 
 
@@ -280,10 +290,16 @@ def unpack_point(ops, packed, shape=None):
     return ((c[0], c[1]), (c[2], c[3]), (c[4], c[5]))
 
 
-def _packed_call(ops, p, kernel, *args):
-    """A point kernel on the point p of `ops`, result shaped as p."""
-    shape = torch.broadcast_shapes(*[c.shape for c in _coords_of(ops, p)])
-    return unpack_point(ops, kernel(FP, pack_point(ops, p), *args), shape)
+def _coord_shape(ops, pts):
+    return torch.broadcast_shapes(*[c.shape for p in pts for c in _coords_of(ops, p)])
+
+
+def _packed_call(ops, pts, kernel, *args):
+    """A point kernel on the points `pts` of `ops` (each packed at their
+    common shape), result shaped as they are."""
+    shape = _coord_shape(ops, pts)
+    packed = [pack_point(ops, p, shape) for p in pts]
+    return unpack_point(ops, kernel(FP, *packed, *args), shape)
 
 
 def pt_mul_const(ops, p, scalar: int):
@@ -295,7 +311,7 @@ def pt_mul_const(ops, p, scalar: int):
     segs = run_segments(scalar)
     if not segs:
         return p
-    return _packed_call(ops, p, K.pt_mul_const, segs)
+    return _packed_call(ops, [p], K.pt_mul_const, segs)
 
 
 def _ladder_plain(ops, base, segments):
@@ -344,6 +360,55 @@ def g2_cofactor_plain(p, segments):
     return pack_point(ops, acc)
 
 
+def pt_mul_var(ops, p, scalar_limbs, nbits: int):
+    """p * scalar for per-element variable scalars given as (..., 16) int32
+    raw (non-Montgomery) 16-bit limbs, MSB-first over nbits bits, from the
+    infinity: ONE pt_mul_var launch on FP_OPS / FP2_OPS.  The point and
+    the scalars broadcast against each other."""
+    shape = _coord_shape(ops, [p])
+    shape = torch.broadcast_shapes(shape, (*scalar_limbs.shape[:-1], shape[-1]))
+    m = scalar_limbs.shape[-1]
+    s = scalar_limbs.expand(*shape[:-1], m).reshape(-1, m)
+    return unpack_point(ops, K.pt_mul_var(FP, pack_point(ops, p, shape), s, nbits), shape)
+
+
+def pt_sum(ops, p, axis: int = 0):
+    """Sum of the points along a leading batch axis by the JAX package's
+    halving tree (tower.halving_tree): ONE pt_add launch per level.  The
+    axis is dropped."""
+    return T.halving_tree(lambda a, b: pt_add(ops, a, b), p, axis)
+
+
+def pt_dbl_plain(p, count: int):
+    """Plain version of the pt_dbl kernel (same operands)."""
+    ops = FP_PLAIN if p.shape[0] == 3 else FP2_PLAIN
+    q = unpack_point(ops, p)
+    for _ in range(count):
+        q = pt_double(ops, q)
+    return pack_point(ops, q)
+
+
+def pt_add_plain(p, q):
+    """Plain version of the pt_add kernel (same operands)."""
+    ops = FP_PLAIN if p.shape[0] == 3 else FP2_PLAIN
+    return pack_point(ops, pt_add(ops, unpack_point(ops, p), unpack_point(ops, q)))
+
+
+def pt_mul_var_plain(p, scalars, nbits: int):
+    """Plain version of the pt_mul_var kernel: from the infinity, per bit
+    MSB first a doubling, then the complete addition of the base selected
+    where the bit is set (the JAX package's ladder, ops/curve.py
+    pt_mul_var).  scalars (N, 16) raw limbs."""
+    ops = FP_PLAIN if p.shape[0] == 3 else FP2_PLAIN
+    base = unpack_point(ops, p)
+    acc = pt_infinity_like(ops, base)
+    for i in range(nbits - 1, -1, -1):
+        bit = ((scalars[:, i // 16] >> (i % 16)) & 1) > 0
+        acc = pt_double(ops, acc)
+        acc = pt_cmov(ops, bit, pt_add(ops, acc, base), acc)
+    return pack_point(ops, acc)
+
+
 # ----------------------------------------------------------------------------
 # G1/G2 specific: endomorphisms, subgroup checks, cofactor clearing
 # ----------------------------------------------------------------------------
@@ -381,12 +446,19 @@ def g2_in_subgroup(p):
 def g2_clear_cofactor(p):
     """Budroni-Pintore [x^2 - x - 1]P + [x - 1]psi(P) + psi2(2P): ONE
     g2_cofactor launch."""
-    return _packed_call(FP2_OPS, p, K.g2_cofactor, X_SEGMENTS)
+    return _packed_call(FP2_OPS, [p], K.g2_cofactor, X_SEGMENTS)
 
 
 # ----------------------------------------------------------------------------
 # host conversions
 # ----------------------------------------------------------------------------
+
+def g1_generator(shape, device):
+    """The G1 generator as a Jacobian point (Z = 1) broadcast to the
+    coordinate shape `shape`."""
+    x, y = (FP.constant(c, device).expand(shape) for c in C.G1_GEN)
+    return (x, y, FP.one_like(x))
+
 
 def g1_encode_batch(points, device="cuda"):
     """Host affine points (int tuples, None = infinity) -> device Jacobian."""

@@ -1,7 +1,8 @@
 """The port's CUDA kernels: nvcc build, ctypes loader, and one torch wrapper
 per kernel (the counterpart of the JAX package's ops/pallas/kernels.py
 FieldKernels.mul/add/sub/fp2_mul/fp2_sqr/fp6_mul/fp12_mul/fp12_sqr/
-miller_dbl_run/miller_add/exp_x/pow_win/pt_mul_const/g2_cofactor/sswu_map2).
+miller_dbl_run/miller_add/exp_x/pow_win/pt_mul_const/g2_cofactor/sswu_map2/
+pt_dbl/pt_add/pt_mul_var).
 
 The sources in csrc/ are compiled on first use with nvcc for sm_90a, one
 nvcc per .cu file, all started together, and linked into one shared
@@ -35,7 +36,8 @@ import torch
 PKG_DIR = pathlib.Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "build"
-UNITS = ("field_kernels.cu", "pairing_kernels.cu", "hash_kernels.cu")  # one nvcc each
+UNITS = ("field_kernels.cu", "pairing_kernels.cu", "hash_kernels.cu",
+         "point_kernels.cu")  # one nvcc each
 SOURCES = ("field.cuh", "tower.cuh", "curve.cuh", *UNITS)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -45,8 +47,10 @@ KERNELS = (
     "mul", "add", "sub", "fp2_mul", "fp2_sqr", "fp6_mul",
     "fp12_mul", "fp12_sqr", "miller_dbl_run", "miller_add", "exp_x",
     "pow_win", "pt_mul_const", "g2_cofactor", "sswu_map2",
+    "pt_dbl", "pt_add", "pt_mul_var",
 )
-PAIRS = 2  # pairs per Miller launch (csrc/pairing_kernels.cu kPairs)
+MILLER_PAIRS = (1, 2)  # pair counts of a Miller launch (csrc/pairing_kernels.cu)
+SCALAR_LIMBS = 16  # raw Fr scalar limbs of pt_mul_var (csrc/point_kernels.cu)
 MAX_SEGMENTS = 64  # runs of a ladder or exp_x chain (csrc/tower.cuh kMaxSegments)
 MAX_DIGITS = 192  # 4-bit windows of a pow_win exponent (csrc/curve.cuh kMaxDigits)
 
@@ -147,13 +151,16 @@ def _declare(lib):
     lib.bls_fp6_mul.argtypes = [vp, vp, i64, vp, u32, vp]
     lib.bls_fp12_mul.argtypes = [vp, vp, i64, vp, u32, vp]
     lib.bls_fp12_sqr.argtypes = [vp, vp, i64, vp, u32, vp]
-    lib.bls_miller_dbl_run.argtypes = [vp, vp, vp, i64, i32, vp, u32, vp]
-    lib.bls_miller_add.argtypes = [vp, vp, vp, i64, vp, u32, vp]
+    lib.bls_miller_dbl_run.argtypes = [vp, vp, vp, i64, i32, i32, vp, u32, vp]
+    lib.bls_miller_add.argtypes = [vp, vp, vp, i64, i32, vp, u32, vp]
     lib.bls_exp_x.argtypes = [vp, vp, i64, vp, vp, i32, vp, u32, vp]
     lib.bls_pow_win.argtypes = [vp, vp, i64, i32, vp, i32, vp, u32, vp]
     lib.bls_pt_mul_const.argtypes = [vp, vp, i64, i32, vp, vp, i32, vp, vp, u32, vp]
     lib.bls_g2_cofactor.argtypes = [vp, vp, i64, vp, vp, i32, vp, vp, vp, u32, vp]
     lib.bls_sswu_map2.argtypes = [vp, vp, vp, i64, vp, i32, vp, i32, vp, vp, u32, vp]
+    lib.bls_pt_dbl.argtypes = [vp, vp, i64, i32, i32, vp, u32, vp]
+    lib.bls_pt_add.argtypes = [vp, vp, i64, i32, vp, vp, u32, vp]
+    lib.bls_pt_mul_var.argtypes = [vp, vp, vp, i64, i32, i32, vp, vp, u32, vp]
     for name in KERNELS:
         getattr(lib, f"bls_{name}").restype = ctypes.c_int
 
@@ -314,7 +321,8 @@ def fp2_sqr(field, a0, a1):
 
 def _packed_launch(name, field, packed, n_in, n_out, *args, aux=None):
     """Launch kernel `name` on the packed (n_in, N, 24) CUDA operand (and
-    the second device operand `aux`, a kernel's masks or table, when given)
+    the second device operand `aux`, a kernel's masks, table or scalars,
+    when given)
     and return its (n_out, N, 24) output.  A contiguous operand is passed
     as it is, without a copy; the wrappers that take several operands pack
     them with one torch.cat."""
@@ -341,8 +349,8 @@ def _miller_pack(f, t, per_pair, valid):
     -> (one packed operand: f, then per pair its T and its `per_pair`
     tensors, (k, N) int32 masks).  _packed_launch checks the limbs."""
     k, n = t.shape[0], f.shape[-2]
-    if k != PAIRS:
-        raise ValueError(f"the Miller kernels take {PAIRS} pairs, got {k}")
+    if k not in MILLER_PAIRS:
+        raise ValueError(f"the Miller kernels take {MILLER_PAIRS} pairs, got {k}")
     if valid.device != f.device or tuple(valid.shape) != (k, n):
         raise ValueError(f"expected a ({k}, {n}) valid mask on {f.device}, got "
                          f"{tuple(valid.shape)} on {valid.device}")
@@ -395,9 +403,10 @@ def miller_dbl_run(field, f, t, xp, yp, valid, count: int):
     if count < 1:
         raise ValueError(f"a doubling run has at least one iteration, got {count}")
     packed, mask = _miller_pack(f, t, (xp, yp), valid)
-    out = _packed_launch("miller_dbl_run", field, packed, 12 + 8 * PAIRS,
-                         12 + 6 * PAIRS, count, aux=mask)
-    return out[:12], out[12:].view(PAIRS, 6, *out.shape[1:])
+    k = t.shape[0]
+    out = _packed_launch("miller_dbl_run", field, packed, 12 + 8 * k, 12 + 6 * k,
+                         k, count, aux=mask)
+    return out[:12], out[12:].view(k, 6, *out.shape[1:])
 
 
 def miller_add(field, f, t, q, xp, yp, valid):
@@ -410,9 +419,10 @@ def miller_add(field, f, t, q, xp, yp, valid):
 
         return pairing.miller_add_plain(f, t, q, xp, yp, valid)
     packed, mask = _miller_pack(f, t, (q, xp, yp), valid)
-    out = _packed_launch("miller_add", field, packed, 12 + 12 * PAIRS,
-                         12 + 6 * PAIRS, aux=mask)
-    return out[:12], out[12:].view(PAIRS, 6, *out.shape[1:])
+    k = t.shape[0]
+    out = _packed_launch("miller_add", field, packed, 12 + 12 * k, 12 + 6 * k, k,
+                         aux=mask)
+    return out[:12], out[12:].view(k, 6, *out.shape[1:])
 
 
 def exp_x(field, m, segments):
@@ -528,3 +538,56 @@ def sswu_map2(field, u):
     inv_digits, ninv = _digits(field.modulus - 2)
     return _packed_launch("sswu_map2", field, u, 4, 6, sqrt_digits, nsqrt, inv_digits, ninv,
                           _mont_words(field, [1]), aux=table)
+
+
+# ----------------------------------------------------------------------------
+# point kernels of keygen, signing and aggregation (csrc/point_kernels.cu)
+# ----------------------------------------------------------------------------
+
+def pt_dbl(field, p, count: int = 1):
+    """`count` Jacobian doublings of a packed point: (3, N, 24) in G1,
+    (6, N, 24) in G2 (replaces FieldKernels.pt_dbl)."""
+    if p.device.type == "cpu":
+        from . import curve
+
+        return curve.pt_dbl_plain(p, count)
+    if count < 1:
+        raise ValueError(f"pt_dbl doubles at least once, got {count}")
+    c = _coords("pt_dbl", p, 3)
+    return _packed_launch("pt_dbl", field, p, 3 * c, 3 * c, c, count)
+
+
+def pt_add(field, p, q):
+    """Complete Jacobian addition P + Q of packed points of one group and
+    shape -> (3c, N, 24) (replaces FieldKernels.pt_add)."""
+    if p.device.type == "cpu":
+        from . import curve
+
+        return curve.pt_add_plain(p, q)
+    c = _coords("pt_add", p, 3)
+    if q.shape != p.shape:
+        raise ValueError(f"pt_add takes points of one shape, got {tuple(p.shape)} "
+                         f"and {tuple(q.shape)}")
+    return _packed_launch("pt_add", field, torch.cat([p, q]), 6 * c, 3 * c, c,
+                          _mont_words(field, [1]))
+
+
+def pt_mul_var(field, p, scalars, nbits: int):
+    """[s]P for a packed point and per-element scalars s, given as (N, 16)
+    int32 raw (non-Montgomery) 16-bit limbs: the MSB-first double-and-add
+    ladder over `nbits` bits from the infinity (replaces
+    FieldKernels.pt_mul_var)."""
+    if p.device.type == "cpu":
+        from . import curve
+
+        return curve.pt_mul_var_plain(p, scalars, nbits)
+    c = _coords("pt_mul_var", p, 3)
+    if not 1 <= nbits <= 16 * SCALAR_LIMBS:
+        raise ValueError(f"pt_mul_var scans 1 to {16 * SCALAR_LIMBS} bits, got {nbits}")
+    n = p.shape[1]
+    if (scalars.device != p.device or scalars.dtype != torch.int32
+            or tuple(scalars.shape) != (n, SCALAR_LIMBS)):
+        raise ValueError(f"expected ({n}, {SCALAR_LIMBS}) int32 scalars on {p.device}, got "
+                         f"{scalars.dtype} {tuple(scalars.shape)} on {scalars.device}")
+    return _packed_launch("pt_mul_var", field, p, 3 * c, 3 * c, c, nbits,
+                          _mont_words(field, [1]), aux=scalars.contiguous())

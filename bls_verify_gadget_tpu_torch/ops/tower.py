@@ -15,7 +15,8 @@ products and squares go to the fp2_mul / fp2_sqr CUDA kernels
 live here.  The Fp12 product and square are ONE fused kernel launch each
 (fp12_mul / fp12_sqr) on a packed (12, N, 24) operand; their plain
 versions, and the Granger-Scott square that the exp_x kernel repeats, are
-the plain Fp12 layer at the end of this file.  A group of Fp6 products is
+the plain Fp12 layer at the end of this file; fp12_prod is a halving tree
+of fp12_mul launches.  A group of Fp6 products is
 ONE fp6_mul launch on packed (6, N, 24) operands.  The Fp6 and Fp12
 inverses and the Frobenius maps stay compositions of these kernels; the Fp
 inverse inside them is one pow_win launch (ops/fp.py).  The plain versions
@@ -328,6 +329,42 @@ def fp12_mul(a, b):
 def fp12_sqr(a):
     """Generic Fp12 square: ONE fp12_sqr kernel launch."""
     return fp12_unpack(K.fp12_sqr(FP, fp12_pack(a)))
+
+
+def _tree(fn, *xs):
+    """fn over the leaves (tensors) of nested tuples of one structure."""
+    if isinstance(xs[0], tuple):
+        return tuple(_tree(fn, *ys) for ys in zip(*xs))
+    return fn(*xs)
+
+
+def halving_tree(op, x, axis: int = 0):
+    """op over the elements of x (nested tuples of tensors) along a leading
+    batch axis by the JAX package's halving tree: op(first half, second
+    half), an odd element carried to the end of the next level, one op call
+    per level.  The axis is dropped.  The limbs of a Jacobian point sum
+    depend on that order."""
+    def take(y, sl):
+        return _tree(lambda c: c[(slice(None),) * axis + (sl,)], y)
+
+    leaf = x
+    while isinstance(leaf, tuple):
+        leaf = leaf[0]
+    cur, m = x, leaf.shape[axis]
+    while m > 1:
+        half = m // 2
+        out = op(take(cur, slice(0, half)), take(cur, slice(half, 2 * half)))
+        if m % 2:
+            out = _tree(lambda a, b: torch.cat([a, b], axis), out,
+                        take(cur, slice(2 * half, m)))
+        cur, m = out, half + m % 2
+    return take(cur, 0)
+
+
+def fp12_prod(f, axis: int = 0):
+    """Product of Fp12 elements along a leading batch axis: a halving tree
+    of fp12_mul, ONE launch per level.  The axis is dropped."""
+    return halving_tree(fp12_mul, f, axis)
 
 
 def fp12_conj(a):

@@ -5,7 +5,7 @@
 
 Needs one CUDA card and nvcc.  Phases, each fatal on failure:
   1. device   -- card name and power limit (nvidia-smi), torch's name;
-  2. build    -- nvcc builds the 15 kernels from csrc/ (one nvcc per
+  2. build    -- nvcc builds the 18 kernels from csrc/ (one nvcc per
      source, all at once) and prints ptxas's register/stack/spill report;
   3. main path -- BatchedBLS(device="cuda").verify at batch 4096 with
      32-byte messages: the decodable verify vectors tiled, plus tampered-
@@ -20,18 +20,43 @@ Needs one CUDA card and nvcc.  Phases, each fatal on failure:
      of the pipeline (the four hash parts, miller, final_exp) in its own
      range: device time by kernel, port and glue launches per part; the
      device's busy share of the wall time;
-  5. kernels  -- each kernel against its plain PyTorch version on the same
-     CUDA tensors, at the element counts the main path launched, bit for
-     bit, with the launch counters unmoved by every plain call (the plain
-     versions launch no kernel of the port): the field and pairing kernels
-     on seeded random values plus edge values (miller_dbl_run at each run
-     length), the hash-stage and subgroup kernels on the main path's own
-     data (pow_win for Fp and Fp2, pt_mul_const for G1 and G2 on the
-     batch's points with infinity and off-subgroup probes, sswu_map2 on
-     hash_to_field's outputs with u = 0, g2_cofactor on sswu_map2's);
+  5. keys     -- the second path, keygen, signing and aggregation, at the
+     size users run it: 4096 keys (the sign/ vectors' keys, 0, 1, r - 1 and
+     seeded random ones) through derive_pubkeys and sign; aggregate_pubkeys
+     of the 4096 pubkeys, aggregate_signatures of the 4096 signatures
+     (key 0's is the infinity), aggregate_pubkeys_masked over a 512-key sync committee at
+     ~2/3 participation, aggregate_verify_distinct over the 4095 (pk, msg)
+     pairs (its one-pair Miller launches at 4096 elements), and a doubling
+     of the pubkeys (CV.pt_double).  Launch counters are zeroed just
+     before and read just after that run: every kernel must have launched,
+     pt_mul_var, pt_add and pt_dbl the expected number of times.  Then the
+     checks: the sign/ vectors byte for byte (g2_compress), key 0 invalid,
+     every valid (pk, msg, sig) true through verify and false with a
+     tampered message, the aggregate/ and fast_aggregate_verify/ vectors,
+     the masked sum against the subset's sum, the distinct-message
+     aggregate false with two messages swapped; then ms and launches per
+     call of each entry point;
+  6. kernels  -- each kernel against its plain PyTorch version on the same
+     CUDA tensors, bit for bit, at every element count that the verify run
+     or the keys run launched it with (a kernel launched at a count no case
+     covers fails the run), with the launch counters unmoved by every plain
+     call (the plain versions launch no kernel of the port): the field and
+     pairing kernels on seeded random values plus edge values
+     (miller_dbl_run at each run length, the Miller kernels with two pairs
+     at verify's counts and with one pair at the keys run's), the
+     hash-stage and subgroup kernels on each path's own data (pow_win for
+     Fp and Fp2, pt_mul_const for G1 and G2 on the batch's points with
+     infinity and off-subgroup probes, on the 4095 valid pubkeys and on the
+     aggregate signature, sswu_map2 on hash_to_field's outputs with u = 0,
+     g2_cofactor on sswu_map2's), the point kernels on the keys phase's
+     data (pt_mul_var G1 and G2 at 4096, pt_add on the operands of every
+     level of the three aggregation trees as the keys path passed them,
+     and on P, Q meeting each branch of the complete addition, pt_dbl with
+     count 1 and 63 on the pubkeys);
      device time per launch from CUDA-graph replay, eager call time and
-     plain time from CUDA events (the slow plain versions of the hash-stage
-     kernels: their one comparison call), and the bound from bytes and
+     plain time from CUDA events (a mean of 3 calls for the field kernels;
+     the slow plain versions of the others: their one comparison call at
+     the main size), and the bound from bytes and
      integer multiply-adds.
 Prints one JSON line of kernels, the card's name and power limit, and as
 its last line {"ok": true, "device": {...}}.  Imports nothing of JAX.
@@ -60,6 +85,7 @@ MAD_PER_MONT = 600  # 12x12 word products for a*b and for m*p, lo + hi each
 FIELD_SRC = "bls_verify_gadget_tpu_torch/csrc/field_kernels.cu"
 PAIRING_SRC = "bls_verify_gadget_tpu_torch/csrc/pairing_kernels.cu"
 HASH_SRC = "bls_verify_gadget_tpu_torch/csrc/hash_kernels.cu"
+POINT_SRC = "bls_verify_gadget_tpu_torch/csrc/point_kernels.cu"
 TPU_KERNELS = "bls_verify_gadget_tpu/ops/pallas/kernels.py"
 # name -> (TPU kernel replaced, source, launches per verify expected or None)
 KERNELS = {
@@ -79,6 +105,10 @@ KERNELS = {
     "pt_mul_const": (f"{TPU_KERNELS}:819", HASH_SRC, 3),  # G1 twice, G2 once
     "g2_cofactor": (f"{TPU_KERNELS}:1219", HASH_SRC, 1),
     "sswu_map2": (f"{TPU_KERNELS}:1023", HASH_SRC, 1),
+    # keygen, signing and aggregation (the keys phase), not verify
+    "pt_dbl": (f"{TPU_KERNELS}:771", POINT_SRC, 0),
+    "pt_add": (f"{TPU_KERNELS}:795", POINT_SRC, 0),
+    "pt_mul_var": (f"{TPU_KERNELS}:1329", POINT_SRC, 0),
 }
 PORT_KERNEL_NAME = re.compile(r"bls_kernels::(%s)_kernel\b" % "|".join(KERNELS))
 
@@ -109,11 +139,12 @@ def build_phase(K):
             log(f"[build] {line.strip()}")
 
 
+def unhex(s):
+    return bytes.fromhex(s[2:] if s.startswith("0x") else s)
+
+
 def load_cases():
     from bls_verify_gadget_tpu_torch.golden import codec
-
-    def unhex(s):
-        return bytes.fromhex(s[2:] if s.startswith("0x") else s)
 
     cases = []
     for path in sorted((ROOT / "tests" / "vectors" / "verify").glob("*.json")):
@@ -185,7 +216,7 @@ def main_path_phase(torch, K):
             raise RuntimeError(f"timed verify {i}: {int((out != want).sum())} wrong results")
         stage_times.append(st)
     launches, elements, sizes = counts
-    idle = [k for k in K.KERNELS if launches[k] == 0]
+    idle = [k for k, (_, _, want_n) in KERNELS.items() if want_n != 0 and launches[k] == 0]
     if idle:
         raise RuntimeError(f"kernels not launched on the main path: {idle}")
     off = {k: launches[k] for k, (_, _, want_n) in KERNELS.items()
@@ -311,6 +342,248 @@ def profile_phase(torch, parts, msg, want, verify_s):
         log(f"[profile]   {us / 1e3:9.3f} ms {count:7d} launches  {key}")
 
 
+# ----------------------------------------------------------------------------
+# keys phase: keygen, signing and aggregation
+# ----------------------------------------------------------------------------
+
+COMMITTEE = 512  # pubkeys of a sync committee
+PARTICIPATION = 2 / 3
+
+
+def tree_levels(n):
+    """pt_add launches of a pt_sum halving tree over n points."""
+    levels = 0
+    while n > 1:
+        n, levels = n // 2 + n % 2, levels + 1
+    return levels
+
+
+def keys_data():
+    """BATCH secret keys and MSG_LEN-byte messages: the sign/ vectors' own
+    (key, message) pairs first, then the keys 0, 1 and r - 1, then seeded
+    random keys with seeded random messages.  -> (keys, messages, [(index,
+    expected signature bytes)] of the vectors)."""
+    import numpy as np
+
+    from bls_verify_gadget_tpu_torch import constants as C
+
+    rng = np.random.default_rng(SEED + 1)
+    keys, msgs, vectors = [], [], []
+    for path in sorted((ROOT / "tests" / "vectors" / "sign").glob("*.json")):
+        vec = json.loads(path.read_text())
+        if vec["output"] is None:  # the zero key: covered below
+            continue
+        vectors.append((len(keys), unhex(vec["output"])))
+        keys.append(int.from_bytes(unhex(vec["input"]["privkey"]), "big"))
+        msgs.append(unhex(vec["input"]["message"]))
+    if len(vectors) != 9 or any(len(m) != MSG_LEN for m in msgs):
+        raise RuntimeError(f"expected 9 sign vectors with {MSG_LEN}-byte messages")
+    keys += [0, 1, C.R - 1]
+    while len(keys) < BATCH:
+        keys.append(int.from_bytes(rng.bytes(32), "little") % C.R)
+    msgs += [rng.bytes(MSG_LEN) for _ in range(BATCH - len(msgs))]
+    return keys, msgs, vectors
+
+
+def take(pt, idx):
+    """The elements `idx` of a point or affine tuple (nested tensors)."""
+    if isinstance(pt, tuple):
+        return tuple(take(c, idx) for c in pt)
+    return pt[idx]
+
+
+def batch_of_one(pt):
+    """A point whose batch axis pt_sum dropped -> a batch of one."""
+    if isinstance(pt, tuple):
+        return tuple(batch_of_one(c) for c in pt)
+    return pt[None]
+
+
+def aggregate_vector_checks(torch, bls, CV, codec):
+    """The 6 aggregate/ vectors through aggregate_signatures and the 11
+    fast_aggregate_verify/ vectors through aggregate_pubkeys, then ONE
+    batched verify, as the vectors' outputs say; an empty input or an
+    undecodable one is decided at the host boundary."""
+    from bls_verify_gadget_tpu_torch.models.bls import encode_messages, encode_signatures
+
+    vec_dir = ROOT / "tests" / "vectors"
+    n_agg = 0
+    for path in sorted((vec_dir / "aggregate").glob("*.json")):
+        vec = json.loads(path.read_text())
+        sigs = [codec.g2_decompress(unhex(x)) for x in vec["input"]]
+        if not sigs:
+            if vec["output"] is not None:
+                raise RuntimeError(f"{path.name}: an empty aggregate has no output")
+            n_agg += 1
+            continue
+        (agg,) = CV.g2_decode(batch_of_one(bls.aggregate_signatures(
+            CV.g2_encode_batch(sigs, "cuda"))))
+        if codec.g2_compress(agg) != unhex(vec["output"]):
+            raise RuntimeError(f"{path.name}: aggregate_signatures disagrees with the vector")
+        n_agg += 1
+    want, got, batch = {}, {}, []
+    for path in sorted((vec_dir / "fast_aggregate_verify").glob("*.json")):
+        vec = json.loads(path.read_text())
+        want[path.name] = vec["output"]
+        try:
+            pks = [codec.g1_decompress(unhex(x)) for x in vec["input"]["pubkeys"]]
+            sig = codec.g2_decompress(unhex(vec["input"]["signature"]))
+        except ValueError:
+            got[path.name] = False
+            continue
+        if not pks:
+            got[path.name] = False
+            continue
+        batch.append((path.name, bls.aggregate_pubkeys(CV.g1_encode_batch(pks, "cuda")), sig,
+                      unhex(vec["input"]["message"])))
+    apk = tuple(torch.stack(c) for c in zip(*[b[1] for b in batch]))
+    out = bls.verify(CV.pt_to_affine(CV.FP_OPS, apk), encode_signatures([b[2] for b in batch]),
+                     encode_messages([b[3] for b in batch]))
+    got.update({b[0]: bool(ok) for b, ok in zip(batch, out.tolist())})
+    if got != want or n_agg != 6 or len(want) != 11:
+        raise RuntimeError(f"fast_aggregate_verify vectors: got {got}, want {want}")
+    log(f"[keys] the 6 aggregate/ vectors and the 11 fast_aggregate_verify/ vectors "
+        f"({len(batch)} through one batched verify) give their expected outputs")
+
+
+def keys_phase(torch, K):
+    """The keygen, signing and aggregation path at BATCH keys, counted,
+    checked and timed (see the module docstring, phase 5).  -> the data and
+    counts the kernel rows use."""
+    import numpy as np
+
+    from bls_verify_gadget_tpu_torch.golden import codec
+    from bls_verify_gadget_tpu_torch.models.bls import (
+        BatchedBLS, encode_messages, encode_scalars,
+    )
+    from bls_verify_gadget_tpu_torch.ops import curve as CV
+
+    keys, msgs, vectors = keys_data()
+    sk = encode_scalars(keys)
+    msg = encode_messages(msgs)
+    rng = np.random.default_rng(SEED + 2)
+    bls = BatchedBLS(device="cuda")
+    valid_keys = torch.tensor([k != 0 for k in keys], device="cuda")
+    idx = valid_keys.nonzero().squeeze(1)  # the BATCH - 1 nonzero keys
+    committee = torch.from_numpy(rng.permutation(idx.cpu().numpy())[:COMMITTEE]).cuda()
+    bitmap = torch.from_numpy(rng.random(COMMITTEE) < PARTICIPATION).cuda()
+    pair_msg = msg[idx]
+
+    def run():
+        """The path as a user drives it: keys, signatures, the three
+        aggregates, the distinct-message aggregate verification of every
+        valid key's signature, and a doubling of the pubkeys."""
+        pk = bls.derive_pubkeys(sk)
+        sig, valid = bls.sign(sk, msg)
+        out = {"pk": pk, "sig": sig, "valid": valid,
+               "apk": bls.aggregate_pubkeys(pk), "asig": bls.aggregate_signatures(sig)}
+        out["msum"], out["mcount"] = bls.aggregate_pubkeys_masked(take(pk, committee), bitmap)
+        out["pk_aff"] = CV.pt_to_affine(CV.FP_OPS, take(pk, idx))
+        out["sig_aff"] = CV.pt_to_affine(CV.FP2_OPS, batch_of_one(out["asig"]))
+        out["distinct"] = bls.aggregate_verify_distinct(out["pk_aff"], out["sig_aff"], pair_msg)
+        out["dbl"] = CV.pt_double(CV.FP_OPS, pk)
+        torch.cuda.synchronize()
+        return out
+
+    t0 = time.perf_counter()
+    run()
+    log(f"[keys] warm-up run at {BATCH} keys: {time.perf_counter() - t0:.3f} s")
+    K.COUNTS.reset()
+    t0 = time.perf_counter()
+    out = run()
+    run_s = time.perf_counter() - t0
+    launches = dict(K.COUNTS.launches)
+    sizes = {k: dict(v) for k, v in K.COUNTS.sizes.items()}
+    idle = [k for k in K.KERNELS if launches[k] == 0]
+    if idle:
+        raise RuntimeError(f"kernels not launched on the keys path: {idle}")
+    want_n = {"pt_mul_var": 2, "pt_dbl": 1,
+              "pt_add": 2 * tree_levels(BATCH) + tree_levels(COMMITTEE)}
+    off = {k: launches[k] for k, n in want_n.items() if launches[k] != n}
+    if off:
+        raise RuntimeError(f"point kernels launched other than expected {want_n}: {off}")
+    log(f"[keys] counted run {run_s:.3f} s; launches: {launches} (total {sum(launches.values())})")
+    log(f"[keys] element counts per kernel: "
+        f"{ {k: dict(sorted(v.items())) for k, v in sizes.items()} }")
+
+    # outputs of the counted run
+    pk, sig = out["pk"], out["sig"]
+    if out["valid"].tolist() != [k != 0 for k in keys]:
+        raise RuntimeError("sign's valid mask is not 'key != 0'")
+    vsig = CV.g2_decode(take(sig, torch.tensor([i for i, _ in vectors], device="cuda")))
+    bad = [i for (i, want), got in zip(vectors, vsig) if codec.g2_compress(got) != want]
+    if bad:
+        raise RuntimeError(f"sign/ vectors at batch indices {bad} differ from their bytes")
+    pk_aff, sig_aff = CV.pt_to_affine(CV.FP_OPS, pk), CV.pt_to_affine(CV.FP2_OPS, sig)
+    if not torch.equal(bls.verify(pk_aff, sig_aff, msg), valid_keys):
+        raise RuntimeError("verify of the port's own (pk, msg, sig) is not 'key != 0'")
+    tampered = msg.clone()
+    tampered[:, 0] ^= 1
+    if bls.verify(pk_aff, sig_aff, tampered).any():
+        raise RuntimeError("verify accepts a tampered message")
+    log(f"[keys] sign/ vectors: all {len(vectors)} byte for byte; key 0 invalid; "
+        f"verify of all {BATCH} (pk, msg, sig): {BATCH - 1} true (key 0 false), all false "
+        f"with a tampered message")
+    subset = bls.aggregate_pubkeys(take(take(pk, committee), bitmap))
+    if not bool(CV.pt_eq(CV.FP_OPS, batch_of_one(out["msum"]), batch_of_one(subset))[0]):
+        raise RuntimeError("the masked aggregate differs from the subset's sum")
+    if int(out["mcount"]) != int(bitmap.sum()):
+        raise RuntimeError("the masked aggregate's count is wrong")
+    if not bool(out["distinct"]):
+        raise RuntimeError("aggregate_verify_distinct rejects the valid signatures")
+    # two valid keys that differ, with messages that differ (swapping the
+    # messages of one key's two signatures leaves the product as it is)
+    i, j = next((a, b) for a in range(len(msgs)) for b in range(a + 1, len(msgs))
+                if keys[a] and keys[b] and keys[a] != keys[b] and msgs[a] != msgs[b])
+    swapped = pair_msg.clone()
+    ii, jj = int((idx == i).nonzero()), int((idx == j).nonzero())
+    swapped[[ii, jj]] = swapped[[jj, ii]]
+    if bool(bls.aggregate_verify_distinct(out["pk_aff"], out["sig_aff"], swapped)):
+        raise RuntimeError("aggregate_verify_distinct accepts two swapped messages")
+    if max_err(out["dbl"], CV.pt_add(CV.FP_OPS, pk, pk)) != 0:
+        raise RuntimeError("pt_double differs from pt_add's doubling case")
+    log(f"[keys] masked aggregate over {COMMITTEE} keys ({int(bitmap.sum())} set) equals the "
+        f"subset's sum; aggregate_verify_distinct over {BATCH - 1} pairs true, false with "
+        f"two messages swapped; pt_double equals pt_add(P, P)")
+    aggregate_vector_checks(torch, bls, CV, codec)
+
+    h = bls.hash_to_g2(msg)
+    calls = [
+        ("derive_pubkeys", lambda: bls.derive_pubkeys(sk)),
+        ("sign", lambda: bls.sign(sk, msg)),
+        ("sign: hash_to_g2", lambda: bls.hash_to_g2(msg)),
+        ("sign: pt_mul_var", lambda: CV.pt_mul_var(CV.FP2_OPS, h, sk, 255)),
+        ("aggregate_pubkeys", lambda: bls.aggregate_pubkeys(pk)),
+        ("aggregate_signatures", lambda: bls.aggregate_signatures(sig)),
+        ("aggregate_pubkeys_masked", lambda: bls.aggregate_pubkeys_masked(
+            take(pk, committee), bitmap)),
+        ("aggregate_verify_distinct", lambda: bls.aggregate_verify_distinct(
+            out["pk_aff"], out["sig_aff"], pair_msg)),
+    ]
+    per_call = {}
+    for name, fn in calls:
+        ms = []
+        for _ in range(TIMED_RUNS):
+            K.COUNTS.reset()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        n_launch = sum(K.COUNTS.launches.values())
+        per_call[name] = (sum(ms) / len(ms), n_launch)
+        log(f"[keys] {name}: mean {per_call[name][0]:.3f} ms ({[round(x, 3) for x in ms]}), "
+            f"{n_launch} port launches per call")
+    sign_ms = per_call["sign"][0]
+    log(f"[keys] {BATCH / (sign_ms / 1e3):.1f} signatures/s and "
+        f"{BATCH / (per_call['derive_pubkeys'][0] / 1e3):.1f} pubkeys/s at batch {BATCH}")
+    gen = CV.g1_generator((BATCH, 24), "cuda")
+    return {"launches": launches, "sizes": sizes, "pk": pk, "sig": sig, "h": h, "sk": sk,
+            "gen": gen, "bls": bls, "pk_valid": take(pk, idx), "pk_aff": out["pk_aff"],
+            "asig": batch_of_one(out["asig"]), "sig_aff": out["sig_aff"],
+            "pair_msg": pair_msg, "committee_pk": take(pk, committee), "bitmap": bitmap}
+
+
 def rand_limbs(torch, rng, n, top):
     """n uniform-ish canonical values as (n, 24) limbs (top limb < `top`)."""
     import numpy as np
@@ -352,10 +625,11 @@ def field_inputs(torch, rng, name, n, field=None):
     return ops
 
 
-def pairing_inputs(torch, rng, name, n, count=None):
+def pairing_inputs(torch, rng, name, n, count=None, k=2):
     """Seeded operands for one pairing kernel at n elements: packed
     (c, n, 24) canonical values, each coordinate with the edge values in
-    its first elements (rolled per coordinate), and a mixed valid mask.
+    its first elements (rolled per coordinate), and a mixed valid mask of
+    the Miller kernels' k pairs.
     The kernels and their plain versions compute the same formulas, so
     random values (off the curve, outside the cyclotomic subgroup) compare
     bit for bit."""
@@ -375,13 +649,13 @@ def pairing_inputs(torch, rng, name, n, count=None):
             x[j, :e] = edges.roll(j, 0)[:e]
         return x.view(*shape, n, 24)
 
-    valid = torch.from_numpy(rng.random((2, n)) < 0.75).cuda()
+    valid = torch.from_numpy(rng.random((k, n)) < 0.75).cuda()
     return {
         "fp6_mul": lambda: (fp(6), fp(6)),
         "fp12_mul": lambda: (fp(12), fp(12)),
         "fp12_sqr": lambda: (fp(12),),
-        "miller_dbl_run": lambda: (fp(12), fp(2, 6), fp(2), fp(2), valid, count),
-        "miller_add": lambda: (fp(12), fp(2, 6), fp(2, 4), fp(2), fp(2), valid),
+        "miller_dbl_run": lambda: (fp(12), fp(k, 6), fp(k), fp(k), valid, count),
+        "miller_add": lambda: (fp(12), fp(k, 6), fp(k, 4), fp(k), fp(k), valid),
         "exp_x": lambda: (fp(12), CV.X_SEGMENTS),
     }[name]()
 
@@ -403,7 +677,8 @@ def kernel_call(name):
         "miller_dbl_run": PR.miller_dbl_run_plain, "miller_add": PR.miller_add_plain,
         "exp_x": PR.exp_x_plain, "pow_win": T.pow_win_plain,
         "pt_mul_const": CV.pt_mul_const_plain, "g2_cofactor": CV.g2_cofactor_plain,
-        "sswu_map2": H.sswu_map2_plain,
+        "sswu_map2": H.sswu_map2_plain, "pt_dbl": CV.pt_dbl_plain,
+        "pt_add": CV.pt_add_plain, "pt_mul_var": CV.pt_mul_var_plain,
     }[name]
     return (lambda *a: getattr(K, name)(FP, *a)), plain
 
@@ -413,11 +688,9 @@ def work(name, n, args):
     Fp coordinate in or out is 96 bytes, a valid mask 4 bytes per pair.
     The Miller kernels' products count what this call's masks need: T's
     update for every pair, the line and f * line only for valid pairs."""
-    from bls_verify_gadget_tpu_torch.ops import kernels as K
-
     if name in HASH_WORK:
         return HASH_WORK[name](n, *args)
-    k = K.PAIRS
+    k = args[1].shape[0] if name.startswith("miller") else 0
     fp_io = {
         "mul": 3, "add": 3, "sub": 3, "fp2_mul": 6, "fp2_sqr": 4, "fp6_mul": 18, "fp12_mul": 36,
         "fp12_sqr": 24, "miller_dbl_run": 12 + 8 * k + 12 + 6 * k,
@@ -493,6 +766,53 @@ HASH_WORK = {
 }
 
 
+def _ladder_var_products(c, p, scalars):
+    """Montgomery products that [s]P needs per element by double-and-add
+    from s's top bit: (bit length - 1) doublings and (set bits - 1)
+    additions, for finite P and s > 0 (this call's scalars; the kernel runs
+    all nbits doublings and the additions of every set bit)."""
+    import numpy as np
+
+    dbl, add = (8, 16) if c == 1 else (17, 44)
+    finite = (p[2 * c:] != 0).any(-1).any(0).cpu().numpy()
+    limbs = scalars.cpu().numpy().astype(np.int64)
+    total = 0
+    for row, fin in zip(limbs, finite):
+        s = sum(int(v) << (16 * j) for j, v in enumerate(row))
+        if s and fin:
+            total += (s.bit_length() - 1) * dbl + (bin(s).count("1") - 1) * add
+    return total
+
+
+def _both_finite(p, q, c):
+    return int(((p[2 * c:] != 0).any(-1).any(0) & (q[2 * c:] != 0).any(-1).any(0)).sum())
+
+
+def _doublings(p, q, c):
+    """Elements of a pt_add call with P == Q, both finite: the doubling
+    case, which needs a doubling's products besides the addition's."""
+    from bls_verify_gadget_tpu_torch.ops import curve as CV
+
+    ops = CV.FP_OPS if c == 1 else CV.FP2_OPS
+    eq = CV.pt_eq(ops, CV.unpack_point(ops, p), CV.unpack_point(ops, q))
+    return int((eq & (p[2 * c:] != 0).any(-1).any(0)).sum())
+
+
+# (bytes, Montgomery products) of one point kernel call at n elements
+HASH_WORK.update({
+    "pt_dbl": lambda n, p, count: (
+        n * 2 * p.shape[0] * 96,
+        _finite(p, p.shape[0] // 3) * count * (8 if p.shape[0] == 3 else 17)),
+    "pt_add": lambda n, p, q: (
+        n * 3 * p.shape[0] * 96,
+        _both_finite(p, q, p.shape[0] // 3) * (16 if p.shape[0] == 3 else 44)
+        + _doublings(p, q, p.shape[0] // 3) * (8 if p.shape[0] == 3 else 17)),
+    "pt_mul_var": lambda n, p, s, nbits: (
+        n * (2 * p.shape[0] * 96 + 4 * s.shape[1]),
+        _ladder_var_products(p.shape[0] // 3, p, s)),
+})
+
+
 def off_subgroup_points():
     """The first on-curve G1 point (x, y) and G2 point ((x0, 1), y) over
     small x: outside the prime-order subgroup, as
@@ -510,7 +830,7 @@ def off_subgroup_points():
 
 
 def hash_cases(torch, rng, ctx):
-    """name -> [(label, args, launches per verify)] for the hash-stage and
+    """name -> [(label, args, launches per verify, "verify")] for the hash-stage and
     subgroup kernels, on the main path's own data: pow_win on seeded Fp
     values with edge values (e = p - 2, as FP.inv) and Fp2 values (e =
     (p - 11)/16, the SSWU sqrt chain); pt_mul_const by |x| on the batch's
@@ -539,12 +859,48 @@ def hash_cases(torch, rng, ctx):
     u[2:, 1] = 0
     q = K.sswu_map2(FP, u)
     return {
-        "pow_win": [("Fp, e = p - 2", (a1, FP.modulus - 2), 2),
-                    ("Fp2, e = (p - 11)/16", (a2, H.SQRT_K), 0)],
-        "pt_mul_const": [("G1 by |x|", (g1, CV.X_SEGMENTS), 2),
-                         ("G2 by |x|", (g2, CV.X_SEGMENTS), 1)],
-        "sswu_map2": [("hash_to_field outputs", (u,), 1)],
-        "g2_cofactor": [("sswu_map2 outputs", (q, CV.X_SEGMENTS), 1)],
+        "pow_win": [("Fp, e = p - 2", (a1, FP.modulus - 2), 2, "verify"),
+                    ("Fp2, e = (p - 11)/16", (a2, H.SQRT_K), 0, "verify")],
+        "pt_mul_const": [("G1 by |x|", (g1, CV.X_SEGMENTS), 2, "verify"),
+                         ("G2 by |x|", (g2, CV.X_SEGMENTS), 1, "verify")],
+        "sswu_map2": [("hash_to_field outputs", (u,), 1, "verify")],
+        "g2_cofactor": [("sswu_map2 outputs", (q, CV.X_SEGMENTS), 1, "verify")],
+    }
+
+
+def keys_hash_cases(torch, keys):
+    """name -> [(label, args, launches per keys run, "keys")] for the
+    hash-stage and subgroup kernels at the element counts that only the
+    keys path gives them, on its own data: aggregate_verify_distinct's 4095
+    pairs (the pubkeys' Z and the hashes' norms inverted in pt_to_affine,
+    the pubkeys' subgroup check, the messages' hash) and its one aggregate
+    signature (the norm of its Z inverted, as also fp12_inv's one element
+    in the final exponentiation; its subgroup check)."""
+    from bls_verify_gadget_tpu_torch.ops import curve as CV
+    from bls_verify_gadget_tpu_torch.ops import hash_to_g2 as H
+    from bls_verify_gadget_tpu_torch.ops import kernels as K
+    from bls_verify_gadget_tpu_torch.ops import tower as T
+    from bls_verify_gadget_tpu_torch.ops.fp import FP
+
+    n = keys["pair_msg"].shape[0]
+    z0, z1 = keys["asig"][2]
+    norm = FP.add(*T._mul_many([(z0, z0), (z1, z1)]))
+    pk = CV.pack_point(CV.FP_OPS, CV.pt_from_affine(CV.FP_OPS, *keys["pk_aff"]))
+    sig = CV.pack_point(CV.FP2_OPS, CV.pt_from_affine(CV.FP2_OPS, *keys["sig_aff"]))
+    u0, u1 = H.hash_to_field_fp2(keys["pair_msg"], MSG_LEN)
+    u = torch.stack([*u0, *u1])
+    return {
+        "pow_win": [(f"keys: Fp, e = p - 2, Z of the {n} valid pubkeys",
+                     (keys["pk_valid"][2][None], FP.modulus - 2), 2, "keys"),
+                    ("keys: Fp, e = p - 2, the aggregate signature's Z norm",
+                     (norm[None], FP.modulus - 2), 2, "keys")],
+        "pt_mul_const": [(f"keys: G1 by |x| on the {n} valid pubkeys", (pk, CV.X_SEGMENTS), 2,
+                          "keys"),
+                         ("keys: G2 by |x| on the aggregate signature", (sig, CV.X_SEGMENTS),
+                          1, "keys")],
+        "sswu_map2": [(f"keys: hash_to_field outputs of the {n} messages", (u,), 1, "keys")],
+        "g2_cofactor": [(f"keys: sswu_map2 outputs of the {n} messages",
+                         (K.sswu_map2(FP, u), CV.X_SEGMENTS), 1, "keys")],
     }
 
 
@@ -605,21 +961,34 @@ def max_err(got, ref):
     return max(int((g.long() - r.long()).abs().max()) for g, r in zip(got, ref))
 
 
-def hash_kernel_row(torch, name, replaces, cases, launches, sizes, plain_call):
-    """One hash-stage or subgroup kernel against its plain version on each
-    case of hash_cases; a case that stands for main-path launches must have
-    an element count the main path launched it with.  The plain version is
-    slow on the card, so it runs once per case, timed with CUDA events;
-    device time per launch from CUDA-graph replay, eager call time, bound.
-    -> (row, device ms per verify)."""
+def check_covered(name, checked, path, sizes):
+    """Fail unless every element count that `path` launched kernel `name`
+    with is among the counts `checked` against its plain version."""
+    missing = sorted(set(sizes) - set(checked))
+    if missing:
+        raise RuntimeError(f"kernel {name} launched on the {path} path at {missing} elements, "
+                           f"which no case compares with its plain version")
+
+
+def case_kernel_row(torch, name, replaces, source, cases, launches, sizes, plain_call,
+                    main_path):
+    """One hash-stage, subgroup or point kernel against its plain version on
+    each case (label, args, launches, path) of hash_cases, keys_hash_cases
+    or point_cases; a case that stands for launches on its path must have
+    an element count that path launched it with, and every count that a
+    path launched it with must have a case.  The plain version is slow on
+    the card, so it runs once per case, timed with CUDA events; device time
+    per launch from CUDA-graph replay, eager call time, bound.  `launches`
+    and `sizes` map each path to COUNTS' launches and sizes of its run.
+    -> (row, device ms per verify run)."""
     kern, plain = kernel_call(name)
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     out, kernel_ms = [], 0.0
-    for label, args, weight in cases:
+    for label, args, weight, path in cases:
         n = args[0].shape[1]
-        if weight and n not in sizes[name]:
+        if weight and n not in sizes[path][name]:
             raise RuntimeError(f"kernel {name} ({label}) checked at {n} elements, but the "
-                               f"main path launched it at {sorted(sizes[name])}")
+                               f"{path} path launched it at {sorted(sizes[path][name])}")
         got = kern(*args)
         torch.cuda.synchronize()
         start.record()
@@ -632,8 +1001,9 @@ def hash_kernel_row(torch, name, replaces, cases, launches, sizes, plain_call):
                                f"max |err| {err}")
         ms = device_ms(torch, kern, args, 3, 2)
         bound_ms, bound_by = bound(name, n, args)
-        kernel_ms += ms * weight
-        out.append({"case": label, "elements": n, "max_abs_err": err, "ms": ms,
+        if path == "verify":
+            kernel_ms += ms * weight
+        out.append({"case": label, "path": path, "elements": n, "max_abs_err": err, "ms": ms,
                     "call_ms": call_ms(torch, kern, args, 3),
                     "plain_ms": start.elapsed_time(end), "bound_ms": bound_ms,
                     "bound_by": bound_by, "launches": weight})
@@ -641,27 +1011,159 @@ def hash_kernel_row(torch, name, replaces, cases, launches, sizes, plain_call):
         log(f"[kernel] {name} ({label}): bit-equal to plain at {n} elements, COUNTS "
             f"unchanged by plain; device {ms:.5f} ms, eager call {c['call_ms']:.5f} ms, "
             f"plain {c['plain_ms']:.4f} ms (one call), bound {bound_ms:.5f} ms ({bound_by}); "
-            f"{weight} launches per verify")
+            f"{weight} launches per {path} run")
+    for path in sizes:
+        check_covered(name, [c["elements"] for c in out], path, sizes[path][name])
     main = out[0]
     row = {
-        "name": name, "route": "cuda", "source": HASH_SRC, "replaces": replaces,
-        "launches": launches[name], "max_abs_err": max(c["max_abs_err"] for c in out),
+        "name": name, "route": "cuda", "source": source, "replaces": replaces,
+        "launches": launches[main_path][name], "max_abs_err": max(c["max_abs_err"] for c in out),
         **{k: main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
         "library_ms": None, "elements": main["elements"], "call_ms": main["call_ms"],
         "cases": out,
     }
+    for path in launches:
+        if path != main_path:
+            row[f"launches_{path}"] = launches[path][name]
     return row, kernel_ms
 
 
-def kernel_phase(torch, K, launches, sizes, verify_s, ctx):
+def recorded_calls(torch, K, name, fn):
+    """The arguments (cloned) of every call of the wrapper K.<name> while
+    fn runs; the wrapper launches and counts as it always does."""
+    calls, wrapper = [], getattr(K, name)
+
+    def recording(field, *args):
+        calls.append(tuple(a.clone() if torch.is_tensor(a) else a for a in args))
+        return wrapper(field, *args)
+
+    setattr(K, name, recording)
+    try:
+        fn()
+    finally:
+        setattr(K, name, wrapper)
+    return calls
+
+
+def pt_add_branches(torch, rng, ops, pts, half):
+    """Packed P, Q of `half` elements that meet every branch of the complete
+    addition, by element index mod 6: Q = -P and Q = P, each in another
+    Jacobian representative (l^2 X, l^3 Y, l Z for a seeded l); Q at
+    infinity; P at infinity; both at infinity; P + Q of two other points.
+    P is the first half of `pts`, the other points its second half."""
+    from bls_verify_gadget_tpu_torch.ops import curve as CV
+    from bls_verify_gadget_tpu_torch.ops.fp import FP
+
+    p, other = take(pts, slice(0, half)), take(pts, slice(half, 2 * half))
+    top = FP.modulus >> (16 * 23)
+    coords = 1 if ops is CV.FP_OPS else 2
+    lam = [rand_limbs(torch, rng, half, top) for _ in range(coords)]
+    lam = lam[0] if coords == 1 else tuple(lam)
+    (lam2,) = ops.mul_pairs([(lam, lam)])
+    (lam3,) = ops.mul_pairs([(lam2, lam)])
+    scaled = tuple(ops.mul_pairs([(p[0], lam2), (p[1], lam3), (p[2], lam)]))
+    which = torch.arange(half, device="cuda") % 6
+    inf = CV.pt_infinity_like(ops, p)
+    q = CV.pt_cmov(ops, which == 0, CV.pt_neg(ops, scaled), other)
+    q = CV.pt_cmov(ops, which == 1, scaled, q)
+    q = CV.pt_cmov(ops, (which == 2) | (which == 4), inf, q)
+    p = CV.pt_cmov(ops, (which == 3) | (which == 4), inf, p)
+    return CV.pack_point(ops, p), CV.pack_point(ops, q)
+
+
+def point_cases(torch, rng, K, keys):
+    """name -> [(label, args, launches per keys run, "keys")] for the point
+    kernels on the keys phase's data: pt_mul_var by the 4096 keys on the G1
+    generator (derive_pubkeys) and on H(m) (sign); pt_add on the operands
+    of every level of the three aggregation trees, recorded as the keys
+    path passes them, then on P, Q meeting each branch (pt_add_branches,
+    G1 and G2); pt_dbl on the pubkeys once and 63 times."""
+    from bls_verify_gadget_tpu_torch.ops import curve as CV
+
+    bls = keys["bls"]
+    g1 = CV.pack_point(CV.FP_OPS, keys["pk"])
+    sk = keys["sk"]
+    trees = [
+        ("G1 pubkey tree", BATCH, lambda: bls.aggregate_pubkeys(keys["pk"])),
+        ("G2 signature tree", BATCH, lambda: bls.aggregate_signatures(keys["sig"])),
+        ("G1 masked committee tree", COMMITTEE,
+         lambda: bls.aggregate_pubkeys_masked(keys["committee_pk"], keys["bitmap"])),
+    ]
+    add = []
+    for label, n, fn in trees:
+        calls = recorded_calls(torch, K, "pt_add", fn)
+        if len(calls) != tree_levels(n):
+            raise RuntimeError(f"{label}: {len(calls)} pt_add calls, expected {tree_levels(n)}")
+        add += [(f"{label} level {i + 1}", args, 1, "keys") for i, args in enumerate(calls)]
+    half = BATCH // 2
+    add += [("G1 branches", pt_add_branches(torch, rng, CV.FP_OPS, keys["pk"], half), 0, "keys"),
+            ("G2 branches", pt_add_branches(torch, rng, CV.FP2_OPS, keys["sig"], half), 0,
+             "keys")]
+    return {
+        "pt_mul_var": [
+            ("G1, derive_pubkeys", (CV.pack_point(CV.FP_OPS, keys["gen"]), sk, 255), 1, "keys"),
+            ("G2, sign", (CV.pack_point(CV.FP2_OPS, keys["h"]), sk, 255), 1, "keys")],
+        "pt_add": add,
+        "pt_dbl": [("G1 pubkeys, count 1", (g1, 1), 1, "keys"),
+                   ("G1 pubkeys, count 63", (g1, 63), 0, "keys")],
+    }
+
+
+def miller_k1_cases(torch, rng, name, kern, plain_call, plain, keys, longest):
+    """The Miller kernel with one pair (aggregate_verify_distinct's) at every
+    element count the keys path launched it with, and miller_dbl_run at
+    every run length of |x|: bit-equal to the plain version.  Device time,
+    the plain call (timed with CUDA events, one call) and the bound at the
+    largest count (miller_dbl_run: its longest run)."""
+    from bls_verify_gadget_tpu_torch.ops import curve as CV
+
+    hist = keys["sizes"][name]
+    runs = [c for c, _ in CV.X_SEGMENTS] if name == "miller_dbl_run" else [None]
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    worst, main, n_main = 0, None, max(hist)
+    for n in sorted(hist):
+        for count in runs:
+            args = pairing_inputs(torch, rng, name, n, count, k=1)
+            got = kern(*args)
+            is_main = n == n_main and count in (None, longest)
+            start.record()
+            ref = plain_call(name, plain, args)
+            end.record()
+            torch.cuda.synchronize()
+            worst = max(worst, max_err(got, ref))
+            if is_main:
+                main = (n, count, args, start.elapsed_time(end))
+    if worst != 0:
+        raise RuntimeError(f"kernel {name} (k = 1) disagrees with its plain version: "
+                           f"max |err| {worst}")
+    n, count, args, plain_ms = main
+    ms = device_ms(torch, kern, args, 3, 2)
+    bound_ms, bound_by = bound(name, n, args)
+    checked = f"sizes {sorted(hist)}" + (f" x run lengths {runs}" if count else "")
+    log(f"[kernel] {name} (k = 1): bit-equal to plain at {len(hist) * len(runs)} keys-path "
+        f"calls ({checked}); at {n} elements" + (f", run of {count}" if count else "")
+        + f": device {ms:.5f} ms, plain {plain_ms:.4f} ms (one call), bound {bound_ms:.5f} "
+        f"ms ({bound_by}); {keys['launches'][name]} launches per keys run")
+    return {"pairs": 1, "elements": n, "count": count, "max_abs_err": worst, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "launches": keys["launches"][name], "sizes": sorted(hist)}
+
+
+def kernel_phase(torch, K, launches, sizes, verify_s, ctx, keys):
     """Each kernel against its plain version on the same CUDA tensors, bit
-    for bit, with COUNTS unchanged across every plain call: the field and
-    pairing kernels at every element count the main path launched them
-    with (and miller_dbl_run at each run length of |x|), the hash-stage and
-    subgroup kernels on hash_cases.  Device time per launch (CUDA-graph
-    replay), eager call time and plain time at the main path's most
-    frequent size (miller_dbl_run: its longest run; pow_win: Fp;
-    pt_mul_const: G1), and the bound of that call."""
+    for bit, with COUNTS unchanged across every plain call, at every
+    element count that the verify run or the keys run launched it with:
+    the field and pairing kernels on seeded values (miller_dbl_run at each
+    run length; the Miller kernels with two pairs at verify's counts and
+    with one pair at the keys run's); the hash-stage and subgroup kernels
+    on hash_cases and keys_hash_cases, the point kernels on point_cases.
+    Device time per launch (CUDA-graph replay), eager call time and plain
+    time (field kernels: a mean of 3 calls; the others: their compared
+    call, CUDA events) at the main path's most frequent size (miller_dbl_run: its longest
+    run; pow_win: Fp; pt_mul_const, pt_mul_var, pt_add, pt_dbl: G1), and
+    the bound of that call.  "launches" counts the path the kernel serves
+    (verify, or keys for the point kernels); the other path's count rides
+    beside it."""
     import numpy as np
 
     from bls_verify_gadget_tpu_torch.ops import curve as CV
@@ -676,39 +1178,52 @@ def kernel_phase(torch, K, launches, sizes, verify_s, ctx):
     rng = np.random.default_rng(SEED)
     longest = max(c for c, _ in CV.X_SEGMENTS)
     rows, kernel_ms = [], 0.0
-    hcases = hash_cases(torch, rng, ctx)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    by_path = {"launches": {"verify": launches, "keys": keys["launches"]},
+               "sizes": {"verify": sizes, "keys": keys["sizes"]}}
+    hcases, kcases = hash_cases(torch, rng, ctx), keys_hash_cases(torch, keys)
+    pcases = point_cases(torch, rng, K, keys)
     for name, (replaces, source, _) in KERNELS.items():
-        if source == HASH_SRC:
-            row, ms = hash_kernel_row(torch, name, replaces, hcases[name], launches, sizes,
-                                      plain_call)
+        if source in (HASH_SRC, POINT_SRC):
+            cases = hcases[name] + kcases[name] if source == HASH_SRC else pcases[name]
+            row, ms = case_kernel_row(torch, name, replaces, source, cases, by_path["launches"],
+                                      by_path["sizes"], plain_call,
+                                      "verify" if source == HASH_SRC else "keys")
             rows.append(row)
             kernel_ms += ms
             continue
         kern, plain = kernel_call(name)
         field = source == FIELD_SRC
-        hist = sizes[name]
+        hist, khist = sizes[name], keys["sizes"][name]
         n_main = max(hist, key=lambda s: (hist[s], s))
-        if name == "miller_dbl_run":  # each run length once per verify
-            cases = [(n, c, hist[n] / len(CV.X_SEGMENTS))
-                     for n in sorted(hist) for c, _ in CV.X_SEGMENTS]
-        else:
-            cases = [(n, None, hist[n]) for n in sorted(hist)]
+        miller = name.startswith("miller")
+        # two pairs here at verify's counts; the keys run's one pair below
+        counts = sorted(hist) if miller else sorted(set(hist) | set(khist))
+        runs = [c for c, _ in CV.X_SEGMENTS] if name == "miller_dbl_run" else [None]
         worst, main = 0, None
-        for n, count, weight in cases:
-            if field:
-                args = field_inputs(torch, rng, name, n)
-            else:
-                args = pairing_inputs(torch, rng, name, n, count)
-            worst = max(worst, max_err(kern(*args), plain_call(name, plain, args)))
-            ms = device_ms(torch, kern, args, *((20, 5) if field else (3, 2)))
-            kernel_ms += ms * weight
-            if n == n_main and count in (None, longest):
-                main = (n, count, args, ms)
+        for n in counts:
+            for count in runs:
+                if field:
+                    args = field_inputs(torch, rng, name, n)
+                else:
+                    args = pairing_inputs(torch, rng, name, n, count)
+                got = kern(*args)
+                start.record()
+                ref = plain_call(name, plain, args)
+                end.record()
+                torch.cuda.synchronize()
+                worst = max(worst, max_err(got, ref))
+                ms = device_ms(torch, kern, args, *((20, 5) if field else (3, 2)))
+                kernel_ms += ms * hist.get(n, 0) / len(runs)
+                if n == n_main and count in (None, longest):
+                    main = (n, count, args, ms, start.elapsed_time(end))
         if worst != 0:
             raise RuntimeError(f"kernel {name} disagrees with its plain version: max |err| {worst}")
-        n, count, args, ms = main
+        check_covered(name, counts, "verify", hist)
+        n, count, args, ms, plain_ms = main
         eager_ms = call_ms(torch, kern, args, 50 if field else 3)
-        plain_ms = call_ms(torch, lambda *a: plain_call(name, plain, a), args, 3 if field else 1)
+        if field:  # cheap: a mean of 3 calls; the slow pairing ones: the compared call
+            plain_ms = call_ms(torch, lambda *a: plain_call(name, plain, a), args, 3)
         bound_ms, bound_by = bound(name, n, args)
         row = {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -718,11 +1233,17 @@ def kernel_phase(torch, K, launches, sizes, verify_s, ctx):
         }
         if count is not None:
             row["count"] = count
+        row["launches_keys"] = keys["launches"][name]
+        if miller:
+            row["k1"] = miller_k1_cases(torch, rng, name, kern, plain_call, plain, keys, longest)
+        else:
+            check_covered(name, counts, "keys", khist)
         rows.append(row)
         at = f"{n} elements" + (f", run of {count}" if count else "")
-        checked = sorted({c for _, c, _ in cases}) if name == "miller_dbl_run" else sorted(hist)
-        log(f"[kernel] {name}: bit-equal to plain at {len(cases)} main-path calls "
-            f"({'run lengths' if name == 'miller_dbl_run' else 'sizes'} {checked}), COUNTS "
+        checked = f"sizes {counts}" + (f" x run lengths {runs}" if count else "")
+        log(f"[kernel] {name}: bit-equal to plain at {len(counts) * len(runs)} calls "
+            f"({checked}; verify's {sorted(hist)}"
+            + ("" if miller else f", the keys run's {sorted(khist)}") + "), COUNTS "
             f"unchanged by plain; at {at}: device {ms:.5f} ms, eager call {eager_ms:.5f} "
             f"ms, plain {plain_ms:.4f} ms, bound {bound_ms:.5f} ms "
             f"({bound_by}); {launches[name]} launches per verify")
@@ -757,7 +1278,8 @@ def main():
     build_phase(K)
     launches, sizes, verify_s, parts, want, ctx = main_path_phase(torch, K)
     profile_phase(torch, parts, ctx["msg"], want, verify_s)
-    rows = kernel_phase(torch, K, launches, sizes, verify_s, ctx)
+    keys = keys_phase(torch, K)
+    rows = kernel_phase(torch, K, launches, sizes, verify_s, ctx, keys)
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -57,7 +57,9 @@ def test_source_imports_no_jax():
 def test_entry_points_need_a_card_unless_cpu():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present; this checks the no-card behaviour")
-    from bls_verify_gadget_tpu_torch.models.bls import BatchedBLS, encode_messages
+    from bls_verify_gadget_tpu_torch.models.bls import (
+        BatchedBLS, encode_messages, encode_scalars,
+    )
     from bls_verify_gadget_tpu_torch.ops import curve as CV
     from bls_verify_gadget_tpu_torch.ops import tower as T
     from bls_verify_gadget_tpu_torch.ops.fp import FP
@@ -65,6 +67,7 @@ def test_entry_points_need_a_card_unless_cpu():
     for call in (
         BatchedBLS,
         lambda: encode_messages([b"ab"]),
+        lambda: encode_scalars([1]),
         lambda: FP.encode([3]),
         lambda: T.fp2_encode((1, 2)),
         lambda: CV.g1_encode_batch([None]),
@@ -86,6 +89,7 @@ def test_kernel_wrappers_do_not_fall_back():
     f, t, q = a.new_zeros(12, 2, 24), a.new_zeros(2, 6, 2, 24), a.new_zeros(2, 4, 2, 24)
     xp, valid = a.new_zeros(2, 2, 24), torch.ones(2, 2, dtype=torch.bool, device="meta")
     g1, g2, u = a.new_zeros(3, 2, 24), a.new_zeros(6, 2, 24), a.new_zeros(4, 2, 24)
+    sk = torch.zeros(2, 16, dtype=torch.int32, device="meta")
     for call in (
         lambda: K.add(FP, a, a),
         lambda: K.sub(FP, a, a),
@@ -96,6 +100,8 @@ def test_kernel_wrappers_do_not_fall_back():
         lambda: K.fp12_sqr(FP, f),
         lambda: K.miller_dbl_run(FP, f, t, xp, xp, valid, 1),
         lambda: K.miller_add(FP, f, t, q, xp, xp, valid),
+        lambda: K.miller_dbl_run(FP, f, t[:1], xp[:1], xp[:1], valid[:1], 1),
+        lambda: K.miller_add(FP, f, t[:1], q[:1], xp[:1], xp[:1], valid[:1]),
         lambda: K.exp_x(FP, f, CV.X_SEGMENTS),
         lambda: K.pow_win(FP, a[None], FP.modulus - 2),
         lambda: K.pow_win(FP, xp, FP.modulus - 2),
@@ -103,6 +109,12 @@ def test_kernel_wrappers_do_not_fall_back():
         lambda: K.pt_mul_const(FP, g2, CV.X_SEGMENTS),
         lambda: K.g2_cofactor(FP, g2, CV.X_SEGMENTS),
         lambda: K.sswu_map2(FP, u),
+        lambda: K.pt_dbl(FP, g1, 1),
+        lambda: K.pt_dbl(FP, g2, 63),
+        lambda: K.pt_add(FP, g1, g1),
+        lambda: K.pt_add(FP, g2, g2),
+        lambda: K.pt_mul_var(FP, g1, sk, 255),
+        lambda: K.pt_mul_var(FP, g2, sk, 255),
     ):
         with pytest.raises(ValueError):
             call()
@@ -117,3 +129,4 @@ def test_sources_name_every_csrc_file():
     assert files == set(K.SOURCES)
     assert {p.name for p in K.CSRC_DIR.iterdir()} == files
     assert set(K.UNITS) == {n for n in files if n.endswith(".cu")}
+    assert "point_kernels.cu" in K.UNITS
