@@ -2,14 +2,20 @@
 // loaded through ctypes by ops/kernels.py: the Fp6 product (of the Fp12
 // inverse), the Fp12 product and square,
 // the Miller loop's doubling runs and addition blocks, and the final
-// exponentiation's whole exp-by-|x| chain.
+// exponentiation's whole exp-by-|x| chain; and the thin launches of the
+// step-wise configuration (config.fuse_miller / fuse_expx off): the sparse
+// line product, one doubling or addition step, and a run of Granger-Scott
+// squares.
 //
-// Layout.  Every kernel reads ONE packed operand buffer and writes one
-// packed output buffer, both (c, n, 24) int32: coordinate j of batch
+// Layout.  Every kernel reads packed operand buffers and writes one
+// packed output buffer, all (c, n, 24) int32: coordinate j of batch
 // element i is the 24-limb row at ((j * n) + i) * 24, 16-bit Montgomery
 // limbs as in field_kernels.cu.  An Fp6 is 6 coordinates and an Fp12 12,
 // in coefficient-major order (c0.c0.re, c0.c0.im, ..., c1.c2.im).  The Miller
-// kernels also take the pairs' valid masks as (k, n) int32.
+// kernels also take the pairs' valid masks as (k, n) int32.  The step
+// kernels take each of their operands (T, the affine Q, the G1 point, a
+// line) through its own pointer, so the step-wise Miller loop hands T and
+// the line from one launch's output to the next without a copy.
 //
 // What bounds them, and the design.  One thread runs one batch element
 // through the whole fused body (tower.cuh), so device memory sees only the
@@ -91,6 +97,13 @@ __device__ __forceinline__ void store_point(int32_t* buf, int j, long long n,
   store_fp2(buf, j, n, i, t.X);
   store_fp2(buf, j + 2, n, i, t.Y);
   store_fp2(buf, j + 4, n, i, t.Z);
+}
+
+__device__ __forceinline__ void store_line(int32_t* buf, int j, long long n,
+                                           long long i, const Line& l) {
+  store_fp2(buf, j, n, i, l.c0);
+  store_fp2(buf, j + 2, n, i, l.c1);
+  store_fp2(buf, j + 4, n, i, l.c4);
 }
 
 // Replaces _fp6mul_kernel (bls_verify_gadget_tpu/ops/pallas/kernels.py:291):
@@ -229,6 +242,84 @@ __global__ void __launch_bounds__(kThreads)
   store_fp12(out, 0, n, i, f);
 }
 
+// ------------------------------------------- the step-wise configuration
+// One launch per Miller step or line product, each a thin body over one
+// tower.cuh function that the run kernels above also call.  Like them they
+// are bound by operations (per-kernel bounds below, per element at 16.75 T
+// int32 multiply-adds/s against 3.35 TB/s), and they do not reach it: a
+// thread's Montgomery products run one after another.  What they cost over
+// the run kernels is launches and device-memory round trips of f and T,
+// which is why the default configuration fuses them.
+
+// Replaces _mul014_kernel (kernels.py:606): f * (c0 + c1 v + c4 v w).  f
+// (12, n) and the line (6, n) = c0, c1, c4 in, f' (12, n) out.  No valid
+// mask: the caller passes the neutral line (1, 0, 0) for an invalid pair,
+// as the JAX package does.  45 Montgomery products: ~1.6 ns of operations
+// against ~0.9 ns of bytes (30 Fp) per element.
+__global__ void __launch_bounds__(kThreads)
+    mul014_kernel(const int32_t* __restrict__ f,
+                  const int32_t* __restrict__ line, int32_t* __restrict__ out,
+                  long long n, FpModulus M) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const Line l = {load_fp2(line, 0, n, i), load_fp2(line, 2, n, i),
+                  load_fp2(line, 4, n, i)};
+  store_fp12(out, 0, n, i, bls::f12_mul_014(load_fp12(f, 0, n, i), l, M));
+}
+
+// Replaces _dblstep_kernel (kernels.py:646): T (6, n) = X, Y, Z and the G1
+// point (2, n) = xp, yp in; (12, n) = 2T, then the line (c0, c1, c4) out.
+// 25 Montgomery products (19 for T, 6 for the line): ~0.9 ns of operations
+// against ~0.6 ns of bytes (20 Fp) per element.
+__global__ void __launch_bounds__(kThreads)
+    dbl_step_kernel(const int32_t* __restrict__ t,
+                    const int32_t* __restrict__ p, int32_t* __restrict__ out,
+                    long long n, FpModulus M) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  G2Proj pt = load_point(t, 0, n, i);
+  const Line l =
+      bls::miller_dbl_step(pt, load_fp(p, 0, n, i), load_fp(p, 1, n, i), M);
+  store_point(out, 0, n, i, pt);
+  store_line(out, 6, n, i, l);
+}
+
+// Replaces _addstep_kernel (kernels.py:688): T (6, n), the affine Q (4, n)
+// = xq, yq and the G1 point (2, n) in; (12, n) = T + Q, then the line out.
+// 41 Montgomery products (31 for T, 10 for the line): ~1.5 ns of
+// operations against ~0.7 ns of bytes (24 Fp) per element.
+__global__ void __launch_bounds__(kThreads)
+    add_step_kernel(const int32_t* __restrict__ t,
+                    const int32_t* __restrict__ q,
+                    const int32_t* __restrict__ p, int32_t* __restrict__ out,
+                    long long n, FpModulus M) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  G2Proj pt = load_point(t, 0, n, i);
+  const Line l =
+      bls::miller_add_step(pt, load_fp2(q, 0, n, i), load_fp2(q, 2, n, i),
+                           load_fp(p, 0, n, i), load_fp(p, 1, n, i), M);
+  store_point(out, 0, n, i, pt);
+  store_line(out, 6, n, i, l);
+}
+
+// Replaces _cyclo_sqr_kernel (kernels.py:1412): `count` Granger-Scott
+// squares of f (12, n) in one launch, f' (12, n) out.  The Fp12 is
+// coefficient-major as everywhere in the port; f12_cyclotomic_sqr reads the
+// Granger-Scott z-ordering from it, so the TPU operand shuffle has no
+// counterpart.  A square only for cyclotomic f (the same formula
+// otherwise).  18 Montgomery products per square: ~0.64 ns of operations
+// per element and square against ~0.7 ns of bytes per launch.
+__global__ void __launch_bounds__(kThreads)
+    cyclo_sqr_kernel(const int32_t* __restrict__ in, int32_t* __restrict__ out,
+                     long long n, int count, FpModulus M) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  Fp12 f = load_fp12(in, 0, n, i);
+  for (int r = 0; r < count; ++r) f = bls::f12_cyclotomic_sqr(f, M);
+  store_fp12(out, 0, n, i, f);
+}
+
 }  // namespace bls_kernels
 
 extern "C" {
@@ -304,6 +395,40 @@ int bls_exp_x(const int32_t* in, int32_t* out, long long n, const int* lens,
   bls_kernels::exp_x_kernel<<<grid_for(n), kThreads, 0,
                               (cudaStream_t)stream>>>(
       in, out, n, bls::make_modulus<bls::kFpWords>(p, n0), segs);
+  return (int)cudaGetLastError();
+}
+
+int bls_mul014(const int32_t* f, const int32_t* line, int32_t* out,
+               long long n, const uint32_t* p, unsigned n0, void* stream) {
+  bls_kernels::mul014_kernel<<<grid_for(n), kThreads, 0,
+                               (cudaStream_t)stream>>>(
+      f, line, out, n, bls::make_modulus<bls::kFpWords>(p, n0));
+  return (int)cudaGetLastError();
+}
+
+int bls_dbl_step(const int32_t* t, const int32_t* pts, int32_t* out,
+                 long long n, const uint32_t* p, unsigned n0, void* stream) {
+  bls_kernels::dbl_step_kernel<<<grid_for(n), kThreads, 0,
+                                 (cudaStream_t)stream>>>(
+      t, pts, out, n, bls::make_modulus<bls::kFpWords>(p, n0));
+  return (int)cudaGetLastError();
+}
+
+int bls_add_step(const int32_t* t, const int32_t* q, const int32_t* pts,
+                 int32_t* out, long long n, const uint32_t* p, unsigned n0,
+                 void* stream) {
+  bls_kernels::add_step_kernel<<<grid_for(n), kThreads, 0,
+                                 (cudaStream_t)stream>>>(
+      t, q, pts, out, n, bls::make_modulus<bls::kFpWords>(p, n0));
+  return (int)cudaGetLastError();
+}
+
+int bls_cyclo_sqr(const int32_t* in, int32_t* out, long long n, int count,
+                  const uint32_t* p, unsigned n0, void* stream) {
+  if (count < 1) return (int)cudaErrorInvalidValue;
+  bls_kernels::cyclo_sqr_kernel<<<grid_for(n), kThreads, 0,
+                                  (cudaStream_t)stream>>>(
+      in, out, n, count, bls::make_modulus<bls::kFpWords>(p, n0));
   return (int)cudaGetLastError();
 }
 

@@ -2,7 +2,7 @@
 per kernel (the counterpart of the JAX package's ops/pallas/kernels.py
 FieldKernels.mul/add/sub/fp2_mul/fp2_sqr/fp6_mul/fp12_mul/fp12_sqr/
 miller_dbl_run/miller_add/exp_x/pow_win/pt_mul_const/g2_cofactor/sswu_map2/
-pt_dbl/pt_add/pt_mul_var).
+pt_dbl/pt_add/pt_mul_var/mul014/dbl_step/add_step/cyclo_sqr).
 
 The sources in csrc/ are compiled on first use with nvcc for sm_90a, one
 nvcc per .cu file, all started together, and linked into one shared
@@ -14,7 +14,9 @@ The field wrappers take int32 (..., nlimb) limb tensors that broadcast
 against each other; the others take packed (c, N, 24) tensors (an Fp2 is 2
 coordinates, a Jacobian point 3 or 6, an Fp6 6, an Fp12 12,
 coefficient-major) and
-pack their operands into one contiguous buffer per launch.  A tensor on the
+pack their operands into one contiguous buffer per launch, except the step
+kernels (mul014, dbl_step, add_step), which take one pointer per operand.
+A tensor on the
 CPU goes to the kernel's plain PyTorch version (ops/fp.py, ops/tower.py,
 ops/curve.py, ops/hash_to_g2.py, ops/pairing.py); a CUDA
 tensor launches the kernel on the current stream or raises -- there is no
@@ -48,6 +50,7 @@ KERNELS = (
     "fp12_mul", "fp12_sqr", "miller_dbl_run", "miller_add", "exp_x",
     "pow_win", "pt_mul_const", "g2_cofactor", "sswu_map2",
     "pt_dbl", "pt_add", "pt_mul_var",
+    "mul014", "dbl_step", "add_step", "cyclo_sqr",
 )
 MILLER_PAIRS = (1, 2)  # pair counts of a Miller launch (csrc/pairing_kernels.cu)
 SCALAR_LIMBS = 16  # raw Fr scalar limbs of pt_mul_var (csrc/point_kernels.cu)
@@ -161,6 +164,10 @@ def _declare(lib):
     lib.bls_pt_dbl.argtypes = [vp, vp, i64, i32, i32, vp, u32, vp]
     lib.bls_pt_add.argtypes = [vp, vp, i64, i32, vp, vp, u32, vp]
     lib.bls_pt_mul_var.argtypes = [vp, vp, vp, i64, i32, i32, vp, vp, u32, vp]
+    lib.bls_mul014.argtypes = [vp, vp, vp, i64, vp, u32, vp]
+    lib.bls_dbl_step.argtypes = [vp, vp, vp, i64, vp, u32, vp]
+    lib.bls_add_step.argtypes = [vp, vp, vp, vp, i64, vp, u32, vp]
+    lib.bls_cyclo_sqr.argtypes = [vp, vp, i64, i32, vp, u32, vp]
     for name in KERNELS:
         getattr(lib, f"bls_{name}").restype = ctypes.c_int
 
@@ -325,19 +332,23 @@ def _packed_launch(name, field, packed, n_in, n_out, *args, aux=None):
     when given)
     and return its (n_out, N, 24) output.  A contiguous operand is passed
     as it is, without a copy; the wrappers that take several operands pack
-    them with one torch.cat."""
+    them with one torch.cat, or pass them through one pointer each:
+    `packed` and `n_in` are then tuples."""
     if field.nlimb != 24:
         raise ValueError(f"{name} takes Fp (24 limbs), not {field.nlimb}")
-    (packed,) = _cuda_operands(field, [packed])
-    if packed.dim() != 3 or packed.shape[0] != n_in:
-        raise ValueError(f"{name} takes a packed ({n_in}, N, 24) operand, "
-                         f"got {tuple(packed.shape)}")
-    n = packed.shape[1]
-    out = packed.new_empty((n_out, n, field.nlimb))
+    ops = packed if isinstance(packed, tuple) else (packed,)
+    widths = n_in if isinstance(n_in, tuple) else (n_in,)
+    ops = _cuda_operands(field, list(ops))
+    n = ops[0].shape[1] if ops[0].dim() == 3 else -1
+    for t, c in zip(ops, widths):
+        if t.dim() != 3 or t.shape[0] != c or t.shape[1] != n:
+            raise ValueError(f"{name} takes packed {[(c, 'N', 24) for c in widths]} "
+                             f"operands, got {[tuple(t.shape) for t in ops]}")
+    out = ops[0].new_empty((n_out, n, field.nlimb))
     if n:
-        ptrs = [packed.data_ptr()] + ([] if aux is None else [aux.data_ptr()])
+        ptrs = [t.data_ptr() for t in ops] + ([] if aux is None else [aux.data_ptr()])
         rc = getattr(library(), f"bls_{name}")(
-            *ptrs, out.data_ptr(), n, *args, _p_words(field), field.n0_word, _stream(packed)
+            *ptrs, out.data_ptr(), n, *args, _p_words(field), field.n0_word, _stream(ops[0])
         )
         _check_rc(name, rc)
         COUNTS.record(name, n)
@@ -435,6 +446,58 @@ def exp_x(field, m, segments):
         return pairing.exp_x_plain(m, segments)
     lens, muls, nseg = _segments("exp_x", segments)
     return _packed_launch("exp_x", field, m, 12, 12, lens, muls, nseg)
+
+
+# ----------------------------------------------------------------------------
+# the step-wise configuration's kernels (csrc/pairing_kernels.cu): one
+# pointer per operand, so T and a line pass from one launch to the next
+# as views of its output
+# ----------------------------------------------------------------------------
+
+def mul014(field, f, line):
+    """f * (c0 + c1 v + c4 v w) for a packed f (12, N, 24) and line (6, N,
+    24) = c0, c1, c4 (replaces FieldKernels.mul014).  No mask: an invalid
+    pair's caller passes the neutral line."""
+    if f.device.type == "cpu":
+        from . import pairing
+
+        return pairing.mul014_plain(f, line)
+    return _packed_launch("mul014", field, (f, line), (12, 6), 12)
+
+
+def dbl_step(field, t, p):
+    """One CLN doubling step of T (6, N, 24) = X, Y, Z at the G1 points p
+    (2, N, 24) = xp, yp -> (12, N, 24): 2T, then the line c0, c1, c4
+    (replaces FieldKernels.dbl_step)."""
+    if t.device.type == "cpu":
+        from . import pairing
+
+        return pairing.dbl_step_plain(t, p)
+    return _packed_launch("dbl_step", field, (t, p), (6, 2), 12)
+
+
+def add_step(field, t, q, p):
+    """One CLN mixed addition of the affine Q (4, N, 24) = xq, yq to T (6,
+    N, 24) at the G1 points p (2, N, 24) -> (12, N, 24): T + Q, then the
+    line (replaces FieldKernels.add_step)."""
+    if t.device.type == "cpu":
+        from . import pairing
+
+        return pairing.add_step_plain(t, q, p)
+    return _packed_launch("add_step", field, (t, q, p), (6, 4, 2), 12)
+
+
+def cyclo_sqr(field, f, count: int):
+    """`count` Granger-Scott squares of a packed (12, N, 24) Fp12, in one
+    launch (replaces FieldKernels.cyclo_sqr).  A square only on cyclotomic
+    elements; the Fp12 is coefficient-major, as every packed one."""
+    if f.device.type == "cpu":
+        from . import tower
+
+        return tower.cyclo_sqr_plain(f, count)
+    if count < 1:
+        raise ValueError(f"cyclo_sqr squares at least once, got {count}")
+    return _packed_launch("cyclo_sqr", field, f, 12, 12, count)
 
 
 # ----------------------------------------------------------------------------

@@ -1,5 +1,5 @@
 """Batched optimal-ate pairing (counterpart of the JAX package's
-ops/pairing.py, fused path).
+ops/pairing.py).
 
 Miller loop in homogeneous projective coordinates on the M-twist with
 sparse mul_by_014 line application (Costello-Lange-Naehrig step formulas);
@@ -7,16 +7,23 @@ the negative BLS parameter is handled by a final conjugation.  A shared
 multi-pairing keeps one f accumulator; per-pair validity masks make an
 invalid pair contribute the neutral line.
 
-The loop follows the run structure of |x|: one miller_dbl_run launch per
-doubling run and one miller_add launch per set bit (11 launches), each
-carrying every pair.  Each exp-by-x chain of the final exponentiation is
-one exp_x launch.  The plain versions of those three kernels are here, over
-the plain Fp12 layer of ops/tower.py.
+The loop follows the run structure of |x|.  By default (config.fuse_miller)
+it is one miller_dbl_run launch per doubling run and one miller_add launch
+per set bit (11 launches), each carrying every pair, and each exp-by-x
+chain of the final exponentiation is one exp_x launch (config.fuse_expx).
+With a flag off, the JAX package's step-wise form of that part runs
+instead: per doubling one fp12_sqr, one dbl_step over the pairs stacked on
+the batch axis and one mul014 per pair; per set bit one add_step and one
+mul014 per pair; per run of |x| in a chain one cyclo_sqr and per set bit
+one fp12_mul.  Both forms give the same limbs.  The plain versions of the
+Miller and exp_x kernels and of the step kernels are here, over the plain
+Fp12 layer of ops/tower.py.
 """
 
 import torch
 
 from .. import constants as C
+from ..utils.config import config
 from .curve import X_SEGMENTS
 from .fp import FP
 from . import kernels as K
@@ -80,6 +87,21 @@ def _add_step(t, q, xp, yp):
     return F2.stack(x3, y3, z3), F2.stack(c0, c1, c4)
 
 
+def dbl_step_plain(t, p):
+    """Plain version of the dbl_step kernel: T (6, N, 24) = X, Y, Z and the
+    G1 points p (2, N, 24) = xp, yp -> (12, N, 24) = 2T, then the line."""
+    pts, line = _dbl_step(t.reshape(3, 2, *t.shape[1:]), p[0], p[1])
+    return torch.cat([pts, line]).flatten(0, 1)
+
+
+def add_step_plain(t, q, p):
+    """Plain version of the add_step kernel: T (6, N, 24), the affine Q (4,
+    N, 24) and p (2, N, 24) -> (12, N, 24) = T + Q, then the line."""
+    pts, line = _add_step(t.reshape(3, 2, *t.shape[1:]), q.reshape(2, 2, *q.shape[1:]),
+                          p[0], p[1])
+    return torch.cat([pts, line]).flatten(0, 1)
+
+
 def _f6_mul_by_01(a, d0, d1):
     """(a0, a1, a2)(d0 + d1 v) = (a0 d0 + xi a2 d1, a0 d1 + a1 d0,
     a1 d1 + a2 d0) on a (3, 2, N, 24) a."""
@@ -93,14 +115,20 @@ def _f6_mul_by_1(a, d1):
     return torch.stack([F2.xi(p[0]), p[1], p[2]])
 
 
-def _line_apply(f, line, valid):
-    """f * line for a packed f (the JAX kernels' _miller_line_apply): the
-    line (3, 2, N, 24) = (c0, c1, c4) is the neutral (1, 0, 0) where valid
-    (N,) is false, and multiplies in sparsely as c0 + c1 v + c4 v w
-    (_f12_mul_014, 15 Fp2 products)."""
-    neutral = torch.zeros_like(line)
-    neutral[0, 0] = FP.const("ONE", line.device)
-    c0, c1, c4 = torch.where(valid[:, None], line, neutral).unbind(0)
+def neutral_line(n: int, device):
+    """The neutral line (1, 0, 0) as a packed (6, n, 24) tensor: an invalid
+    pair's line (the JAX package's _neutral_line), which leaves the limbs
+    of f as they are."""
+    line = torch.zeros((6, n, 24), dtype=torch.int32, device=device)
+    line[0] = FP.const("ONE", device)
+    return line
+
+
+def mul014_plain(f, line):
+    """Plain version of the mul014 kernel: f * (c0 + c1 v + c4 v w) for a
+    packed f and line (6, N, 24) = c0, c1, c4 (the JAX kernels' _f12_mul_014,
+    15 Fp2 products)."""
+    c0, c1, c4 = line.reshape(3, 2, *line.shape[-2:]).unbind(0)
     a, b = T.fp12_view(f).unbind(0)
     v0 = _f6_mul_by_01(a, c0, c1)
     v1 = _f6_mul_by_1(b, c4)
@@ -115,11 +143,12 @@ def miller_dbl_run_plain(f, t, xp, yp, valid, count: int):
     pair's line into f, in pair order]."""
     k = t.shape[0]
     pts = t.reshape(k, 3, 2, *t.shape[-2:])
+    neutral = neutral_line(f.shape[1], f.device)
     for _ in range(count):
         f = T.fp12_sqr_plain(f)
         pts, lines = _dbl_step(pts, xp, yp)
         for i in range(k):
-            f = _line_apply(f, lines[i], valid[i])
+            f = mul014_plain(f, torch.where(valid[i][:, None], lines[i].flatten(0, 1), neutral))
     return f, pts.reshape(t.shape)
 
 
@@ -129,8 +158,9 @@ def miller_add_plain(f, t, q, xp, yp, valid):
     pts, lines = _add_step(
         t.reshape(k, 3, 2, *t.shape[-2:]), q.reshape(k, 2, 2, *q.shape[-2:]), xp, yp
     )
+    neutral = neutral_line(f.shape[1], f.device)
     for i in range(k):
-        f = _line_apply(f, lines[i], valid[i])
+        f = mul014_plain(f, torch.where(valid[i][:, None], lines[i].flatten(0, 1), neutral))
     return f, pts.reshape(t.shape)
 
 
@@ -141,7 +171,8 @@ def multi_miller_loop(pairs):
 
     The pairs ride stacked through every launch: T starts at (xq, yq, 1),
     each doubling run of |x| is one miller_dbl_run launch and each set bit
-    one miller_add launch."""
+    one miller_add launch; with config.fuse_miller off, the step-wise loop
+    (_step_miller_loop) runs instead, to the same limbs."""
     xp = torch.stack([p[0] for p, _, _ in pairs])
     yp = torch.stack([p[1] for p, _, _ in pairs])
     q = torch.stack([torch.stack([*qa[0], *qa[1]]) for _, qa, _ in pairs])
@@ -149,11 +180,41 @@ def multi_miller_loop(pairs):
     z = torch.zeros_like(xp)
     t = torch.cat([q, torch.stack([FP.one_like(xp), z], 1)], 1)
     f = torch.cat([FP.one_like(xp[:1]), z[:1].expand(11, *z.shape[1:])])
+    if not config.fuse_miller:
+        return T.fp12_conj(T.fp12_unpack(_step_miller_loop(f, t, q, xp, yp, valid)))
     for length, add in X_SEGMENTS:
         f, t = K.miller_dbl_run(FP, f, t, xp, yp, valid, length)
         if add:
             f, t = K.miller_add(FP, f, t, q, xp, yp, valid)
     return T.fp12_conj(T.fp12_unpack(f))  # x < 0
+
+
+def _step_miller_loop(f, t, q, xp, yp, valid):
+    """The step-wise Miller loop (the JAX package's static run form,
+    ops/pairing.py:266-359) on multi_miller_loop's operands: the k pairs
+    stacked on the batch axis (pair i at elements i*n .. (i+1)*n - 1) ride
+    one dbl_step launch per doubling and one add_step launch per set bit;
+    each pair's line, neutral where the pair is invalid, goes into the
+    shared f with one mul014 launch, in pair order.  T and the lines stay
+    views of the step's output.  -> f, before the conjugation."""
+    k, n = xp.shape[:2]
+    p = torch.stack([xp.flatten(0, 1), yp.flatten(0, 1)])
+    q, t = (x.transpose(0, 1).flatten(1, 2) for x in (q, t))
+    neutral = neutral_line(n, f.device)
+
+    def lines_into(f, out):
+        for i in range(k):
+            line = torch.where(valid[i][:, None], out[6:, i * n:(i + 1) * n], neutral)
+            f = K.mul014(FP, f, line)
+        return f, out[:6]
+
+    for length, add in X_SEGMENTS:
+        for _ in range(length):
+            f = K.fp12_sqr(FP, f)
+            f, t = lines_into(f, K.dbl_step(FP, t, p))
+        if add:
+            f, t = lines_into(f, K.add_step(FP, t, q, p))
+    return f
 
 
 # ----------------------------------------------------------------------------
@@ -165,8 +226,7 @@ def exp_x_plain(m, segments):
     multiply) segment that many Granger-Scott squares, then f <- f * m."""
     f = m
     for length, mul in segments:
-        for _ in range(length):
-            f = T.fp12_cyclotomic_sqr_plain(f)
+        f = T.cyclo_sqr_plain(f, length)
         if mul:
             f = T.fp12_mul_plain(f, m)
     return f
@@ -174,8 +234,18 @@ def exp_x_plain(m, segments):
 
 def _exp_by_neg_x(m):
     """m^x (x the negative BLS parameter) for m in the cyclotomic subgroup:
-    ONE exp_x launch over the runs of |x|, then the conjugation."""
-    return T.fp12_conj(T.fp12_unpack(K.exp_x(FP, T.fp12_pack(m), X_SEGMENTS)))
+    ONE exp_x launch over the runs of |x|, then the conjugation.  With
+    config.fuse_expx off, the step-wise chain (the JAX package's static run
+    form): from f = m, per run of |x| one cyclo_sqr launch and, where the
+    run ends on a set bit, one fp12_mul by m."""
+    if config.fuse_expx:
+        return T.fp12_conj(T.fp12_unpack(K.exp_x(FP, T.fp12_pack(m), X_SEGMENTS)))
+    f = m
+    for length, mul in X_SEGMENTS:
+        f = T.fp12_cyclotomic_sqr_k(f, length)
+        if mul:
+            f = T.fp12_mul(f, m)
+    return T.fp12_conj(f)
 
 
 def final_exponentiation(f):

@@ -14,8 +14,9 @@ products and squares go to the fp2_mul / fp2_sqr CUDA kernels
 (ops/kernels.py); their plain versions, fp2_mul_plain and fp2_sqr_plain,
 live here.  The Fp12 product and square are ONE fused kernel launch each
 (fp12_mul / fp12_sqr) on a packed (12, N, 24) operand; their plain
-versions, and the Granger-Scott square that the exp_x kernel repeats, are
-the plain Fp12 layer at the end of this file; fp12_prod is a halving tree
+versions, and the Granger-Scott square that the exp_x and cyclo_sqr
+kernels repeat, are the plain Fp12 layer at the end of this file;
+fp12_cyclotomic_sqr_k is one cyclo_sqr launch; fp12_prod is a halving tree
 of fp12_mul launches.  A group of Fp6 products is
 ONE fp6_mul launch on packed (6, N, 24) operands.  The Fp6 and Fp12
 inverses and the Frobenius maps stay compositions of these kernels; the Fp
@@ -361,6 +362,12 @@ def halving_tree(op, x, axis: int = 0):
     return take(cur, 0)
 
 
+def fp12_cyclotomic_sqr_k(f, count: int):
+    """`count` Granger-Scott squares of a cyclotomic Fp12: ONE cyclo_sqr
+    kernel launch."""
+    return fp12_unpack(K.cyclo_sqr(FP, fp12_pack(f), count))
+
+
 def fp12_prod(f, axis: int = 0):
     """Product of Fp12 elements along a leading batch axis: a halving tree
     of fp12_mul, ONE launch per level.  The axis is dropped."""
@@ -568,3 +575,11 @@ def fp12_cyclotomic_sqr_plain(f):
     r = F2.add(F2.add(r, r), torch.cat([tm, tp]))  # z0' z3' z4' z1' z2' z5'
     # f' = ((z0', z4', z3'), (z2', z1', z5'))
     return r[[0, 2, 1, 4, 3, 5]].reshape(f.shape)
+
+
+def cyclo_sqr_plain(f, count: int):
+    """Plain version of the cyclo_sqr kernel: `count` Granger-Scott squares
+    of a packed (12, N, 24) Fp12."""
+    for _ in range(count):
+        f = fp12_cyclotomic_sqr_plain(f)
+    return f

@@ -5,7 +5,7 @@
 
 Needs one CUDA card and nvcc.  Phases, each fatal on failure:
   1. device   -- card name and power limit (nvidia-smi), torch's name;
-  2. build    -- nvcc builds the 18 kernels from csrc/ (one nvcc per
+  2. build    -- nvcc builds the 22 kernels from csrc/ (one nvcc per
      source, all at once) and prints ptxas's register/stack/spill report;
   3. main path -- BatchedBLS(device="cuda").verify at batch 4096 with
      32-byte messages: the decodable verify vectors tiled, plus tampered-
@@ -35,12 +35,29 @@ Needs one CUDA card and nvcc.  Phases, each fatal on failure:
      tampered message, the aggregate/ and fast_aggregate_verify/ vectors,
      the masked sum against the subset's sum, the distinct-message
      aggregate false with two messages swapped; then ms and launches per
-     call of each entry point;
-  6. kernels  -- each kernel against its plain PyTorch version on the same
-     CUDA tensors, bit for bit, at every element count that the verify run
-     or the keys run launched it with (a kernel launched at a count no case
-     covers fails the run), with the launch counters unmoved by every plain
-     call (the plain versions launch no kernel of the port): the field and
+     call of each entry point.  Neither default path may launch a
+     step-wise kernel;
+  6. steps    -- the step-wise pairing configuration (config.fuse_miller
+     and fuse_expx off, restored however the phase ends) on the main
+     path's batch: a warm-up verify that records the step kernels'
+     operands, miller_stage's f and its final exponentiation limb-equal to
+     the fused path's, one counted verify (counters zeroed just before,
+     read just after: 423 launches, the default's less the 16 run and
+     exp_x launches, plus 63 dbl_step and 5 add_step at 8192, 136 mul014
+     and 63 more fp12_sqr at 4096, 30 cyclo_sqr at the run lengths of |x|
+     and 25 more fp12_mul), every result as expected, then the stage times
+     and verifications/s of the step-wise and the fused path in
+     interleaved runs; then aggregate_verify_distinct over the keys
+     phase's 4095 pairs, recorded, counted (367 launches: the fused call's
+     launches with the same changes for one pair at 4096, the x-chains at
+     batch 1), true, false with two messages swapped, and timed
+     interleaved with the fused path;
+  7. kernels  -- each kernel against its plain PyTorch version on the same
+     CUDA tensors, bit for bit, at every element count that the verify
+     run, the keys run or a steps run launched it with (a kernel launched
+     at a count no case covers fails the run), with the launch counters
+     unmoved by every plain call (the plain versions launch no kernel of
+     the port): the field and
      pairing kernels on seeded random values plus edge values
      (miller_dbl_run at each run length, the Miller kernels with two pairs
      at verify's counts and with one pair at the keys run's), the
@@ -52,7 +69,12 @@ Needs one CUDA card and nvcc.  Phases, each fatal on failure:
      data (pt_mul_var G1 and G2 at 4096, pt_add on the operands of every
      level of the three aggregation trees as the keys path passed them,
      and on P, Q meeting each branch of the complete addition, pt_dbl with
-     count 1 and 63 on the pubkeys);
+     count 1 and 63 on the pubkeys), the step-wise kernels on the steps
+     phase's recorded operands (mul014 and dbl_step / add_step with two
+     pairs stacked at 8192 and one pair at 4096, cyclo_sqr on cyclotomic
+     elements at every run length at 4096 and 1) and on seeded random ones
+     (mul014 with a quarter of the lines neutral, cyclo_sqr at every run
+     length at 4096 and 1);
      device time per launch from CUDA-graph replay, eager call time and
      plain time from CUDA events (a mean of 3 calls for the field kernels;
      the slow plain versions of the others: their one comparison call at
@@ -109,7 +131,18 @@ KERNELS = {
     "pt_dbl": (f"{TPU_KERNELS}:771", POINT_SRC, 0),
     "pt_add": (f"{TPU_KERNELS}:795", POINT_SRC, 0),
     "pt_mul_var": (f"{TPU_KERNELS}:1329", POINT_SRC, 0),
+    # the step-wise configuration (the steps phase), not the default path
+    "mul014": (f"{TPU_KERNELS}:606", PAIRING_SRC, 0),
+    "dbl_step": (f"{TPU_KERNELS}:646", PAIRING_SRC, 0),
+    "add_step": (f"{TPU_KERNELS}:688", PAIRING_SRC, 0),
+    "cyclo_sqr": (f"{TPU_KERNELS}:1412", PAIRING_SRC, 0),
 }
+STEP_KERNELS = ("mul014", "dbl_step", "add_step", "cyclo_sqr")
+# launches of the step-wise configuration less the default's, per Miller
+# pair count k: 63 doublings and 5 set bits of |x|, five x-chains of 6 runs
+# and 5 set bits
+STEP_DELTA = {"miller_dbl_run": -6, "miller_add": -5, "exp_x": -5, "dbl_step": 63,
+              "add_step": 5, "fp12_sqr": 63, "cyclo_sqr": 30, "fp12_mul": 25}
 PORT_KERNEL_NAME = re.compile(r"bls_kernels::(%s)_kernel\b" % "|".join(KERNELS))
 
 
@@ -167,6 +200,22 @@ def load_cases():
     return [cases[i % len(cases)] for i in range(BATCH)]
 
 
+def staged_verify(torch, bls, pk, sig, msg):
+    """One verify batch stage by stage, each closed by a synchronize ->
+    (result, (hash s, miller s, final_exp s))."""
+    t0 = time.perf_counter()
+    h = bls.hash_stage(msg, MSG_LEN)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    f, ok = bls.miller_stage(pk, sig, h)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    out = bls.finalexp_stage(f, ok)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    return out, (t1 - t0, t2 - t1, t3 - t2)
+
+
 def main_path_phase(torch, K):
     from bls_verify_gadget_tpu_torch.models.bls import (
         BatchedBLS, encode_messages, encode_pubkeys, encode_signatures,
@@ -180,17 +229,7 @@ def main_path_phase(torch, K):
     bls = BatchedBLS(device="cuda")
 
     def run():
-        t0 = time.perf_counter()
-        h = bls.hash_stage(msg, MSG_LEN)
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        f, ok = bls.miller_stage(pk, sig, h)
-        torch.cuda.synchronize()
-        t2 = time.perf_counter()
-        out = bls.finalexp_stage(f, ok)
-        torch.cuda.synchronize()
-        t3 = time.perf_counter()
-        return out, (t1 - t0, t2 - t1, t3 - t2)
+        return staged_verify(torch, bls, pk, sig, msg)
 
     t0 = time.perf_counter()
     out, _ = run()
@@ -494,9 +533,12 @@ def keys_phase(torch, K):
     run_s = time.perf_counter() - t0
     launches = dict(K.COUNTS.launches)
     sizes = {k: dict(v) for k, v in K.COUNTS.sizes.items()}
-    idle = [k for k in K.KERNELS if launches[k] == 0]
+    idle = [k for k in K.KERNELS if k not in STEP_KERNELS and launches[k] == 0]
     if idle:
         raise RuntimeError(f"kernels not launched on the keys path: {idle}")
+    stray = {k: launches[k] for k in STEP_KERNELS if launches[k]}
+    if stray:
+        raise RuntimeError(f"step-wise kernels launched in the default configuration: {stray}")
     want_n = {"pt_mul_var": 2, "pt_dbl": 1,
               "pt_add": 2 * tree_levels(BATCH) + tree_levels(COMMITTEE)}
     off = {k: launches[k] for k, n in want_n.items() if launches[k] != n}
@@ -581,7 +623,193 @@ def keys_phase(torch, K):
     return {"launches": launches, "sizes": sizes, "pk": pk, "sig": sig, "h": h, "sk": sk,
             "gen": gen, "bls": bls, "pk_valid": take(pk, idx), "pk_aff": out["pk_aff"],
             "asig": batch_of_one(out["asig"]), "sig_aff": out["sig_aff"],
-            "pair_msg": pair_msg, "committee_pk": take(pk, committee), "bitmap": bitmap}
+            "pair_msg": pair_msg, "swapped_msg": swapped, "committee_pk": take(pk, committee),
+            "bitmap": bitmap}
+
+
+# ----------------------------------------------------------------------------
+# steps phase: the step-wise pairing configuration
+# ----------------------------------------------------------------------------
+
+def recorded_steps(torch, K, fn, keep):
+    """Run fn with the step kernels' wrappers wrapped -> (fn's result, a
+    Counter of (name, elements, run length or None) over their calls, and
+    where `keep` the operands (cloned) of the last call per such key).  The
+    wrappers launch and count as they always do."""
+    import collections
+
+    calls, kept = collections.Counter(), {}
+    wrappers = {name: getattr(K, name) for name in STEP_KERNELS}
+
+    def recording(name):
+        def call(field, *args):
+            key = (name, args[0].shape[1], args[-1] if name == "cyclo_sqr" else None)
+            calls[key] += 1
+            if keep:
+                kept[key] = tuple(a.clone() if torch.is_tensor(a) else a for a in args)
+            return wrappers[name](field, *args)
+        return call
+
+    for name in STEP_KERNELS:
+        setattr(K, name, recording(name))
+    try:
+        out = fn()
+    finally:
+        for name, wrapper in wrappers.items():
+            setattr(K, name, wrapper)
+    return out, calls, kept
+
+
+def counted(torch, K, fn):
+    """fn's result with the launches and element counts of its run alone."""
+    K.COUNTS.reset()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, dict(K.COUNTS.launches), {k: dict(v) for k, v in K.COUNTS.sizes.items()}
+
+
+def check_step_launches(path, launches, fused, pairs, total):
+    """The step-wise run's launches are the default run's plus STEP_DELTA
+    and 68 mul014 per pair, `total` in all."""
+    want = {k: fused[k] + STEP_DELTA.get(k, 0) for k in fused}
+    want["mul014"] = 68 * pairs
+    off = {k: (launches[k], n) for k, n in want.items() if launches[k] != n}
+    if off or sum(launches.values()) != total:
+        raise RuntimeError(f"step-wise {path}: {sum(launches.values())} launches (want {total}); "
+                           f"(got, want) where they differ: {off}")
+
+
+def check_sizes(path, sizes, want):
+    """Each kernel in `want` launched at exactly these element counts."""
+    off = {k: sizes[k] for k, v in want.items() if sizes[k] != v}
+    if off:
+        raise RuntimeError(f"step-wise {path}: launches per element count {off}, want "
+                           f"{ {k: want[k] for k in off} }")
+
+
+def steps_phase(torch, K, ctx, want, main_launches, keys):
+    """The step-wise configuration (config.fuse_miller and fuse_expx off)
+    on the main path's batch and on the keys phase's 4095 pairs (module
+    docstring, phase 6); the configuration is restored however the phase
+    ends.  -> launches, element counts and recorded operands of its counted
+    runs, per path ("steps": verify, "steps_avd":
+    aggregate_verify_distinct), for the kernel rows."""
+    from bls_verify_gadget_tpu_torch.models.bls import BatchedBLS
+    from bls_verify_gadget_tpu_torch.ops import curve as CV
+    from bls_verify_gadget_tpu_torch.ops import pairing as PR
+    from bls_verify_gadget_tpu_torch.ops import tower as T
+    from bls_verify_gadget_tpu_torch.utils.config import config
+
+    bls = BatchedBLS(device="cuda")
+    pk, sig, msg = ctx["pk"], ctx["sig"], ctx["msg"]
+    lengths = [c for c, _ in CV.X_SEGMENTS]
+    saved = (config.fuse_miller, config.fuse_expx)
+
+    def step_wise(on):
+        config.fuse_miller = config.fuse_expx = not on
+
+    def verify():
+        return bls.verify(pk, sig, msg, MSG_LEN)
+
+    def distinct(m):
+        return bool(bls.aggregate_verify_distinct(keys["pk_aff"], keys["sig_aff"], m))
+
+    try:
+        step_wise(True)
+        t0 = time.perf_counter()
+        out, calls, kept_v = recorded_steps(torch, K, verify, keep=True)
+        log(f"[steps] warm-up step-wise verify at batch {BATCH}: {time.perf_counter() - t0:.3f} s")
+        if not torch.equal(out, want):
+            raise RuntimeError(f"step-wise verify: {int((out != want).sum())} wrong results")
+        runs = sorted(c for (name, _, c), n in calls.items() if name == "cyclo_sqr"
+                      for _ in range(n))
+        if runs != sorted(lengths * 5):
+            raise RuntimeError(f"cyclo_sqr run lengths {runs}, want each of {lengths} 5 times")
+
+        h = bls.hash_stage(msg, MSG_LEN)
+        stages = {}
+        for on in (False, True):
+            step_wise(on)
+            f, ok = bls.miller_stage(pk, sig, h)
+            stages[on] = (T.fp12_pack(f), T.fp12_pack(PR.final_exponentiation(f)), ok)
+        for name, a, b in zip(("miller_stage f", "final exponentiation", "checks"),
+                              stages[True], stages[False]):
+            if not torch.equal(a, b):
+                raise RuntimeError(f"step-wise {name} differs from the fused path's")
+        log(f"[steps] miller_stage's f, its final exponentiation and the checks mask: "
+            f"limb-equal to the fused path's at batch {BATCH}")
+
+        step_wise(True)
+        out, launches, sizes = counted(torch, K, verify)
+        if not torch.equal(out, want):
+            raise RuntimeError(f"counted step-wise verify: {int((out != want).sum())} wrong")
+        check_step_launches("verify", launches, main_launches, 2, 423)
+        check_sizes("verify", sizes, {
+            "dbl_step": {2 * BATCH: 63}, "add_step": {2 * BATCH: 5}, "mul014": {BATCH: 136},
+            "fp12_sqr": {BATCH: 64}, "cyclo_sqr": {BATCH: 30}, "miller_dbl_run": {},
+            "miller_add": {}, "exp_x": {}})
+        n_true = int(want.sum())
+        log(f"[steps] verify: {BATCH} verifications ({n_true} true, {BATCH - n_true} false) "
+            f"right; {sum(launches.values())} port launches per batch: {launches}")
+
+        times = {True: [], False: []}
+        for i in range(TIMED_RUNS):
+            for on in ((True, False) if i % 2 == 0 else (False, True)):
+                step_wise(on)
+                out, st = staged_verify(torch, bls, pk, sig, msg)
+                if not torch.equal(out, want):
+                    raise RuntimeError(f"timed verify ({'step-wise' if on else 'fused'}) wrong")
+                times[on].append(st)
+        for on, label in ((True, "step-wise"), (False, "fused")):
+            totals = [sum(st) for st in times[on]]
+            mean = sum(totals) / len(totals)
+            stage_ms = [sum(st[j] for st in times[on]) / len(times[on]) * 1e3 for j in range(3)]
+            log(f"[steps] {label} verify, {TIMED_RUNS} runs interleaved: wall s "
+                f"{[round(t, 6) for t in totals]}; mean {mean:.6f} s = "
+                f"{BATCH / mean:.1f} verifications/s; hash {stage_ms[0]:.3f}, miller "
+                f"{stage_ms[1]:.3f}, final_exp {stage_ms[2]:.3f} ms")
+
+        step_wise(True)
+        _, calls_a, kept_a = recorded_steps(torch, K, lambda: distinct(keys["pair_msg"]),
+                                            keep=True)
+        ok, launches_a, sizes_a = counted(torch, K, lambda: distinct(keys["pair_msg"]))
+        if not ok:
+            raise RuntimeError("step-wise aggregate_verify_distinct rejects the valid pairs")
+        if distinct(keys["swapped_msg"]):
+            raise RuntimeError("step-wise aggregate_verify_distinct accepts swapped messages")
+        step_wise(False)
+        ok, launches_f, _ = counted(torch, K, lambda: distinct(keys["pair_msg"]))
+        if not ok:
+            raise RuntimeError("aggregate_verify_distinct rejects the valid pairs")
+        check_step_launches("aggregate_verify_distinct", launches_a, launches_f, 1, 367)
+        n = keys["pair_msg"].shape[0] + 1
+        check_sizes("aggregate_verify_distinct", sizes_a, {
+            "dbl_step": {n: 63}, "add_step": {n: 5}, "mul014": {n: 68},
+            "cyclo_sqr": {1: 30}})
+        if sizes_a["fp12_sqr"].get(n) != 63 or sizes_a["fp12_mul"].get(1, 0) < 34:
+            raise RuntimeError(f"step-wise aggregate_verify_distinct: fp12_sqr at "
+                               f"{sizes_a['fp12_sqr']}, fp12_mul at {sizes_a['fp12_mul']}")
+        ms = {True: [], False: []}
+        for i in range(TIMED_RUNS):
+            for on in ((True, False) if i % 2 == 0 else (False, True)):
+                step_wise(on)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                if not distinct(keys["pair_msg"]):
+                    raise RuntimeError("timed aggregate_verify_distinct rejects the valid pairs")
+                ms[on].append((time.perf_counter() - t0) * 1e3)
+        log(f"[steps] aggregate_verify_distinct over {n - 1} pairs: true, false with two "
+            f"messages swapped; {sum(launches_a.values())} port launches per call (fused "
+            f"{sum(launches_f.values())}): {launches_a}")
+        for on, label in ((True, "step-wise"), (False, "fused")):
+            log(f"[steps] {label} aggregate_verify_distinct, {TIMED_RUNS} runs interleaved: "
+                f"mean {sum(ms[on]) / len(ms[on]):.3f} ms ({[round(x, 3) for x in ms[on]]})")
+    finally:
+        config.fuse_miller, config.fuse_expx = saved
+    return {"launches": {"steps": launches, "steps_avd": launches_a},
+            "sizes": {"steps": sizes, "steps_avd": sizes_a},
+            "kept": {"steps": kept_v, "steps_avd": kept_a},
+            "calls": {"steps": calls, "steps_avd": calls_a}}
 
 
 def rand_limbs(torch, rng, n, top):
@@ -636,6 +864,7 @@ def pairing_inputs(torch, rng, name, n, count=None, k=2):
     import math
 
     from bls_verify_gadget_tpu_torch.ops import curve as CV
+    from bls_verify_gadget_tpu_torch.ops import pairing as PR
     from bls_verify_gadget_tpu_torch.ops.fp import FP
 
     edges = edge_limbs(torch, FP)
@@ -650,6 +879,7 @@ def pairing_inputs(torch, rng, name, n, count=None, k=2):
         return x.view(*shape, n, 24)
 
     valid = torch.from_numpy(rng.random((k, n)) < 0.75).cuda()
+    neutral = PR.neutral_line(n, "cuda")
     return {
         "fp6_mul": lambda: (fp(6), fp(6)),
         "fp12_mul": lambda: (fp(12), fp(12)),
@@ -657,6 +887,8 @@ def pairing_inputs(torch, rng, name, n, count=None, k=2):
         "miller_dbl_run": lambda: (fp(12), fp(k, 6), fp(k), fp(k), valid, count),
         "miller_add": lambda: (fp(12), fp(k, 6), fp(k, 4), fp(k), fp(k), valid),
         "exp_x": lambda: (fp(12), CV.X_SEGMENTS),
+        "mul014": lambda: (fp(12), torch.where(valid[0][:, None], fp(6), neutral)),
+        "cyclo_sqr": lambda: (fp(12), count),
     }[name]()
 
 
@@ -679,6 +911,8 @@ def kernel_call(name):
         "pt_mul_const": CV.pt_mul_const_plain, "g2_cofactor": CV.g2_cofactor_plain,
         "sswu_map2": H.sswu_map2_plain, "pt_dbl": CV.pt_dbl_plain,
         "pt_add": CV.pt_add_plain, "pt_mul_var": CV.pt_mul_var_plain,
+        "mul014": PR.mul014_plain, "dbl_step": PR.dbl_step_plain,
+        "add_step": PR.add_step_plain, "cyclo_sqr": T.cyclo_sqr_plain,
     }[name]
     return (lambda *a: getattr(K, name)(FP, *a)), plain
 
@@ -798,8 +1032,22 @@ def _doublings(p, q, c):
     return int((eq & (p[2 * c:] != 0).any(-1).any(0)).sum())
 
 
-# (bytes, Montgomery products) of one point kernel call at n elements
+def _lines(line):
+    """Elements of a mul014 line other than the neutral (1, 0, 0): f times
+    the neutral line is f, which needs no product."""
+    from bls_verify_gadget_tpu_torch.ops import pairing as PR
+
+    return int((line != PR.neutral_line(line.shape[1], line.device)).any(-1).any(0).sum())
+
+
+# (bytes, Montgomery products) of one point or step kernel call at n
+# elements (step kernels: csrc/tower.cuh f12_mul_014 45, miller_dbl_step 25,
+# miller_add_step 41, f12_cyclotomic_sqr 18 per square)
 HASH_WORK.update({
+    "mul014": lambda n, f, line: (n * 30 * 96, _lines(line) * 45),
+    "dbl_step": lambda n, t, p: (n * 20 * 96, n * 25),
+    "add_step": lambda n, t, q, p: (n * 24 * 96, n * 41),
+    "cyclo_sqr": lambda n, f, count: (n * 24 * 96, n * 18 * count),
     "pt_dbl": lambda n, p, count: (
         n * 2 * p.shape[0] * 96,
         _finite(p, p.shape[0] // 3) * count * (8 if p.shape[0] == 3 else 17)),
@@ -1109,6 +1357,34 @@ def point_cases(torch, rng, K, keys):
     }
 
 
+def step_cases(torch, rng, steps):
+    """name -> [(label, args, launches per run, path)] for the step-wise
+    kernels: the operands of the last call per element count (cyclo_sqr:
+    and run length) of the steps phase's recorded warm-up runs, as the
+    path passed them (verify's two pairs stacked at 8192, one pair at 4096
+    in aggregate_verify_distinct, cyclo_sqr on genuine cyclotomic elements
+    at 4096 and 1), verify's first (cyclo_sqr: its run of 32); then
+    mul014 on a seeded random f and lines, a quarter of them neutral, and
+    cyclo_sqr on seeded random Fp12 (the Granger-Scott formula, not a
+    square) at every run length at 4096 and at 1."""
+    from bls_verify_gadget_tpu_torch.ops import curve as CV
+
+    cases = {name: [] for name in STEP_KERNELS}
+    for path, label in (("steps", "verify"), ("steps_avd", "aggregate_verify_distinct")):
+        for key in sorted(steps["kept"][path], key=lambda k: (-k[1], -(k[2] or 0))):
+            name, n, count = key
+            at = f"{label}, last call at {n}" + (f", run of {count}" if count else "")
+            cases[name].append((at, steps["kept"][path][key], steps["calls"][path][key], path))
+    cases["mul014"].append(("random f and lines, 1/4 neutral",
+                            pairing_inputs(torch, rng, "mul014", BATCH), 0, "steps"))
+    for n in (BATCH, 1):
+        for count, _ in CV.X_SEGMENTS:
+            cases["cyclo_sqr"].append((f"random Fp12 at {n}, run of {count}",
+                                       pairing_inputs(torch, rng, "cyclo_sqr", n, count), 0,
+                                       "steps"))
+    return cases
+
+
 def miller_k1_cases(torch, rng, name, kern, plain_call, plain, keys, longest):
     """The Miller kernel with one pair (aggregate_verify_distinct's) at every
     element count the keys path launched it with, and miller_dbl_run at
@@ -1149,21 +1425,23 @@ def miller_k1_cases(torch, rng, name, kern, plain_call, plain, keys, longest):
             "launches": keys["launches"][name], "sizes": sorted(hist)}
 
 
-def kernel_phase(torch, K, launches, sizes, verify_s, ctx, keys):
+def kernel_phase(torch, K, launches, sizes, verify_s, ctx, keys, steps):
     """Each kernel against its plain version on the same CUDA tensors, bit
     for bit, with COUNTS unchanged across every plain call, at every
     element count that the verify run or the keys run launched it with:
     the field and pairing kernels on seeded values (miller_dbl_run at each
     run length; the Miller kernels with two pairs at verify's counts and
     with one pair at the keys run's); the hash-stage and subgroup kernels
-    on hash_cases and keys_hash_cases, the point kernels on point_cases.
+    on hash_cases and keys_hash_cases, the point kernels on point_cases,
+    the step-wise kernels on step_cases, and every kernel at every count
+    that the steps phase's runs launched it with.
     Device time per launch (CUDA-graph replay), eager call time and plain
     time (field kernels: a mean of 3 calls; the others: their compared
     call, CUDA events) at the main path's most frequent size (miller_dbl_run: its longest
     run; pow_win: Fp; pt_mul_const, pt_mul_var, pt_add, pt_dbl: G1), and
     the bound of that call.  "launches" counts the path the kernel serves
-    (verify, or keys for the point kernels); the other path's count rides
-    beside it."""
+    (verify; keys for the point kernels; steps, the step-wise verify, for
+    the step-wise kernels); the other paths' counts ride beside it."""
     import numpy as np
 
     from bls_verify_gadget_tpu_torch.ops import curve as CV
@@ -1179,11 +1457,19 @@ def kernel_phase(torch, K, launches, sizes, verify_s, ctx, keys):
     longest = max(c for c, _ in CV.X_SEGMENTS)
     rows, kernel_ms = [], 0.0
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    by_path = {"launches": {"verify": launches, "keys": keys["launches"]},
-               "sizes": {"verify": sizes, "keys": keys["sizes"]}}
+    by_path = {"launches": {"verify": launches, "keys": keys["launches"], **steps["launches"]},
+               "sizes": {"verify": sizes, "keys": keys["sizes"], **steps["sizes"]}}
     hcases, kcases = hash_cases(torch, rng, ctx), keys_hash_cases(torch, keys)
-    pcases = point_cases(torch, rng, K, keys)
+    pcases, scases = point_cases(torch, rng, K, keys), step_cases(torch, rng, steps)
+    step_ms = {}
     for name, (replaces, source, _) in KERNELS.items():
+        if name in STEP_KERNELS:
+            row, _ = case_kernel_row(torch, name, replaces, source, scases[name],
+                                     by_path["launches"], by_path["sizes"], plain_call, "steps")
+            rows.append(row)
+            step_ms[name] = sum(c["ms"] * c["launches"] for c in row["cases"]
+                                if c["path"] == "steps")
+            continue
         if source in (HASH_SRC, POINT_SRC):
             cases = hcases[name] + kcases[name] if source == HASH_SRC else pcases[name]
             row, ms = case_kernel_row(torch, name, replaces, source, cases, by_path["launches"],
@@ -1238,6 +1524,9 @@ def kernel_phase(torch, K, launches, sizes, verify_s, ctx, keys):
             row["k1"] = miller_k1_cases(torch, rng, name, kern, plain_call, plain, keys, longest)
         else:
             check_covered(name, counts, "keys", khist)
+        for path in steps["sizes"]:
+            check_covered(name, counts, path, steps["sizes"][path][name])
+            row[f"launches_{path}"] = steps["launches"][path][name]
         rows.append(row)
         at = f"{n} elements" + (f", run of {count}" if count else "")
         checked = f"sizes {counts}" + (f" x run lengths {runs}" if count else "")
@@ -1258,6 +1547,14 @@ def kernel_phase(torch, K, launches, sizes, verify_s, ctx, keys):
     log(f"[kernel] kernel device time per verify batch (launches x device time "
         f"at each size) {kernel_ms:.3f} ms of {verify_s * 1e3:.3f} ms wall "
         f"({100 * kernel_ms / (verify_s * 1e3):.2f}%)")
+    by_name = {r["name"]: r for r in rows}
+    miller_ms = (step_ms["dbl_step"] + step_ms["add_step"] + step_ms["mul014"]
+                 + 63 * by_name["fp12_sqr"]["ms"])
+    chains_ms = step_ms["cyclo_sqr"] + 25 * by_name["fp12_mul"]["ms"]
+    log(f"[kernel] step-wise verify batch, launches x device time: Miller loop (63 fp12_sqr, "
+        f"dbl_step, add_step, mul014) {miller_ms:.3f} ms; x-chains (cyclo_sqr, 25 fp12_mul) "
+        f"{chains_ms:.3f} ms against 5 exp_x {5 * by_name['exp_x']['ms']:.3f} ms; step "
+        f"kernels by name {({k: round(v, 3) for k, v in step_ms.items()})}")
     return rows
 
 
@@ -1279,7 +1576,8 @@ def main():
     launches, sizes, verify_s, parts, want, ctx = main_path_phase(torch, K)
     profile_phase(torch, parts, ctx["msg"], want, verify_s)
     keys = keys_phase(torch, K)
-    rows = kernel_phase(torch, K, launches, sizes, verify_s, ctx, keys)
+    steps = steps_phase(torch, K, ctx, want, launches, keys)
+    rows = kernel_phase(torch, K, launches, sizes, verify_s, ctx, keys, steps)
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -21,6 +21,7 @@ from bls_verify_gadget_tpu_torch.models import bls
 from bls_verify_gadget_tpu_torch.ops import curve, hash_to_g2, kernels, pairing, sha256, tower
 from bls_verify_gadget_tpu_torch.golden import codec
 from bls_verify_gadget_tpu_torch.ops.fp import FP
+from bls_verify_gadget_tpu_torch.utils import config
 a = FP.encode([3, 5], "cpu")
 assert FP.decode(FP.mul(a, a)) == [9, 25]
 bad = sorted(m for m in sys.modules
@@ -115,6 +116,11 @@ def test_kernel_wrappers_do_not_fall_back():
         lambda: K.pt_add(FP, g2, g2),
         lambda: K.pt_mul_var(FP, g1, sk, 255),
         lambda: K.pt_mul_var(FP, g2, sk, 255),
+        lambda: K.mul014(FP, f, g2),
+        lambda: K.dbl_step(FP, g2, xp),
+        lambda: K.add_step(FP, g2, u, xp),
+        lambda: K.cyclo_sqr(FP, f, 1),
+        lambda: K.cyclo_sqr(FP, f, 32),
     ):
         with pytest.raises(ValueError):
             call()
@@ -130,3 +136,41 @@ def test_sources_name_every_csrc_file():
     assert {p.name for p in K.CSRC_DIR.iterdir()} == files
     assert set(K.UNITS) == {n for n in files if n.endswith(".cu")}
     assert "point_kernels.cu" in K.UNITS
+
+
+def test_config_defaults_keep_the_fused_path(monkeypatch):
+    """Both configuration flags default to True, and with them a CPU verify
+    of one element calls the same kernel wrappers as before the step-wise
+    configuration was ported (on the card each call is one launch)."""
+    import collections
+    import dataclasses
+
+    from vector_loader import load_suite, unhex
+    from bls_verify_gadget_tpu_torch.golden import codec
+    from bls_verify_gadget_tpu_torch.models.bls import (
+        BatchedBLS, encode_messages, encode_pubkeys, encode_signatures,
+    )
+    from bls_verify_gadget_tpu_torch.ops import kernels as K
+    from bls_verify_gadget_tpu_torch.utils.config import Config, config
+
+    assert {f.name: f.default for f in dataclasses.fields(Config)} == {
+        "fuse_miller": True, "fuse_expx": True}
+    assert config.fuse_miller and config.fuse_expx
+    calls = collections.Counter()
+    for name in K.KERNELS:
+        def shim(field, *args, _wrapper=getattr(K, name), _name=name):
+            calls[_name] += 1
+            return _wrapper(field, *args)
+
+        monkeypatch.setattr(K, name, shim)
+    vec = next(v for _, v in load_suite("verify") if v["output"])["input"]
+    out = BatchedBLS(device="cpu").verify(
+        encode_pubkeys([codec.g1_decompress(unhex(vec["pubkey"]))], device="cpu"),
+        encode_signatures([codec.g2_decompress(unhex(vec["signature"]))], device="cpu"),
+        encode_messages([unhex(vec["message"])], device="cpu"))
+    assert out.tolist() == [True]
+    assert set(calls) == {
+        "mul", "add", "sub", "fp2_mul", "fp2_sqr", "fp6_mul", "fp12_mul", "fp12_sqr",
+        "miller_dbl_run", "miller_add", "exp_x", "pow_win", "pt_mul_const", "g2_cofactor",
+        "sswu_map2"}
+    assert sum(calls.values()) == 117
