@@ -17,23 +17,37 @@
 // line) through its own pointer, so the step-wise Miller loop hands T and
 // the line from one launch's output to the next without a copy.
 //
-// What bounds them, and the design.  One thread runs one batch element
-// through the whole fused body (tower.cuh), so device memory sees only the
-// operands and the results: 96 bytes per Fp coordinate in or out against
-// ~600 32-bit multiply-adds per Montgomery product.  Every kernel here is
-// therefore bound by operations, not bytes (the notes per kernel give the
-// two bounds per element at 3.35 TB/s and 16.75 T int32 multiply-adds/s).
-// What the design buys is launches: the Miller loop is 11 launches and an
-// x-chain one, where the composed path issued thousands of field launches.
-// It does not reach the operation bound: a thread's Montgomery products
-// run one after another, its state (f alone is 144 words) lives mostly in
-// local memory behind __noinline__ calls, and at 4096 elements the 32-thread
-// blocks put one warp on each of 128 SMs.  A warp-cooperative limb layout
-// that keeps more warps busy is later work.
+// What bounds them, and the design.  Device memory sees only the operands
+// and the results: 96 bytes per Fp coordinate in or out against ~600 32-bit
+// multiply-adds per Montgomery product, so every kernel here is bound by
+// operations, not bytes (the notes per kernel give the two bounds per
+// element at 3.35 TB/s and 16.75 T int32 multiply-adds/s).  Fusing buys
+// launches: the Miller loop is 11 launches and an x-chain one.
+//
+// miller_dbl_run and exp_x (the TPU's _millerdbl_kernel and _expx_kernel)
+// run on group.cuh: a group of G threads per batch element, the element's
+// state in shared memory, each body as rounds of independent Montgomery
+// products dealt out over the group (group_rounds.cuh).  The design they
+// replace ran one thread per element through tower.cuh: every product
+// after the one before it (1,404 in a row per exp_x element, ~2.5 us
+// each), behind __noinline__ calls with the state in an L1-backed stack,
+// and at 4096 elements one warp on each SM, so nothing hid a product's
+// latency.  The group cuts the serial chain per element to the rounds'
+// depth (a Miller iteration: 176 products in 4 rounds; a Granger-Scott
+// square: 18 in one), runs each product inlined in registers, and puts G
+// times the warps on each SM.  G and the block are compile-time constants
+// chosen on the card (kGroup; PERF.md has the sweep).  What bounds the
+// group kernels now is not one thread's latency: two products at once per
+// thread ran slower.  By instruction count most of a body is mont_mul's
+// CIOS.
+// The other eight kernels of this unit keep tower.cuh and one thread per
+// element: their redesign is later work.
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
+#include "group.cuh"
 #include "tower.cuh"
 
 namespace {
@@ -41,6 +55,14 @@ namespace {
 // One warp per block: at the main path's 4096 elements, 128 blocks spread
 // over 128 of the 132 SMs instead of stacking 2-4 warps on a quarter of them.
 constexpr int kThreads = 32;
+
+// The group kernels' threads per batch element (a divisor of 32), from the
+// sweep at 4096 elements (PERF.md).  chip_smoke.py builds the sweep's other
+// values as throwaway copies of this unit with -DBLS_GROUP=G.
+#ifndef BLS_GROUP
+#define BLS_GROUP 8
+#endif
+constexpr int kGroup = BLS_GROUP;
 
 inline unsigned grid_for(long long n) {
   return (unsigned)((n + kThreads - 1) / kThreads);
@@ -151,43 +173,55 @@ __global__ void __launch_bounds__(kThreads)
 // in (12 + 8k, n) = f, then per pair X, Y, Z (Fp2 each), xp, yp; out
 // (12 + 6k, n) = f, then per pair X, Y, Z.  An invalid pair's line is the
 // neutral (1, 0, 0), whose product leaves f's limbs as they are, so the
-// kernel skips that product.  Montgomery products per iteration: 36 for
+// group skips that product.  Montgomery products per iteration: 36 for
 // f^2, per pair 25 for the step (19 for T, 6 for the line) and 45 for
 // f * line where the pair is valid.  An invalid pair needs only its 19, so
 // the bound counts 36 + 19k + 51 per valid pair (176 with both valid:
 // ~6.3 ns per element and iteration of operations against ~1.5 ns of bytes
 // for the whole launch; 106 for one valid pair).
-template <int K>
-__global__ void __launch_bounds__(kThreads)
+// On a group of G threads (group.cuh) with the program of group_rounds.cuh
+// (Miller1Program / Miller2Program): the input's coordinates are its first
+// slots; an iteration is the body dbl (f^2 and each pair's first doubling
+// round, 36 + 11k products, then the second round, 14k) and, per valid
+// pair, the body line<p> (45).
+template <int K, int G>
+__global__ void __launch_bounds__(bls::group::kThreads)
     miller_dbl_run_kernel(const int32_t* __restrict__ in,
                           const int32_t* __restrict__ valid,
                           int32_t* __restrict__ out, long long n, int count,
                           FpModulus M) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  Fp12 f = load_fp12(in, 0, n, i);
-  G2Proj t[K];
-  Fp xp[K], yp[K];
+  using Prog = std::conditional_t<K == 1, bls::group::Miller1Program,
+                                  bls::group::Miller2Program>;
+  extern __shared__ uint4 smem[];
+  const int g = threadIdx.x / G, lane = threadIdx.x % G;
+  const long long i = (long long)blockIdx.x * (bls::group::kThreads / G) + g;
+  if (i >= n) return;  // the whole group: no barrier spans groups
+  uint32_t* S = reinterpret_cast<uint32_t*>(smem) +
+                (long long)g * Prog::kSlots * bls::kFpWords;
+  const unsigned mask = bls::group::lane_mask<G>();
+  bls::group::load_coords<G>(in, n, i, 12 + 8 * K, [](int c) { return c; },
+                             S, lane);
   bool ok[K];
 #pragma unroll
-  for (int p = 0; p < K; ++p) {
-    const int b = 12 + 8 * p;
-    t[p] = load_point(in, b, n, i);
-    xp[p] = load_fp(in, b + 6, n, i);
-    yp[p] = load_fp(in, b + 7, n, i);
-    ok[p] = valid[p * n + i] != 0;
-  }
+  for (int p = 0; p < K; ++p) ok[p] = valid[p * n + i] != 0;
+  __syncwarp(mask);
   for (int it = 0; it < count; ++it) {
-    f = bls::f12_sqr(f, M);
-#pragma unroll
-    for (int p = 0; p < K; ++p) {
-      const Line l = bls::miller_dbl_step(t[p], xp[p], yp[p], M);
-      if (ok[p]) f = bls::f12_mul_014(f, l, M);
+    bls::group::run<G>(Prog::kBody_dbl, Prog::kEnd_dbl, S, lane, mask, M);
+    if (ok[0]) {
+      bls::group::run<G>(Prog::kBody_line0, Prog::kEnd_line0, S, lane, mask, M);
+    }
+    if constexpr (K == 2) {
+      if (ok[1]) {
+        bls::group::run<G>(Prog::kBody_line1, Prog::kEnd_line1, S, lane,
+                           mask, M);
+      }
     }
   }
-  store_fp12(out, 0, n, i, f);
-#pragma unroll
-  for (int p = 0; p < K; ++p) store_point(out, 12 + 6 * p, n, i, t[p]);
+  // out: f, then per pair T (slots 12 + 8p ..)
+  bls::group::store_coords<G>(
+      out, n, i, 12 + 6 * K,
+      [](int c) { return c < 12 ? c : 12 + 8 * ((c - 12) / 6) + (c - 12) % 6; },
+      S, lane);
 }
 
 // Replaces _milleradd_kernel (kernels.py:1537): per pair in order,
@@ -228,23 +262,41 @@ __global__ void __launch_bounds__(kThreads)
 // caller conjugates for x < 0.  in (12, n), out (12, n).  For |x|: 63
 // squares and 5 products, 1,404 Montgomery products: ~50 ns of operations
 // against ~0.7 ns of bytes per element.
-__global__ void __launch_bounds__(kThreads)
+// On a group of G threads (group.cuh) with ExpXProgram: the input into f,
+// the body setup (m = f and m's Karatsuba sum), then per square the body
+// square (18 products) and per product the body mul (54).
+template <int G>
+__global__ void __launch_bounds__(bls::group::kThreads)
     exp_x_kernel(const int32_t* __restrict__ in, int32_t* __restrict__ out,
                  long long n, FpModulus M, bls::Segments segs) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const Fp12 m = load_fp12(in, 0, n, i);
-  Fp12 f = m;
+  using Prog = bls::group::ExpXProgram;
+  extern __shared__ uint4 smem[];
+  const int g = threadIdx.x / G, lane = threadIdx.x % G;
+  const long long i = (long long)blockIdx.x * (bls::group::kThreads / G) + g;
+  if (i >= n) return;  // the whole group: no barrier spans groups
+  uint32_t* S = reinterpret_cast<uint32_t*>(smem) +
+                (long long)g * Prog::kSlots * bls::kFpWords;
+  const unsigned mask = bls::group::lane_mask<G>();
+  bls::group::load_coords<G>(in, n, i, 12, [](int c) { return c; }, S, lane);
+  __syncwarp(mask);
+  bls::group::run<G>(Prog::kBody_setup, Prog::kEnd_setup, S, lane, mask, M);
   for (int s = 0; s < segs.count; ++s) {
-    for (int r = 0; r < segs.len[s]; ++r) f = bls::f12_cyclotomic_sqr(f, M);
-    if (segs.mul[s]) f = bls::f12_mul(f, m, M);
+    for (int r = 0; r < segs.len[s]; ++r) {
+      bls::group::run<G>(Prog::kBody_square, Prog::kEnd_square, S, lane,
+                         mask, M);
+    }
+    if (segs.mul[s]) {
+      bls::group::run<G>(Prog::kBody_mul, Prog::kEnd_mul, S, lane, mask, M);
+    }
   }
-  store_fp12(out, 0, n, i, f);
+  bls::group::store_coords<G>(out, n, i, 12, [](int c) { return c; }, S,
+                              lane);
 }
 
 // ------------------------------------------- the step-wise configuration
 // One launch per Miller step or line product, each a thin body over one
-// tower.cuh function that the run kernels above also call.  Like them they
+// tower.cuh function (the formulas that group_rounds.cuh traces for the
+// group kernels; miller_add calls the line product).  Like the others they
 // are bound by operations (per-kernel bounds below, per element at 16.75 T
 // int32 multiply-adds/s against 3.35 TB/s), and they do not reach it: a
 // thread's Montgomery products run one after another.  What they cost over
@@ -322,6 +374,37 @@ __global__ void __launch_bounds__(kThreads)
 
 }  // namespace bls_kernels
 
+namespace {
+
+// Launch a group kernel with `per` elements per block and `bytes` of
+// dynamic shared memory, raising the kernel's limit above 48 KB on every
+// launch (it applies to the current device); its error returns as a launch
+// error.
+template <typename Kernel, typename... Args>
+int launch_group(Kernel kernel, int per, int bytes, long long n,
+                 cudaStream_t s, Args... args) {
+  const cudaError_t rc = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (rc != cudaSuccess) return (int)rc;
+  kernel<<<(unsigned)((n + per - 1) / per), bls::group::kThreads, bytes, s>>>(
+      args...);
+  return (int)cudaGetLastError();
+}
+
+template <int K>
+int launch_miller(const int32_t* in, const int32_t* valid, int32_t* out,
+                  long long n, int count, const bls::FpModulus& M,
+                  cudaStream_t s) {
+  using Prog = std::conditional_t<K == 1, bls::group::Miller1Program,
+                                  bls::group::Miller2Program>;
+  constexpr int per = bls::group::kThreads / kGroup;
+  return launch_group(bls_kernels::miller_dbl_run_kernel<K, kGroup>, per,
+                      per * Prog::kSlots * bls::group::kSlotBytes, n, s, in,
+                      valid, out, n, count, M);
+}
+
+}  // namespace
+
 extern "C" {
 
 int bls_fp6_mul(const int32_t* in, int32_t* out, long long n,
@@ -353,16 +436,9 @@ int bls_miller_dbl_run(const int32_t* in, const int32_t* valid, int32_t* out,
                        unsigned n0, void* stream) {
   const auto M = bls::make_modulus<bls::kFpWords>(p, n0);
   const cudaStream_t s = (cudaStream_t)stream;
-  if (k == 1) {
-    bls_kernels::miller_dbl_run_kernel<1>
-        <<<grid_for(n), kThreads, 0, s>>>(in, valid, out, n, count, M);
-  } else if (k == 2) {
-    bls_kernels::miller_dbl_run_kernel<2>
-        <<<grid_for(n), kThreads, 0, s>>>(in, valid, out, n, count, M);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  if (k == 1) return launch_miller<1>(in, valid, out, n, count, M, s);
+  if (k == 2) return launch_miller<2>(in, valid, out, n, count, M, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 int bls_miller_add(const int32_t* in, const int32_t* valid, int32_t* out,
@@ -392,10 +468,12 @@ int bls_exp_x(const int32_t* in, int32_t* out, long long n, const int* lens,
     segs.len[s] = lens[s];
     segs.mul[s] = muls[s];
   }
-  bls_kernels::exp_x_kernel<<<grid_for(n), kThreads, 0,
-                              (cudaStream_t)stream>>>(
-      in, out, n, bls::make_modulus<bls::kFpWords>(p, n0), segs);
-  return (int)cudaGetLastError();
+  constexpr int per = bls::group::kThreads / kGroup;
+  return launch_group(
+      bls_kernels::exp_x_kernel<kGroup>, per,
+      per * bls::group::ExpXProgram::kSlots * bls::group::kSlotBytes, n,
+      (cudaStream_t)stream, in, out, n,
+      bls::make_modulus<bls::kFpWords>(p, n0), segs);
 }
 
 int bls_mul014(const int32_t* f, const int32_t* line, int32_t* out,

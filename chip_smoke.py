@@ -79,9 +79,25 @@ Needs one CUDA card and nvcc.  Phases, each fatal on failure:
      plain time from CUDA events (a mean of 3 calls for the field kernels;
      the slow plain versions of the others: their one comparison call at
      the main size), and the bound from bytes and
-     integer multiply-adds.
+     integer multiply-adds;
+  8. group    -- the group kernels miller_dbl_run (k = 1 and 2) and exp_x
+     (csrc/group.cuh) at 4096 and 4095 elements with mixed valid masks:
+     bit-equal to the plain versions; the sweep's other group sizes (G =
+     4 and 16 threads per element beside the library's 8: throwaway copies
+     of csrc/pairing_kernels.cu built with -DBLS_GROUP=G into build/, in
+     parallel with the library) bit-equal to the wrapper, and device ms
+     per launch of each G at 4096; with --parent DIR, the parent commit's
+     one-thread kernels (its pairing_kernels.cu, built from DIR in
+     parallel too) bit-equal as well and timed interleaved with this
+     tree's (parent, group, group, parent).  ptxas's registers, stack and
+     spills of each group kernel instance are printed under [build].
 Prints one JSON line of kernels, the card's name and power limit, and as
 its last line {"ok": true, "device": {...}}.  Imports nothing of JAX.
+
+    python3 chip_smoke.py --group [--parent DIR]
+
+runs only phases 1, 2 and 8: the two group kernels' checks, sweep and
+timing.
 """
 
 import json
@@ -170,6 +186,7 @@ def build_phase(K):
     for line in so.with_suffix(".log").read_text().splitlines():
         if any(k in line for k in keys):
             log(f"[build] {line.strip()}")
+    group_build_report(so.with_suffix(".log"), "library")
 
 
 def unhex(s):
@@ -1558,9 +1575,224 @@ def kernel_phase(torch, K, launches, sizes, verify_s, ctx, keys, steps):
     return rows
 
 
+# ----------------------------------------------------------------------------
+# group phase: the group kernels (csrc/group.cuh) at each G, against the
+# parent commit's one-thread kernels
+# ----------------------------------------------------------------------------
+
+GROUP_SWEEP = (4, 8, 16)  # threads per element; the library's is BLS_GROUP
+GROUP_KERNELS = ("miller_dbl_run", "exp_x")
+GROUP_LOG = re.compile(r"(miller_dbl_run|exp_x)_kernelILi(\d+)E(?:Li(\d+)E)?")
+
+
+def library_group(K):
+    """The library's threads per element: pairing_kernels.cu's BLS_GROUP."""
+    src = (K.CSRC_DIR / "pairing_kernels.cu").read_text()
+    return int(re.search(r"#define BLS_GROUP (\d+)", src).group(1))
+
+
+def group_build_report(log_path, label):
+    """ptxas's registers, stack and spills of the group kernels, one line
+    per instance, from a build's report, and each instance's dynamic
+    shared memory per block (ops/group_rounds.py shared_bytes)."""
+    from bls_verify_gadget_tpu_torch.ops import group_rounds as GR
+
+    progs = {P.name: P for P in GR.programs()}
+    name, lines = None, []
+    for line in log_path.read_text().splitlines():
+        if "Compiling entry function" in line or "Function properties for" in line:
+            hit = GROUP_LOG.search(line)
+            if hit is None:
+                name = None
+            elif hit.group(3):  # miller_dbl_run<K, G>
+                name = (f"miller_dbl_run<K={hit.group(2)}, G={hit.group(3)}>",
+                        f"miller{hit.group(2)}", int(hit.group(3)))
+            else:  # exp_x<G>
+                name = f"exp_x<G={hit.group(2)}>", "exp_x", int(hit.group(2))
+            continue
+        if name and ("stack frame" in line or "Used" in line):
+            lines.append((name, line.strip()))
+    for name in sorted({n for n, _ in lines}):
+        log(f"[build] ptxas {name[0]} ({label}): "
+            + "; ".join(t for n, t in lines if n == name)
+            + f"; {GR.shared_bytes(progs[name[1]], name[2])} bytes of dynamic shared "
+            f"memory per block")
+
+
+def pairing_build_start(K, src, so, defines=()):
+    """Start nvcc on one pairing unit `src` into the throwaway library `so`
+    under build/ -> (process, library, log)."""
+    K.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    log_path = so.with_suffix(".log")
+    with open(log_path, "w") as fh:
+        proc = subprocess.Popen(
+            [K.nvcc_path(), *K.NVCC_FLAGS, *defines, "-shared", "-o", str(so), str(src)],
+            stdout=fh, stderr=subprocess.STDOUT)
+    return proc, so, log_path
+
+
+def sweep_build_start(K):
+    """Start nvcc on this tree's pairing unit at each G of the sweep but the
+    library's -> {G: (process, library, log)}."""
+    src = K.CSRC_DIR / "pairing_kernels.cu"
+    return {g: pairing_build_start(K, src, K.BUILD_DIR / f"sweep_group{g}.so",
+                                   (f"-DBLS_GROUP={g}",))
+            for g in GROUP_SWEEP if g != library_group(K)}
+
+
+def parent_build_start(K, parent):
+    """Start nvcc on the parent tree's pairing unit: DIR is a git archive of
+    the parent commit in a git-ignored directory of this checkout, such as
+    chip_scratch/ -> (process, library, log)."""
+    root = pathlib.Path(parent).resolve()
+    if not root.is_relative_to(ROOT):
+        raise RuntimeError(f"--parent: {root} lies outside the checkout {ROOT}")
+    src = root / "bls_verify_gadget_tpu_torch" / "csrc" / "pairing_kernels.cu"
+    if not src.is_file():
+        raise RuntimeError(f"--parent: {src} not found")
+    return pairing_build_start(K, src, K.BUILD_DIR / "parent_pairing_kernels.so")
+
+
+def pairing_library(started):
+    """Wait for a pairing_build_start build -> its library, with the two
+    group kernels' entry points declared as in ops/kernels.py."""
+    import ctypes
+
+    proc, so, log_path = started
+    if proc.wait() != 0:
+        raise RuntimeError(f"build of {so.name} failed:\n{log_path.read_text()}")
+    lib = ctypes.CDLL(str(so))
+    vp, i64, i32, u32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_uint
+    lib.bls_miller_dbl_run.argtypes = [vp, vp, vp, i64, i32, i32, vp, u32, vp]
+    lib.bls_exp_x.argtypes = [vp, vp, i64, vp, vp, i32, vp, u32, vp]
+    lib.bls_miller_dbl_run.restype = lib.bls_exp_x.restype = ctypes.c_int
+    return lib
+
+
+def entry_launch(torch, K, name, fn, args):
+    """A closure that launches the C entry point `fn` (bls_<name> of some
+    build) on the operands the wrapper K.<name> would pass for `args`, into
+    one preallocated output; -> (launch, output)."""
+    from bls_verify_gadget_tpu_torch.ops.fp import FP
+
+    p, n0 = K._p_words(FP), FP.n0_word
+    if name == "miller_dbl_run":
+        f, t, xp, yp, valid, count = args
+        packed, mask = K._miller_pack(f, t, (xp, yp), valid)
+        k, n = t.shape[0], f.shape[1]
+        out = packed.new_empty((12 + 6 * k, n, 24))
+
+        def launch():
+            K._check_rc(name, fn(packed.data_ptr(), mask.data_ptr(), out.data_ptr(), n, k,
+                                 count, p, n0, K._stream(packed)))
+    else:
+        m, segs = args
+        lens, muls, nseg = K._segments(name, segs)
+        out = torch.empty_like(m)
+
+        def launch():
+            K._check_rc(name, fn(m.data_ptr(), out.data_ptr(), m.shape[1], lens, muls,
+                                 nseg, p, n0, K._stream(m)))
+    return launch, out
+
+
+def group_cases(torch, rng):
+    """(label, kernel, args, timed) of the group phase: miller_dbl_run with
+    two pairs and with one, runs of 32 at 4096 (timed) and of 3 at 4095 (a
+    count that is no multiple of any G's elements per block), exp_x over
+    |x| at 4096 (timed) and 4095; masks mixed (pairing_inputs: 3/4 valid)."""
+    from bls_verify_gadget_tpu_torch.ops import curve as CV
+
+    longest = max(c for c, _ in CV.X_SEGMENTS)
+    return [
+        (f"k = 2, run of {longest}, {BATCH}", "miller_dbl_run",
+         pairing_inputs(torch, rng, "miller_dbl_run", BATCH, longest, k=2), True),
+        (f"k = 1, run of {longest}, {BATCH}", "miller_dbl_run",
+         pairing_inputs(torch, rng, "miller_dbl_run", BATCH, longest, k=1), True),
+        (f"k = 2, run of 3, {BATCH - 1}", "miller_dbl_run",
+         pairing_inputs(torch, rng, "miller_dbl_run", BATCH - 1, 3, k=2), False),
+        (f"k = 1, run of 3, {BATCH - 1}", "miller_dbl_run",
+         pairing_inputs(torch, rng, "miller_dbl_run", BATCH - 1, 3, k=1), False),
+        (f"|x|, {BATCH}", "exp_x", pairing_inputs(torch, rng, "exp_x", BATCH), True),
+        (f"|x|, {BATCH - 1}", "exp_x", pairing_inputs(torch, rng, "exp_x", BATCH - 1), False),
+    ]
+
+
+def group_phase(torch, K, sweep_started, parent_started=None):
+    """The two group kernels (module docstring, phase 8): on each case of
+    group_cases, the wrapper bit-equal to the plain version, each G of the
+    sweep (the library's and the throwaway builds of sweep_started) and the
+    parent's one-thread kernel bit-equal to the wrapper, all on the same
+    CUDA tensors; on the timed cases device ms per launch (CUDA-graph
+    replay) of each G, and of the parent's kernel and the wrapper
+    interleaved (parent, group, group, parent).  -> {kernel: {case:
+    timings}} for the kernel rows."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 3)
+    libs = {library_group(K): K.library()}
+    for g, started in sweep_started.items():
+        libs[g] = pairing_library(started)
+        group_build_report(started[2], f"sweep build, BLS_GROUP={g}")
+    parent = pairing_library(parent_started) if parent_started else None
+    out = {name: {} for name in GROUP_KERNELS}
+    for label, name, args, timed in group_cases(torch, rng):
+        kern, plain = kernel_call(name)
+        got = kern(*args)
+        err = max_err(got, plain(*args))
+        if err != 0:
+            raise RuntimeError(f"group kernel {name} ({label}) disagrees with its plain version: "
+                               f"max |err| {err}")
+        want = torch.cat([g.reshape(-1, *g.shape[-2:]) for g in flat_outputs(got)])
+        variants = [(f"G = {g}", getattr(libs[g], f"bls_{name}")) for g in sorted(libs)]
+        variants.append(("group", getattr(libs[library_group(K)], f"bls_{name}")))
+        if parent is not None:
+            variants.append(("parent", getattr(parent, f"bls_{name}")))
+        launches = {}
+        for vlabel, fn in variants:
+            launch, res = entry_launch(torch, K, name, fn, args)
+            launch()
+            torch.cuda.synchronize()
+            if not torch.equal(res, want):
+                raise RuntimeError(f"{name} ({label}), {vlabel}: differs from the wrapper's output")
+            launches[vlabel] = launch
+        row = {"elements": args[0].shape[1], "max_abs_err": err}
+        extra = ""
+        if timed:
+            row.update({v: device_ms(torch, fn, (), 3, 2) for v, fn in launches.items()
+                        if v.startswith("G = ")})
+            extra = "; device ms per launch: " + ", ".join(
+                f"{v} {row[v]:.5f}" for v in launches if v.startswith("G = "))
+            if parent is not None:
+                times = {"parent": [], "group": []}
+                for who in ("parent", "group", "group", "parent"):
+                    times[who].append(device_ms(torch, launches[who], (), 3, 2))
+                row["interleaved"] = times
+                row["parent_ms"] = sum(times["parent"]) / 2
+                row["group_ms"] = sum(times["group"]) / 2
+                extra += (f"; interleaved parent / group / group / parent: "
+                          f"{times['parent'][0]:.5f} / {times['group'][0]:.5f} / "
+                          f"{times['group'][1]:.5f} / {times['parent'][1]:.5f} "
+                          f"({row['parent_ms'] / row['group_ms']:.2f}x)")
+        out[name][label] = row
+        log(f"[group] {name} ({label}): bit-equal to plain; {', '.join(launches)} bit-equal "
+            f"to it{extra}")
+    return out
+
+
 def main():
+    import argparse
+
     import torch
 
+    ap = argparse.ArgumentParser(description="On-card smoke run of the PyTorch/CUDA port.")
+    ap.add_argument("--group", action="store_true",
+                    help="run only the device, build and group phases (the two group kernels)")
+    ap.add_argument("--parent", metavar="DIR",
+                    help="a git archive of the parent commit in a git-ignored directory of "
+                         "this checkout: time its miller_dbl_run and exp_x kernels "
+                         "interleaved with this tree's in the group phase")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -1572,13 +1804,28 @@ def main():
     from bls_verify_gadget_tpu_torch.ops import kernels as K
 
     smi, kind = device_phase(torch)
-    build_phase(K)
-    launches, sizes, verify_s, parts, want, ctx = main_path_phase(torch, K)
-    profile_phase(torch, parts, ctx["msg"], want, verify_s)
-    keys = keys_phase(torch, K)
-    steps = steps_phase(torch, K, ctx, want, launches, keys)
-    rows = kernel_phase(torch, K, launches, sizes, verify_s, ctx, keys, steps)
-    print(json.dumps({"kernels": rows}))
+    sweep = sweep_build_start(K)
+    parent = parent_build_start(K, args.parent) if args.parent else None
+    try:
+        build_phase(K)
+        if args.group:
+            group_phase(torch, K, sweep, parent)
+        else:
+            launches, sizes, verify_s, parts, want, ctx = main_path_phase(torch, K)
+            profile_phase(torch, parts, ctx["msg"], want, verify_s)
+            keys = keys_phase(torch, K)
+            steps = steps_phase(torch, K, ctx, want, launches, keys)
+            rows = kernel_phase(torch, K, launches, sizes, verify_s, ctx, keys, steps)
+            group = group_phase(torch, K, sweep, parent)
+            for row in rows:
+                if row["name"] in group:
+                    row["group"] = group[row["name"]]
+            print(json.dumps({"kernels": rows}))
+    finally:  # a phase that failed leaves no nvcc of the sweep or the parent running
+        for proc, _, _ in [*sweep.values(), *([parent] if parent else [])]:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
