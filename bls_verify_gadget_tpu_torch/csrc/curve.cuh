@@ -1,8 +1,10 @@
-// Device point and chain layer of the port's hash-stage and subgroup
-// kernels (hash_kernels.cu): Jacobian doubling and complete addition for G1
+// Device point and chain layer of the port's one-thread hash-stage and
+// point kernels (hash_kernels.cu's pow_win and sswu_map2,
+// point_kernels.cu): Jacobian doubling and complete addition for G1
 // (coordinates in Fp) and G2 (Fp2) as one template over the coordinate
-// field, the run-structured constant-scalar ladder, and the 4-bit window
-// power, for one batch element per thread over tower.cuh.
+// field, and the 4-bit window power, for one batch element per thread over
+// tower.cuh.  The constant-scalar ladders run on group.cuh, from the same
+// doubling and addition traced in group_rounds.py.
 //
 // Each function is the counterpart of a JAX kernel body in
 // bls_verify_gadget_tpu/ops/pallas/kernels.py (named beside it).  Values
@@ -67,8 +69,6 @@ __device__ __forceinline__ Fp c_add(const Fp& a, const Fp& b, const FpModulus& M
 __device__ __forceinline__ Fp2 c_add(const Fp2& a, const Fp2& b, const FpModulus& M) { return f2_add(a, b, M); }
 __device__ __forceinline__ Fp c_sub(const Fp& a, const Fp& b, const FpModulus& M) { return fp_sub(a, b, M); }
 __device__ __forceinline__ Fp2 c_sub(const Fp2& a, const Fp2& b, const FpModulus& M) { return f2_sub(a, b, M); }
-__device__ __forceinline__ Fp c_neg(const Fp& a, const FpModulus& M) { return fp_neg(a, M); }
-__device__ __forceinline__ Fp2 c_neg(const Fp2& a, const FpModulus& M) { return f2_neg(a, M); }
 __device__ __forceinline__ Fp c_mul(const Fp& a, const Fp& b, const FpModulus& M) { return fp_mul(a, b, M); }
 __device__ __forceinline__ Fp2 c_mul(const Fp2& a, const Fp2& b, const FpModulus& M) { return f2_mul(a, b, M); }
 __device__ __forceinline__ Fp c_sqr(const Fp& a, const FpModulus& M) { return fp_mul(a, a, M); }
@@ -113,11 +113,6 @@ __device__ __forceinline__ void store_jac(int32_t* buf, int j, long long n,
   store_c(buf, j, n, i, p.X);
   store_c(buf, j + c, n, i, p.Y);
   store_c(buf, j + 2 * c, n, i, p.Z);
-}
-
-template <class F>
-__device__ __forceinline__ Jac<F> pt_neg(const Jac<F>& p, const FpModulus& M) {
-  return {p.X, c_neg(p.Y, M), p.Z};
 }
 
 // Complete doubling for a = 0 curves (_pt_dbl_body, kernels.py:703):
@@ -178,21 +173,6 @@ __device__ __noinline__ Jac<F> pt_add(const Jac<F>& p, const Jac<F>& q,
     res.Z = F{};
   }
   return res;
-}
-
-// The constant-scalar ladder (_ladder_rows, kernels.py:1189, the body of
-// _ptmulconst_kernel :819): acc = base at the scalar's top bit, then per
-// segment len doublings and, where the segment ends on a set bit, a
-// complete addition of the base.
-template <class F>
-__device__ __noinline__ Jac<F> ladder(const Jac<F>& base, const Segments& segs,
-                                      const Fp& one, const FpModulus& M) {
-  Jac<F> acc = base;
-  for (int s = 0; s < segs.count; ++s) {
-    for (int r = 0; r < segs.len[s]; ++r) acc = pt_dbl(acc, M);
-    if (segs.mul[s]) acc = pt_add(acc, base, one, M);
-  }
-  return acc;
 }
 
 // --------------------------------------------------------- windowed power

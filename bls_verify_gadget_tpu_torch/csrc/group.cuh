@@ -1,7 +1,8 @@
 // The cooperative layer of the group kernels (pairing_kernels.cu's
-// miller_dbl_run and exp_x): one batch element on a group of G threads
-// (G a divisor of 32, so a group lies in one warp), its state in shared
-// memory, its bodies run as the rounds of group_rounds.cuh.
+// miller_dbl_run and exp_x, hash_kernels.cu's pt_mul_const and
+// g2_cofactor): one batch element on a group of G threads (G a divisor of
+// 32, so a group lies in one warp), its state in shared memory, its bodies
+// run as the rounds of group_rounds.cuh.
 //
 // State.  The element's Fp values are numbered slots of 12 32-bit words
 // (48 bytes, 16-byte aligned) in the block's dynamic shared memory; a
@@ -12,16 +13,26 @@
 // ops, dealt out round-robin over the group's threads (op j to thread
 // j mod G), each op whole in one thread, and ends at __syncwarp over the
 // group.  An op evaluates one or two linear forms of slots -- the sums,
-// differences, small multiples and halvings of tower.cuh's formulas, made
-// by the thread itself (eval_form) -- and stores either the form or, for a
-// product, field.cuh's mont_mul of the two, inlined in registers (no call,
-// no stack).  Every slot holds a canonical residue and every operation is
-// exact mod p, so the limbs equal tower.cuh's whatever thread runs which
-// op.
+// differences, small multiples and halvings of tower.cuh's and curve.cuh's
+// formulas, made by the thread itself (eval_form; eval_operands for a
+// product's two) -- and stores either the form or, for a product,
+// field.cuh's mont_mul of the two, inlined in registers (no call, no
+// stack).  Every slot holds a canonical residue and every operation is
+// exact mod p, so the limbs equal the one-thread formulas' whatever thread
+// runs which op.
 //
 // The tables of ops are read through the read-only cache: the threads of a
 // group read different ops, and __constant__ would serialize them.
+//
+// Point programs (the ladders, g2_cofactor) run a script (run_script):
+// bodies, complete additions and constant-scalar ladders, all through one
+// run<G>, so that a kernel inlines one copy of the op loop.  The complete
+// addition's exceptional cases are branches on flags that every thread of
+// the group reads from the element's slots (add_case), so a group never
+// diverges; only groups of a warp may, and only on rare data.
 #pragma once
+
+#include <cuda_runtime.h>
 
 #include "group_rounds.cuh"
 #include "tower.cuh"
@@ -30,6 +41,32 @@ namespace bls {
 namespace group {
 
 constexpr int kSlotBytes = kFpWords * 4;
+
+// Elements per block of the kernel of program Prog at G threads each:
+// kThreads / G, or fewer where their slots would pass kMaxShared bytes
+// (group_rounds.py elements_per_block).
+template <class Prog, int G>
+__host__ __device__ constexpr int elements_per_block() {
+  constexpr int by_threads = kThreads / G;
+  constexpr int by_shared = kMaxShared / (Prog::kSlots * kSlotBytes);
+  static_assert(by_shared >= 1, "an element's slots pass kMaxShared");
+  return by_threads < by_shared ? by_threads : by_shared;
+}
+
+// Launch a group kernel of program Prog at G threads per element over n
+// elements, raising the kernel's dynamic shared-memory limit on every
+// launch (it applies to the current device); that call's error returns as
+// the launch's.
+template <class Prog, int G, typename Kernel, typename... Args>
+int launch(Kernel kernel, long long n, cudaStream_t s, Args... args) {
+  constexpr int per = elements_per_block<Prog, G>();
+  constexpr int bytes = per * Prog::kSlots * kSlotBytes;
+  const cudaError_t rc = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (rc != cudaSuccess) return (int)rc;
+  kernel<<<(unsigned)((n + per - 1) / per), per * G, bytes, s>>>(args...);
+  return (int)cudaGetLastError();
+}
 
 // The lanes of this thread's group in its warp.
 template <int G>
@@ -83,15 +120,67 @@ __device__ __forceinline__ void cond_sub(uint32_t (&a)[kFpWords],
   select_words<kFpWords>(borrow != 0, a, d, a);
 }
 
-// The form `form` of kGroupForms, (sum_j c_j * slot_j) / 2^h, into r.  The
-// terms' words add up in independent 64-bit sums (the positive terms, then
-// the negative ones): V = pos - neg + W- p with W- the negative
-// coefficients' total, so 0 <= V <= W p for W = sum |c_j|; one carry pass
-// makes it 13 words.  Then by mode: kCopy the slot alone; kLazy V (W <= 9:
-// a mont_mul operand); kReduced V - q p with q = floor(top / (p_11 + 1))
-// from V's top 64 bits in double precision, at most floor(V / p) and at
-// least floor(V / p) - 2, so below 3p; kCanonical that, then below p, then
-// the halvings.  `inv_top` is 1 / (p_11 + 1).
+// Form sums.  A form (kGroupForms) is (sum_j c_j * slot_j) / 2^h over its
+// terms (kGroupTerms), the positive ones first.  Its terms add up in
+// independent 64-bit word sums x_k: a positive term c v adds c v_k, a
+// negative one c ~v_k (the complement of each word: -v = sum_k ~v_k
+// 2^(32 k) + 1 - 2^384).  With W- the negative coefficients' total, one
+// carry pass that adds W- + W- p makes
+//   V = (positive terms) - (negative terms) + W- p,
+// 0 <= V <= W p for W = sum |c_j|, 13 words (the top one less W-).
+struct FormSum {
+  uint64_t x[kFpWords];
+  uint32_t wneg;
+};
+
+// Term `term` (slot | c << 8) of a form into f; term 0 with c = 0 adds
+// nothing, which lets two forms of unequal length share one loop.
+__device__ __forceinline__ void form_add(const uint32_t* S, uint32_t term,
+                                         bool neg, FormSum& f) {
+  uint32_t v[kFpWords];
+  load_slot(S, term & 0xFF, v);
+  const uint32_t c = term >> 8, flip = neg ? 0xFFFFFFFFu : 0u;
+  f.wneg += neg ? c : 0u;
+#pragma unroll
+  for (int k = 0; k < kFpWords; ++k) f.x[k] += (uint64_t)c * (v[k] ^ flip);
+}
+
+// The carry pass: V's low 12 words into r; returns its top word.
+__device__ __forceinline__ uint32_t form_carry(const FormSum& f,
+                                               uint32_t (&r)[kFpWords],
+                                               const FpModulus& M) {
+  uint64_t carry = f.wneg;
+#pragma unroll
+  for (int k = 0; k < kFpWords; ++k) {
+    const uint64_t s = f.x[k] + (uint64_t)f.wneg * M.p[k] + carry;
+    r[k] = (uint32_t)s;
+    carry = s >> 32;
+  }
+  return (uint32_t)carry - f.wneg;
+}
+
+// V - q p with q = floor(top 64 bits of V / (p_11 + 1)) in double
+// precision, at most floor(V / p) and at least floor(V / p) - 2, so below
+// 3p; `on` false leaves V (q = 0).  `inv_top` is 1 / (p_11 + 1).
+__device__ __forceinline__ void form_reduce(uint32_t (&r)[kFpWords],
+                                            uint32_t top, bool on,
+                                            const FpModulus& M,
+                                            double inv_top) {
+  const uint64_t hi = ((uint64_t)top << 32) | r[kFpWords - 1];
+  const uint32_t q = on ? (uint32_t)((double)hi * inv_top) : 0u;
+  uint64_t borrow = 0;
+#pragma unroll
+  for (int k = 0; k < kFpWords; ++k) {
+    const uint64_t t = (uint64_t)q * M.p[k] + borrow;
+    const uint32_t lo = (uint32_t)t;
+    borrow = (t >> 32) + (r[k] < lo ? 1u : 0u);
+    r[k] -= lo;
+  }
+}
+
+// The form `form` of a combination into r, by its mode: kCopy the slot
+// alone; otherwise V reduced below 3p, then below p, then the halvings
+// (kCanonical, the mode of every stored form).
 __device__ __forceinline__ void eval_form(const uint32_t* S, uint32_t form,
                                           uint32_t (&r)[kFpWords],
                                           const FpModulus& M,
@@ -104,54 +193,51 @@ __device__ __forceinline__ void eval_form(const uint32_t* S, uint32_t form,
     load_slot(S, __ldg(&kGroupTerms[first]) & 0xFF, r);
     return;
   }
-  uint64_t pos[kFpWords], neg[kFpWords];
-#pragma unroll
-  for (int j = 0; j < kFpWords; ++j) pos[j] = neg[j] = 0;
-  uint32_t wneg = 0;
-  for (int t = 0; t < npos; ++t) {
-    const uint32_t term = __ldg(&kGroupTerms[first + t]);
-    uint32_t v[kFpWords];
-    load_slot(S, term & 0xFF, v);
-#pragma unroll
-    for (int j = 0; j < kFpWords; ++j) pos[j] += (uint64_t)(term >> 8) * v[j];
+  FormSum sum = {};
+  for (int t = 0; t < count; ++t) {
+    form_add(S, __ldg(&kGroupTerms[first + t]), t >= npos, sum);
   }
-  for (int t = npos; t < count; ++t) {
-    const uint32_t term = __ldg(&kGroupTerms[first + t]);
-    uint32_t v[kFpWords];
-    load_slot(S, term & 0xFF, v);
-    wneg += term >> 8;
+  form_reduce(r, form_carry(sum, r, M), true, M, inv_top);
+  uint32_t twice[kFpWords];
 #pragma unroll
-    for (int j = 0; j < kFpWords; ++j) neg[j] += (uint64_t)(term >> 8) * v[j];
+  for (int k = 0; k < kFpWords; ++k) {
+    twice[k] = (M.p[k] << 1) | (k ? M.p[k - 1] >> 31 : 0u);
   }
-  int64_t carry = 0;
-#pragma unroll
-  for (int j = 0; j < kFpWords; ++j) {
-    const int64_t s = (int64_t)(pos[j] + (uint64_t)wneg * M.p[j]) -
-                      (int64_t)neg[j] + carry;
-    r[j] = (uint32_t)s;
-    carry = s >> 32;
+  cond_sub(r, twice);
+  cond_sub(r, M.p);
+  for (uint32_t k = 0; k < halve; ++k) half_words(r, M);
+}
+
+// The operands of a product, forms fa and fb, into a and b: their terms
+// accumulate side by side in one loop (the two forms' loads and carry
+// chains overlap), each reduced below 3p where its mode is kReduced (kLazy
+// leaves V, below R; a kCopy form is its slot).  fb == fa, a square, is
+// evaluated once.
+__device__ __forceinline__ void eval_operands(const uint32_t* S, uint32_t fa,
+                                              uint32_t fb,
+                                              uint32_t (&a)[kFpWords],
+                                              uint32_t (&b)[kFpWords],
+                                              const FpModulus& M,
+                                              double inv_top) {
+  const bool square = fb == fa;
+  const uint32_t ea = __ldg(&kGroupForms[fa]);
+  const uint32_t eb = square ? 0u : __ldg(&kGroupForms[fb]);  // no terms
+  const int a0 = ea & 0x3FFF, na = (ea >> 14) & 0x3F, pa = (ea >> 20) & 0x3F;
+  const int b0 = eb & 0x3FFF, nb = (eb >> 14) & 0x3F, pb = (eb >> 20) & 0x3F;
+  FormSum sa = {}, sb = {};
+  const int n = na > nb ? na : nb;
+  for (int t = 0; t < n; ++t) {
+    const uint32_t ta = __ldg(&kGroupTerms[a0 + (t < na ? t : 0)]);
+    const uint32_t tb = __ldg(&kGroupTerms[b0 + (t < nb ? t : 0)]);
+    form_add(S, t < na ? ta : 0u, t >= pa, sa);
+    form_add(S, t < nb ? tb : 0u, t >= pb, sb);
   }
-  if (mode >= kReduced) {
-    const uint64_t hi = ((uint64_t)carry << 32) | r[kFpWords - 1];
-    const uint32_t q = (uint32_t)((double)hi * inv_top);
-    uint64_t borrow = 0;
+  const uint32_t topa = form_carry(sa, a, M), topb = form_carry(sb, b, M);
+  form_reduce(a, topa, ((ea >> 26) & 3) == kReduced, M, inv_top);
+  form_reduce(b, topb, ((eb >> 26) & 3) == kReduced, M, inv_top);
+  if (square) {
 #pragma unroll
-    for (int j = 0; j < kFpWords; ++j) {
-      const uint64_t t = (uint64_t)q * M.p[j] + borrow;
-      const uint32_t lo = (uint32_t)t;
-      borrow = (t >> 32) + (r[j] < lo ? 1u : 0u);
-      r[j] -= lo;
-    }
-  }
-  if (mode == kCanonical) {
-    uint32_t twice[kFpWords];
-#pragma unroll
-    for (int j = 0; j < kFpWords; ++j) {
-      twice[j] = (M.p[j] << 1) | (j ? M.p[j - 1] >> 31 : 0u);
-    }
-    cond_sub(r, twice);
-    cond_sub(r, M.p);
-    for (uint32_t k = 0; k < halve; ++k) half_words(r, M);
+    for (int k = 0; k < kFpWords; ++k) b[k] = a[k];
   }
 }
 
@@ -167,15 +253,118 @@ __device__ __forceinline__ void run(int p0, int p1, uint32_t* S, int lane,
     for (int o = __ldg(&kGroupPhases[ph]) + lane; o < end; o += G) {
       const uint2 op = __ldg(&kGroupOps[o]);
       uint32_t a[kFpWords];
-      eval_form(S, op.x & 0xFFFF, a, M, inv_top);
       if (op.y != 0xFFFFFFFFu) {
         uint32_t b[kFpWords];
-        eval_form(S, op.y, b, M, inv_top);
+        eval_operands(S, op.x & 0xFFFF, op.y, a, b, M, inv_top);
         mont_mul<kFpWords>(a, b, a, M);
+      } else {
+        eval_form(S, op.x & 0xFFFF, a, M, inv_top);
       }
       store_slot(S, (op.x >> 16) & 0xFF, a);
     }
     __syncwarp(mask);
+  }
+}
+
+// The Fp constant v into slot s (a word per lane).
+template <int G>
+__device__ __forceinline__ void store_const(uint32_t* S, int s, const Fp& v,
+                                            int lane) {
+#pragma unroll
+  for (int k = 0; k < kFpWords; ++k) {
+    if (k % G == lane) S[kFpWords * s + k] = v.w[k];
+  }
+}
+
+// Whether the c slots from s hold zero (canonical: every word 0).
+__device__ __forceinline__ bool slots_zero(const uint32_t* S, int s, int c) {
+  uint32_t acc = 0;
+  for (int k = 0; k < c * kFpWords; ++k) acc |= S[kFpWords * s + k];
+  return acc == 0;
+}
+
+// After the body add of a point program: the phase range [p0, p1) of the
+// body that the complete addition's case picks (curve.cuh pt_add, in
+// _pt_add_body's order): P (acc) at infinity -> take_base; Q (base) at
+// infinity -> none, acc is P; h = r = 0 -> dbl, the doubling of acc; h = 0
+// -> set_inf, (one, one, 0); else take_sum.  Every lane reads the same
+// flags, then waits for the others before the case body writes acc.
+template <class Prog>
+__device__ __forceinline__ void add_case(const uint32_t* S, unsigned mask,
+                                         int& p0, int& p1) {
+  constexpr int c = Prog::kCoord;
+  const bool p_inf = slots_zero(S, Prog::kSlot_acc + 2 * c, c);
+  const bool q_inf = slots_zero(S, Prog::kSlot_base + 2 * c, c);
+  const bool h0 = slots_zero(S, Prog::kSlot_h, c);
+  const bool r0 = slots_zero(S, Prog::kSlot_r, c);
+  __syncwarp(mask);
+  if (p_inf) {
+    p0 = Prog::kBody_take_base, p1 = Prog::kEnd_take_base;
+  } else if (q_inf) {
+    p0 = p1 = 0;
+  } else if (h0 && r0) {
+    p0 = Prog::kBody_dbl, p1 = Prog::kEnd_dbl;
+  } else if (h0) {
+    p0 = Prog::kBody_set_inf, p1 = Prog::kEnd_set_inf;
+  } else {
+    p0 = Prog::kBody_take_sum, p1 = Prog::kEnd_take_sum;
+  }
+}
+
+// The kinds of a script step (kGroupScript; group_rounds.py BODY, ADD,
+// LADDER).
+enum : uint32_t { kStepBody = 0, kStepAdd = 1, kStepLadder = 2 };
+
+// Run point program Prog's script on the element's slots: a body step runs
+// its body; an addition step the body add, then the body that add_case
+// picks; a ladder step take_base (acc = base), then per segment of `segs`
+// len doublings and, where it ends on a set bit, an addition (the
+// constant-scalar ladder, _ladder_rows).  One run<G> for all of them.
+template <class Prog, int G>
+__device__ __forceinline__ void run_script(const Segments& segs, uint32_t* S,
+                                           int lane, unsigned mask,
+                                           const FpModulus& M) {
+  int k = Prog::kScript;
+  int seg = -1, step = 0;  // in a ladder step: its segment and doublings done
+  bool pick = false;       // the body just run was add
+  for (;;) {
+    int p0, p1;
+    if (pick) {
+      pick = false;
+      add_case<Prog>(S, mask, p0, p1);
+    } else if (k == Prog::kEndScript) {
+      break;
+    } else {
+      const uint2 e = __ldg(&kGroupScript[k]);
+      if (e.x != kStepLadder) {
+        ++k;
+        p0 = e.y & 0xFFFF, p1 = e.y >> 16;
+        pick = e.x == kStepAdd;
+      } else if (seg < 0) {
+        seg = step = 0;
+        p0 = Prog::kBody_take_base, p1 = Prog::kEnd_take_base;
+      } else {
+        bool found = false;
+        while (!found && seg < segs.count) {
+          if (step < segs.len[seg]) {
+            ++step;
+            p0 = Prog::kBody_dbl, p1 = Prog::kEnd_dbl;
+            found = true;
+          } else {
+            found = pick = segs.mul[seg] != 0;
+            p0 = Prog::kBody_add, p1 = Prog::kEnd_add;
+            ++seg;
+            step = 0;
+          }
+        }
+        if (!found) {  // the ladder's end
+          seg = -1;
+          ++k;
+          continue;
+        }
+      }
+    }
+    run<G>(p0, p1, S, lane, mask, M);
   }
 }
 

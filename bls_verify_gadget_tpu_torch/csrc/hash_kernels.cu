@@ -12,27 +12,49 @@
 // in the parameter bank; the SSWU map's 46 Fp constants (4.4 KB) do not
 // fit there and come as a device table that the wrapper builds once.
 //
-// What bounds them, and the design.  One thread runs one batch element
-// through the whole chain (curve.cuh over tower.cuh), so device memory sees
-// the operands, the results and the broadcast constants only: a few
-// hundred bytes per element against 600-3,000 Montgomery products of ~600
-// 32-bit multiply-adds each.  All four are bound by operations, not bytes
-// (the notes per kernel give products per element).  The design buys
-// launches: a subgroup check's ladder was ~1,500 field launches and the
-// hash map ~5,000, each is one here.  It does not reach the operation
-// bound, for the reasons given in pairing_kernels.cu: serial products per
-// thread, state in an L1-backed stack behind __noinline__ helpers, and at
-// 4096 elements one 32-thread block on each of 128 SMs.
+// What bounds them, and the design.  Device memory sees the operands, the
+// results and the broadcast constants only: a few hundred bytes per
+// element against 600-3,000 Montgomery products of ~600 32-bit
+// multiply-adds each.  All four are bound by operations, not bytes (the
+// notes per kernel give products per element).  Fusing buys launches: a
+// subgroup check's ladder was ~1,500 field launches and the hash map
+// ~5,000, each is one here.
+// pt_mul_const and g2_cofactor (the TPU's _ptmulconst_kernel and
+// _g2cofactor_kernel) run on group.cuh: a group of G threads per batch
+// element, its state in shared memory, its doublings and additions as
+// rounds of independent Montgomery products (group_rounds.cuh, traced from
+// curve.cuh's pt_dbl and pt_add), the addition's exceptional cases as
+// branches that the whole group takes together.  The one-thread design they
+// replace ran a G2 ladder's 1,291 products one after another per element
+// (2.3 ms at n = 1), behind __noinline__ calls with the state in an
+// L1-backed stack, one warp per SM at 4096 elements.  A G2 doubling's 17
+// products are 3 rounds here (7, 7, 3) and an addition's 44 are 5.  G per
+// kernel and coordinate field is chosen on the card (PERF.md has the
+// sweep).  pow_win and sswu_map2 keep one thread per element (curve.cuh):
+// their redesign is later work.
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
 #include "curve.cuh"
+#include "group.cuh"
 
 namespace {
 
-// One warp per block, as in pairing_kernels.cu.
+// One warp per block for the one-thread kernels, as in pairing_kernels.cu.
 constexpr int kThreads = 32;
+
+// The group kernels' threads per element (a divisor of 32), from the sweep
+// at 4096 elements (PERF.md): pt_mul_const over Fp (G1) and Fp2 (G2), and
+// g2_cofactor.  chip_smoke.py builds the sweep's other values as
+// throwaway copies of this unit with -DBLS_LADDER_GROUP=G, which sets all
+// three.
+#ifdef BLS_LADDER_GROUP
+constexpr int kGroupG1 = BLS_LADDER_GROUP, kGroupG2 = BLS_LADDER_GROUP,
+              kGroupCofactor = BLS_LADDER_GROUP;
+#else
+constexpr int kGroupG1 = 4, kGroupG2 = 8, kGroupCofactor = 8;
+#endif
 
 inline unsigned grid_for(long long n) {
   return (unsigned)((n + kThreads - 1) / kThreads);
@@ -91,56 +113,76 @@ __global__ void __launch_bounds__(kThreads)
 // [k]P in one launch, from acc = P at k's top bit, per segment len
 // doublings and a complete addition of P where it ends on a set bit.  in
 // and out (3c, n), c = 1 (G1) or 2 (G2).  For |x| (63 doublings, 5
-// additions): G1 63 x 8 + 5 x 16 = 584 Montgomery products, G2 63 x 17 +
-// 5 x 44 = 1,291 (~21 and ~46 ns of operations per element).
-template <class F>
-__global__ void __launch_bounds__(kThreads)
+// additions): G1 63 x 7 + 5 x 16 = 521 Montgomery products, G2 63 x 17 +
+// 5 x 44 = 1,291 (~19 and ~46 ns of operations per element).
+// On a group of G threads with LadderG1Program / LadderG2Program: P into
+// base and the Montgomery one into its slot, the script (one ladder step),
+// acc out.  A doubling is 3 rounds (G1: 3, 3, 1 products; G2: 7, 7, 3),
+// an addition 5 (G1 16 products, G2 44) and its case.
+template <class Prog, int G>
+__global__ void __launch_bounds__(bls::group::kThreads)
     pt_mul_const_kernel(const int32_t* __restrict__ in,
                         int32_t* __restrict__ out, long long n, FpModulus M,
                         bls::Segments segs, Fp one) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const Jac<F> p = bls::load_jac<F>(in, 0, n, i);
-  bls::store_jac(out, 0, n, i, bls::ladder(p, segs, one, M));
+  extern __shared__ uint4 smem[];
+  const int g = threadIdx.x / G, lane = threadIdx.x % G;
+  const long long i =
+      (long long)blockIdx.x * bls::group::elements_per_block<Prog, G>() + g;
+  if (i >= n) return;  // the whole group: no barrier spans groups
+  uint32_t* S = reinterpret_cast<uint32_t*>(smem) +
+                (long long)g * Prog::kSlots * bls::kFpWords;
+  const unsigned mask = bls::group::lane_mask<G>();
+  constexpr int nc = 3 * Prog::kCoord;
+  bls::group::load_coords<G>(
+      in, n, i, nc, [](int c) { return Prog::kSlot_base + c; }, S, lane);
+  bls::group::store_const<G>(S, Prog::kSlot_one, one, lane);
+  __syncwarp(mask);
+  bls::group::run_script<Prog, G>(segs, S, lane, mask, M);
+  bls::group::store_coords<G>(
+      out, n, i, nc, [](int c) { return Prog::kSlot_acc + c; }, S, lane);
 }
 
 // ------------------------------------------------------------ g2_cofactor
-
-__device__ __forceinline__ Jac<Fp2> psi(const Jac<Fp2>& p, const PsiConsts& k,
-                                        const FpModulus& M) {
-  return {bls::f2_mul(bls::f2_conj(p.X, M), k.cx, M),
-          bls::f2_mul(bls::f2_conj(p.Y, M), k.cy, M), bls::f2_conj(p.Z, M)};
-}
-
-__device__ __forceinline__ Jac<Fp2> psi2(const Jac<Fp2>& p, const PsiConsts& k,
-                                         const FpModulus& M) {
-  return {bls::f2_muls(p.X, k.c2, M), bls::f2_neg(p.Y, M), p.Z};
-}
 
 // Replaces _g2cofactor_kernel (kernels.py:1219): Budroni-Pintore
 // [x^2 - x - 1]P + [x - 1]psi(P) + psi^2(2P) with x < 0, in the JAX
 // kernel's order (its add schedule, kernels.py:1286-1322, is the order of
 // the unfused curve.g2_clear_cofactor): [x]P = -ladder(P), [x^2]P =
 // -ladder([x]P), then aux = [x]P - P, acc = [x^2]P - [x]P, acc -= P,
-// acc += psi(aux), acc += psi^2(2P).  in and out (6, n).  Montgomery
-// products per element: 2 x 1,291 for the ladders, 17 for 2P, 6 for psi,
-// 2 for psi^2 and 5 x 44 for the additions: 2,827 (~101 ns of operations).
-__global__ void __launch_bounds__(kThreads)
+// acc += psi(aux), acc += psi^2(2P), where psi(x, y, z) = (cx conj(x),
+// cy conj(y), conj(z)) and psi^2(x, y, z) = (c2 x, -y, z).  in and out
+// (6, n).  Montgomery products per element: 2 x 1,291 for the ladders, 17
+// for 2P, 6 for psi, 2 for psi^2 and 5 x 44 for the additions: 2,827
+// (~101 ns of operations).
+// On a group of G threads with G2CofactorProgram: P, the one and the psi
+// constants into their slots, then the program's script, which keeps that
+// order (group_rounds.py cofactor_program), acc out.
+template <int G>
+__global__ void __launch_bounds__(bls::group::kThreads)
     g2_cofactor_kernel(const int32_t* __restrict__ in,
                        int32_t* __restrict__ out, long long n, FpModulus M,
                        bls::Segments segs, PsiConsts k, Fp one) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const Jac<Fp2> p = bls::load_jac<Fp2>(in, 0, n, i);
-  const Jac<Fp2> xp = bls::pt_neg(bls::ladder(p, segs, one, M), M);
-  const Jac<Fp2> xxp = bls::pt_neg(bls::ladder(xp, segs, one, M), M);
-  const Jac<Fp2> neg_p = bls::pt_neg(p, M);
-  const Jac<Fp2> aux = bls::pt_add(xp, neg_p, one, M);
-  Jac<Fp2> acc = bls::pt_add(xxp, bls::pt_neg(xp, M), one, M);
-  acc = bls::pt_add(acc, neg_p, one, M);
-  acc = bls::pt_add(acc, psi(aux, k, M), one, M);
-  acc = bls::pt_add(acc, psi2(bls::pt_dbl(p, M), k, M), one, M);
-  bls::store_jac(out, 0, n, i, acc);
+  using Prog = bls::group::G2CofactorProgram;
+  extern __shared__ uint4 smem[];
+  const int g = threadIdx.x / G, lane = threadIdx.x % G;
+  const long long i =
+      (long long)blockIdx.x * bls::group::elements_per_block<Prog, G>() + g;
+  if (i >= n) return;  // the whole group: no barrier spans groups
+  uint32_t* S = reinterpret_cast<uint32_t*>(smem) +
+                (long long)g * Prog::kSlots * bls::kFpWords;
+  const unsigned mask = bls::group::lane_mask<G>();
+  bls::group::load_coords<G>(
+      in, n, i, 6, [](int c) { return Prog::kSlot_p + c; }, S, lane);
+  bls::group::store_const<G>(S, Prog::kSlot_one, one, lane);
+  bls::group::store_const<G>(S, Prog::kSlot_cx, k.cx.c0, lane);
+  bls::group::store_const<G>(S, Prog::kSlot_cx + 1, k.cx.c1, lane);
+  bls::group::store_const<G>(S, Prog::kSlot_cy, k.cy.c0, lane);
+  bls::group::store_const<G>(S, Prog::kSlot_cy + 1, k.cy.c1, lane);
+  bls::group::store_const<G>(S, Prog::kSlot_c2, k.c2, lane);
+  __syncwarp(mask);
+  bls::group::run_script<Prog, G>(segs, S, lane, mask, M);
+  bls::group::store_coords<G>(
+      out, n, i, 6, [](int c) { return Prog::kSlot_acc + c; }, S, lane);
 }
 
 // -------------------------------------------------------------- sswu_map2
@@ -392,16 +434,17 @@ int bls_pt_mul_const(const int32_t* in, int32_t* out, long long n, int nc,
   const bls::Segments segs = make_segments(lens, muls, nseg);
   const auto M = bls::make_modulus<bls::kFpWords>(p, n0);
   const bls::Fp o = bls::make_fp(one);
+  const cudaStream_t s = (cudaStream_t)stream;
+  using G1 = bls::group::LadderG1Program;
+  using G2 = bls::group::LadderG2Program;
   if (nc == 1) {
-    bls_kernels::pt_mul_const_kernel<bls::Fp>
-        <<<grid_for(n), kThreads, 0, (cudaStream_t)stream>>>(in, out, n, M,
-                                                             segs, o);
-  } else {
-    bls_kernels::pt_mul_const_kernel<bls::Fp2>
-        <<<grid_for(n), kThreads, 0, (cudaStream_t)stream>>>(in, out, n, M,
-                                                             segs, o);
+    return bls::group::launch<G1, kGroupG1>(
+        bls_kernels::pt_mul_const_kernel<G1, kGroupG1>, n, s, in, out, n, M,
+        segs, o);
   }
-  return (int)cudaGetLastError();
+  return bls::group::launch<G2, kGroupG2>(
+      bls_kernels::pt_mul_const_kernel<G2, kGroupG2>, n, s, in, out, n, M,
+      segs, o);
 }
 
 // psi: cx (2 Fp), cy (2 Fp), c2 (1 Fp) as 5 x 12 host words
@@ -415,10 +458,9 @@ int bls_g2_cofactor(const int32_t* in, int32_t* out, long long n,
   const PsiConsts k = {{bls::make_fp(psi), bls::make_fp(psi + w)},
                        {bls::make_fp(psi + 2 * w), bls::make_fp(psi + 3 * w)},
                        bls::make_fp(psi + 4 * w)};
-  bls_kernels::g2_cofactor_kernel<<<grid_for(n), kThreads, 0,
-                                    (cudaStream_t)stream>>>(
+  return bls::group::launch<bls::group::G2CofactorProgram, kGroupCofactor>(
+      bls_kernels::g2_cofactor_kernel<kGroupCofactor>, n, (cudaStream_t)stream,
       in, out, n, bls::make_modulus<w>(p, n0), segs, k, bls::make_fp(one));
-  return (int)cudaGetLastError();
 }
 
 // tab: the (46, 24) int32 device table of the SSWU constants

@@ -194,7 +194,8 @@ __global__ void __launch_bounds__(bls::group::kThreads)
                                   bls::group::Miller2Program>;
   extern __shared__ uint4 smem[];
   const int g = threadIdx.x / G, lane = threadIdx.x % G;
-  const long long i = (long long)blockIdx.x * (bls::group::kThreads / G) + g;
+  const long long i =
+      (long long)blockIdx.x * bls::group::elements_per_block<Prog, G>() + g;
   if (i >= n) return;  // the whole group: no barrier spans groups
   uint32_t* S = reinterpret_cast<uint32_t*>(smem) +
                 (long long)g * Prog::kSlots * bls::kFpWords;
@@ -272,7 +273,8 @@ __global__ void __launch_bounds__(bls::group::kThreads)
   using Prog = bls::group::ExpXProgram;
   extern __shared__ uint4 smem[];
   const int g = threadIdx.x / G, lane = threadIdx.x % G;
-  const long long i = (long long)blockIdx.x * (bls::group::kThreads / G) + g;
+  const long long i =
+      (long long)blockIdx.x * bls::group::elements_per_block<Prog, G>() + g;
   if (i >= n) return;  // the whole group: no barrier spans groups
   uint32_t* S = reinterpret_cast<uint32_t*>(smem) +
                 (long long)g * Prog::kSlots * bls::kFpWords;
@@ -376,31 +378,15 @@ __global__ void __launch_bounds__(kThreads)
 
 namespace {
 
-// Launch a group kernel with `per` elements per block and `bytes` of
-// dynamic shared memory, raising the kernel's limit above 48 KB on every
-// launch (it applies to the current device); its error returns as a launch
-// error.
-template <typename Kernel, typename... Args>
-int launch_group(Kernel kernel, int per, int bytes, long long n,
-                 cudaStream_t s, Args... args) {
-  const cudaError_t rc = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (rc != cudaSuccess) return (int)rc;
-  kernel<<<(unsigned)((n + per - 1) / per), bls::group::kThreads, bytes, s>>>(
-      args...);
-  return (int)cudaGetLastError();
-}
-
 template <int K>
 int launch_miller(const int32_t* in, const int32_t* valid, int32_t* out,
                   long long n, int count, const bls::FpModulus& M,
                   cudaStream_t s) {
   using Prog = std::conditional_t<K == 1, bls::group::Miller1Program,
                                   bls::group::Miller2Program>;
-  constexpr int per = bls::group::kThreads / kGroup;
-  return launch_group(bls_kernels::miller_dbl_run_kernel<K, kGroup>, per,
-                      per * Prog::kSlots * bls::group::kSlotBytes, n, s, in,
-                      valid, out, n, count, M);
+  return bls::group::launch<Prog, kGroup>(
+      bls_kernels::miller_dbl_run_kernel<K, kGroup>, n, s, in, valid, out, n,
+      count, M);
 }
 
 }  // namespace
@@ -468,11 +454,8 @@ int bls_exp_x(const int32_t* in, int32_t* out, long long n, const int* lens,
     segs.len[s] = lens[s];
     segs.mul[s] = muls[s];
   }
-  constexpr int per = bls::group::kThreads / kGroup;
-  return launch_group(
-      bls_kernels::exp_x_kernel<kGroup>, per,
-      per * bls::group::ExpXProgram::kSlots * bls::group::kSlotBytes, n,
-      (cudaStream_t)stream, in, out, n,
+  return bls::group::launch<bls::group::ExpXProgram, kGroup>(
+      bls_kernels::exp_x_kernel<kGroup>, n, (cudaStream_t)stream, in, out, n,
       bls::make_modulus<bls::kFpWords>(p, n0), segs);
 }
 

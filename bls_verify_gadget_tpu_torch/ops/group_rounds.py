@@ -1,5 +1,5 @@
-"""Round-wise forms of the pairing bodies that the group kernels run
-(csrc/group.cuh): the tables of csrc/group_rounds.cuh, generated here.
+"""Round-wise forms of the pairing and point bodies that the group kernels
+run (csrc/group.cuh): the tables of csrc/group_rounds.cuh, generated here.
 
     python3 -m bls_verify_gadget_tpu_torch.ops.group_rounds   # rewrites the header
 
@@ -11,15 +11,15 @@ a barrier of the group.  An op writes one slot:
   - a product: mont_mul(A, B) of two linear forms A and B;
   - a combination: the linear form A alone.
 A linear form is (sum_j c_j * slot_j) / 2^h mod p with small integer c_j:
-the sums, differences, multiples, xi and halvings of the tower formulas.
+the sums, differences, multiples, xi and halvings of the formulas.
 No op of a phase reads a slot that another op of the same phase writes, so
 the order in which the threads run a phase's ops does not matter.
 
-A thread evaluates a form as group.cuh's eval_form does (eval_exact below
-is the same arithmetic on Python ints): V = sum of the positive terms +
-W- p - sum of the negative ones, in 64-bit word sums, with W- the negative
-coefficients' total, so that 0 <= V <= W p for W = sum |c_j|; then, by the
-form's mode,
+A thread evaluates a form as group.cuh's eval_form and eval_operands do
+(eval_exact below is the same value on Python ints): V = sum of the
+positive terms + W- p - sum of the negative ones, in 64-bit word sums, with
+W- the negative coefficients' total, so that 0 <= V <= W p for W = sum
+|c_j|; then, by the form's mode,
   COPY      the slot itself (one term, coefficient 1, no halving);
   LAZY      V as it is (a product operand);
   REDUCED   V - q p, q = floor(top 64 bits of V / (p's top word + 1)) in
@@ -37,9 +37,14 @@ versions' whatever the grouping of products and sums.  The Miller line and
 T are tower.cuh's miller_dbl_step formula and the Granger-Scott square is
 its f12_cyclotomic_sqr formula (both matter off the curve and off the
 cyclotomic subgroup); the Fp12 square and products are exact products.
+The point programs (pt_mul_const, g2_cofactor) trace csrc/curve.cuh's
+Jacobian doubling and complete addition: the Jacobian representative is
+the formulas' polynomial, so the doubling may regroup it (pt_dbl_rounds),
+and the addition's exceptional cases keep its order (add_case).
 
-run_body() executes a body on Python ints, as the kernels do, for the CPU
-tests (tests/test_torch_group_rounds.py).
+run_body() executes a body, run_script() a point program's script, on
+Python ints as the kernels do, for the CPU tests
+(tests/test_torch_group_rounds.py).
 """
 
 import pathlib
@@ -48,7 +53,8 @@ from .. import constants as C
 
 HEADER = pathlib.Path(__file__).resolve().parent.parent / "csrc" / "group_rounds.cuh"
 MILLER_PAIRS = (1, 2)
-THREADS = 128  # threads per block of a group kernel: THREADS / G elements
+THREADS = 128  # threads per block of a group kernel: THREADS / G elements, or
+MAX_SHARED = 232448  # fewer where their slots would pass this (bytes; Hopper's limit)
 SLOT_BYTES = 48  # an Fp slot: 12 32-bit words
 COPY, LAZY, REDUCED, CANONICAL = range(4)  # how a form is evaluated
 OPERAND_BOUND = 9  # a * b < 9 p^2 < p R: mont_mul's product is canonical
@@ -151,8 +157,10 @@ class Program:
     def __init__(self, name):
         self.name = name
         self.slots = {}  # name -> (first, count)
+        self.consts = {}  # name -> value, emitted beside the slots
         self.nslots = 0
         self.bodies = {}  # name -> list of phases (lists of Op)
+        self.script = []  # a point program's steps (run_script): (kind, body)
         self._phases = None
         self._temp0 = self._temp = None
         self._live = set()
@@ -160,7 +168,11 @@ class Program:
     def named(self, name, count):
         self.slots[name] = (self.nslots, count)
         self.nslots += count
-        return [Lin.slot(s) for s in range(self.slots[name][0], self.nslots)]
+        return self.slot_list(name)
+
+    def slot_list(self, name):
+        first, count = self.slots[name]
+        return [Lin.slot(s) for s in range(first, first + count)]
 
     def body(self, name):
         """Start body `name` (and a round: products start afresh)."""
@@ -454,13 +466,224 @@ def miller_program(k):
     return P
 
 
+# ------------------------------------------------------------ point programs
+# A point program's kernel runs its script (group.cuh run_script): a list of
+# steps, each a body, an addition (the body add, then the body of the case
+# that its flags pick: add_case) or a ladder over the kernel's segments
+# (take_base, then per segment len doublings and, where it ends on a set
+# bit, an addition).
+BODY, ADD, LADDER = range(3)
+# curve.cuh's Jacobian formulas on symbolic coordinates: Fp (G1) a Lin,
+# Fp2 (G2) a pair of them.  A point is (X, Y, Z).
+
+class Coord:
+    """A coordinate field of the point programs: width 1 (Fp) or 2 (Fp2)."""
+
+    def __init__(self, width):
+        self.width = width
+
+    def add(self, a, b):
+        return a + b if self.width == 1 else f2_add(a, b)
+
+    def sub(self, a, b):
+        return a - b if self.width == 1 else f2_sub(a, b)
+
+    def neg(self, a):
+        return -a if self.width == 1 else f2_neg(a)
+
+    def scale(self, a, k):
+        return a.scale(k) if self.width == 1 else f2_scale(a, k)
+
+    def mul(self, P, a, b):
+        return P.mul(a, b) if self.width == 1 else f2_mul(P, a, b)
+
+    def sqr(self, P, a):  # an Fp square is the Montgomery product a * a
+        return P.mul(a, a) if self.width == 1 else f2_sqr(P, a)
+
+    def point(self, slots):
+        """The point whose 3 * width coordinate slots are `slots`."""
+        if self.width == 1:
+            return tuple(slots)
+        return tuple(fp2s(slots))
+
+    def infinity(self, one):
+        """(one, one, 0): the complete addition's P == -Q result."""
+        o = one if self.width == 1 else (one, Lin())
+        z = Lin() if self.width == 1 else (Lin(), Lin())
+        return (o, o, z)
+
+
+FP_COORD, FP2_COORD = Coord(1), Coord(2)
+
+
+def pt_dbl_rounds(P, F, p):
+    """curve.cuh pt_dbl (_pt_dbl_body) in three product phases: a = X^2,
+    b = Y^2, Y Z; d = b^2, X b, a^2; a (s - 3 a^2).  Its values, regrouped
+    so that the operands stay unreduced: with s = 2((X + b)^2 - a - d) =
+    4 X b and m = 3a, x3 = m^2 - 2s = 9 a^2 - 2s, y3 = m (s - x3) - 8d =
+    9 a (s - 3 a^2) - 8d and z3 = (Y + Z)^2 - b - Z^2 = 2 Y Z, the same
+    polynomials (Fp2: 17 products, Fp: 7).  -> (x3, y3, z3), with the
+    third phase still open for more products."""
+    X, Y, Z = p
+    P.phase()
+    a, b, yz = F.sqr(P, X), F.sqr(P, Y), F.mul(P, Y, Z)
+    P.phase()
+    d, xb, aa = F.sqr(P, b), F.mul(P, X, b), F.sqr(P, a)
+    s = F.scale(xb, 4)
+    x3 = F.sub(F.scale(aa, 9), F.scale(s, 2))
+    P.phase()
+    t = F.mul(P, a, F.sub(s, F.scale(aa, 3)))
+    return x3, F.sub(F.scale(t, 9), F.scale(d, 8)), F.scale(yz, 2)
+
+
+def pt_add_rounds(P, F, p, q):
+    """The generic sum of curve.cuh pt_add (_pt_add_body) in five product
+    phases: Z1^2, Z2^2, Z1 Z2; u1, u2, Y1 Z2^2, Y2 Z1^2; s1, s2, h^2, z3;
+    h^3, v, r^2; r (v - x3), s1 h^3.  -> ((x3, y3, z3), h, r)."""
+    (X1, Y1, Z1), (X2, Y2, Z2) = p, q
+    P.phase()
+    z1z1, z2z2, z1z2 = F.sqr(P, Z1), F.sqr(P, Z2), F.mul(P, Z1, Z2)
+    P.phase()
+    u1, u2 = F.mul(P, X1, z2z2), F.mul(P, X2, z1z1)
+    t1, t2 = F.mul(P, Y1, z2z2), F.mul(P, Y2, z1z1)
+    P.phase()
+    s1, s2 = F.mul(P, t1, Z2), F.mul(P, t2, Z1)
+    h = F.sub(u2, u1)
+    hh, z3 = F.sqr(P, h), F.mul(P, z1z2, h)
+    P.phase()
+    r = F.sub(s2, s1)
+    hhh, v, rr = F.mul(P, h, hh), F.mul(P, u1, hh), F.sqr(P, r)
+    x3 = F.sub(F.sub(rr, hhh), F.scale(v, 2))
+    P.phase()
+    y3 = F.sub(F.mul(P, r, F.sub(v, x3)), F.mul(P, s1, hhh))
+    return (x3, y3, z3), h, r
+
+
+def ladder_bodies(P, F):
+    """The bodies of the constant-scalar ladder and the complete addition on
+    point_slots (group.cuh run_script and add_case run them):
+      take_base  acc = base;
+      dbl        acc = 2 acc (3 product phases, then acc);
+      add        the generic sum acc + base into sum, with h and r, whose
+                 zero flags and those of acc's and base's Z pick the case;
+      take_sum   acc = sum;
+      set_inf    acc = (one, one, 0)."""
+    acc, base = P.slot_list("acc"), P.slot_list("base")
+    sm, h, r = P.slot_list("sum"), P.slot_list("h"), P.slot_list("r")
+    (one,) = P.slot_list("one")
+    P.consts["kCoord"] = F.width
+    P.body("take_base")
+    P.phase()
+    store_all(P, acc, base)
+    P.body("dbl")
+    new = pt_dbl_rounds(P, F, F.point(acc))
+    P.phase()
+    store_all(P, acc, new)
+    P.body("add")
+    new, hv, rv = pt_add_rounds(P, F, F.point(acc), F.point(base))
+    P.phase()
+    store_all(P, sm + h + r, (new, hv, rv))
+    P.body("take_sum")
+    P.phase()
+    store_all(P, acc, sm)
+    P.body("set_inf")
+    P.phase()
+    store_all(P, acc, F.infinity(one))
+
+
+def point_slots(P, F):
+    """The named slots of a point program over F: the accumulator, the base
+    (P + Q's Q), the sum, h and r (width coordinates each) and the one."""
+    w = F.width
+    for name, count in (("acc", 3 * w), ("base", 3 * w), ("sum", 3 * w), ("h", w), ("r", w),
+                        ("one", 1)):
+        P.named(name, count)
+
+
+def ladder_program(F):
+    """pt_mul_const over F: the point in base, the Montgomery one in one;
+    the script a ladder, the result in acc."""
+    P = Program("ladder_g1" if F.width == 1 else "ladder_g2")
+    point_slots(P, F)
+    ladder_bodies(P, F)
+    P.script = [(LADDER, None)]
+    return P
+
+
+def cofactor_program():
+    """g2_cofactor (hash_kernels.cu): P in p, the constants cx, cy (Fp2) and
+    c2 (Fp) of psi and psi^2 and the one in their slots, then, in the order
+    of the one-thread body (every intermediate the same representative):
+      start     base = P;                  ladder: acc = L1 = [|x|]P
+      x1        base = xp = -L1, t1 = L1;  ladder: acc = L2 = [|x|]xp
+      aux_in    t2 = xxp = -L2, base = -P; then acc = xp;  add: aux
+      psi_aux   t3 = psi(aux); then acc = xxp, base = L1 = -xp;  add
+      sub_p     base = -P;  add
+      add_psi   base = t3;  add
+      psi2_2p   base = psi^2(2P) (the doubling traced on p, c2 x3 beside
+                its last product);  add."""
+    F = FP2_COORD
+    P = Program("g2_cofactor")
+    point_slots(P, F)
+    p, t1, t2, t3 = (P.named(name, 6) for name in ("p", "t1", "t2", "t3"))
+    cx, cy = fp2s(P.named("cx", 2))[0], fp2s(P.named("cy", 2))[0]
+    (c2,) = P.named("c2", 1)
+    ladder_bodies(P, F)
+    acc, base = P.slot_list("acc"), P.slot_list("base")
+
+    def neg(q):
+        X, Y, Z = F.point(q)
+        return (X, F.neg(Y), Z)
+
+    P.body("start")
+    P.phase()
+    store_all(P, base, p)
+    P.body("x1")
+    P.phase()
+    store_all(P, base + t1, (neg(acc), acc))
+    P.body("aux_in")
+    P.phase()
+    store_all(P, t2 + base, (neg(acc), neg(p)))
+    P.phase()
+    store_all(P, acc, neg(t1))
+    P.body("psi_aux")
+    P.phase()
+    X, Y, Z = F.point(acc)
+    px, py = f2_mul(P, (X[0], -X[1]), cx), f2_mul(P, (Y[0], -Y[1]), cy)
+    P.phase()
+    store_all(P, t3, (px, py, (Z[0], -Z[1])))
+    P.phase()
+    store_all(P, acc + base, (t2, t1))
+    P.body("sub_p")
+    P.phase()
+    store_all(P, base, neg(p))
+    P.body("add_psi")
+    P.phase()
+    store_all(P, base, t3)
+    P.body("psi2_2p")
+    x3, y3, z3 = pt_dbl_rounds(P, F, F.point(p))
+    cx3 = f2_muls(P, x3, c2)
+    P.phase()
+    store_all(P, base, (cx3, F.neg(y3), z3))
+    P.script = [(BODY, "start"), (LADDER, None), (BODY, "x1"), (LADDER, None)]
+    for body in ("aux_in", "psi_aux", "sub_p", "add_psi", "psi2_2p"):
+        P.script += [(BODY, body), (ADD, "add")]
+    return P
+
+
 def programs():
-    return [exp_x_program()] + [miller_program(k) for k in MILLER_PAIRS]
+    return ([exp_x_program()] + [miller_program(k) for k in MILLER_PAIRS]
+            + [ladder_program(FP_COORD), ladder_program(FP2_COORD), cofactor_program()])
+
+
+def elements_per_block(P, g):
+    """Elements per block of the kernel of program P at G = g (group.cuh)."""
+    return min(THREADS // g, MAX_SHARED // (P.nslots * SLOT_BYTES))
 
 
 def shared_bytes(P, g):
     """Dynamic shared memory of a block of the kernel of program P at G = g."""
-    return THREADS // g * P.nslots * SLOT_BYTES
+    return elements_per_block(P, g) * P.nslots * SLOT_BYTES
 
 
 def check_phases(P):
@@ -537,15 +760,66 @@ def run_body(P, body, slots):
     return slots
 
 
+def add_case(P, slots):
+    """The body that the complete addition's case picks after the body add,
+    or None (group.cuh add_case; curve.cuh pt_add, in _pt_add_body's order):
+    P at infinity -> take_base; Q at infinity -> none (acc is P); h = r =
+    0 -> dbl; h = 0 -> set_inf; else take_sum."""
+    c = P.consts["kCoord"]
+
+    def zero(name, off=0):
+        first = P.slots[name][0] + off
+        return not any(slots[first:first + c])
+
+    if zero("acc", 2 * c):
+        return "take_base"
+    if zero("base", 2 * c):
+        return None
+    if zero("h"):
+        return "dbl" if zero("r") else "set_inf"
+    return "take_sum"
+
+
+def run_script(P, segments, slots):
+    """Run a point program's script on a list of canonical ints, as
+    group.cuh run_script does: `segments` the ladder's (len, set bit) runs."""
+
+    def add():
+        run_body(P, "add", slots)
+        case = add_case(P, slots)
+        if case:
+            run_body(P, case, slots)
+
+    for kind, body in P.script:
+        if kind == BODY:
+            run_body(P, body, slots)
+        elif kind == ADD:
+            add()
+        else:
+            run_body(P, "take_base", slots)
+            for length, mul in segments:
+                for _ in range(length):
+                    run_body(P, "dbl", slots)
+                if mul:
+                    add()
+    return slots
+
+
 # ---------------------------------------------------------------- the header
 
 def _tables(progs):
-    """(terms, forms, ops, phases, {(program, body): (first, last phase)})."""
+    """(terms, forms, ops, phases, {(program, body): (first, last phase)},
+    script steps, {program: (first, last step)})."""
     terms, forms, ops, phases, ranges = [], [], [], [], {}
+    steps, scripts = [], {}
+    index = {}  # (terms, mode, halvings) -> form: a square's two operands are one form
 
     def form(lin, mode):
-        """Positive terms first: eval_form adds them, then the others."""
+        """Positive terms first: the kernels add them, then the others."""
         items = sorted(lin.c.items(), key=lambda sk: (sk[1] < 0, sk[0]))
+        key = (tuple(items), mode, lin.h)
+        if key in index:
+            return index[key]
         npos = sum(k > 0 for _, k in items)
         if len(items) >= 64 or lin.h > 3 or len(terms) >= 1 << 14:
             raise ValueError("form out of range")
@@ -554,7 +828,8 @@ def _tables(progs):
             if not (0 <= s < 256 and 0 < abs(k) < 256):
                 raise ValueError(f"term ({s}, {k}) out of range")
             terms.append(s | abs(k) << 8)
-        return len(forms) - 1
+        index[key] = len(forms) - 1
+        return index[key]
 
     for P in progs:
         check_phases(P)
@@ -570,9 +845,16 @@ def _tables(progs):
                                 0xFFFFFFFF if op.b is None else form(op.b, mb)))
             ranges[(P.name, name)] = (first, len(phases))
     phases.append(len(ops))
-    if len(forms) >= 1 << 16:
+    if len(forms) >= 1 << 16 or len(phases) >= 1 << 16:
         raise ValueError("tables too large")
-    return terms, forms, ops, phases, ranges
+    for P in progs:
+        if P.script:
+            first = len(steps)
+            for kind, body in P.script:
+                a, b = ranges[(P.name, body)] if body else (0, 0)
+                steps.append((kind, a | b << 16))
+            scripts[P.name] = (first, len(steps))
+    return terms, forms, ops, phases, ranges, steps, scripts
 
 
 def _array(ctype, name, values, per_line=8, fmt="{}"):
@@ -585,7 +867,7 @@ def _array(ctype, name, values, per_line=8, fmt="{}"):
 def render():
     """The text of csrc/group_rounds.cuh."""
     progs = programs()
-    terms, forms, ops, phases, ranges = _tables(progs)
+    terms, forms, ops, phases, ranges, steps, scripts = _tables(progs)
     out = [
         "// Generated by bls_verify_gadget_tpu_torch/ops/group_rounds.py: do not edit.",
         "// python3 -m bls_verify_gadget_tpu_torch.ops.group_rounds rewrites it.",
@@ -598,8 +880,11 @@ def render():
         "//   kGroupOps    an op: {form A | destination slot << 16, form B or ~0u",
         "//                for a combination}",
         "//   kGroupPhases the first op of each phase (and the end of the last)",
-        "// and per program its slot count, named slots and bodies [first, last",
-        "// phase).  Products per body in the comments.",
+        "//   kGroupScript a point program's step: {kind (0 a body, 1 an addition,",
+        "//                2 a ladder), its body's first | last phase << 16}",
+        "// and per program its slot count, named slots, bodies [first, last",
+        "// phase) and script [first, last step).  Products per body in the",
+        "// comments.",
         "#pragma once",
         "",
         "#include <cstdint>",
@@ -607,25 +892,32 @@ def render():
         "namespace bls {",
         "namespace group {",
         "",
-        f"constexpr int kThreads = {THREADS};  // threads per block of a group kernel",
+        f"constexpr int kThreads = {THREADS};  // threads per block of a group kernel, or",
+        f"constexpr int kMaxShared = {MAX_SHARED};  // fewer where the slots would pass this",
         "",
     ]
     for P in progs:
         cname = "".join(w.capitalize() for w in P.name.split("_"))
         out.append(f"struct {cname}Program {{")
         out.append(f"  static constexpr int kSlots = {P.nslots};")
+        for name, value in P.consts.items():
+            out.append(f"  static constexpr int {name} = {value};")
         for name, (first, count) in P.slots.items():
             out.append(f"  static constexpr int kSlot_{name} = {first};  // {count} slots")
         for name in P.bodies:
             a, b = ranges[(P.name, name)]
             out.append(f"  static constexpr int kBody_{name} = {a}, kEnd_{name} = {b};"
                        f"  // {products(P, name)} products")
+        if P.name in scripts:
+            a, b = scripts[P.name]
+            out.append(f"  static constexpr int kScript = {a}, kEndScript = {b};")
         out.append("};")
         out.append("")
     out.append(_array("uint16_t", "kGroupTerms", terms, 12, "0x{:04x}"))
     out.append(_array("uint32_t", "kGroupForms", forms, 6, "0x{:08x}u"))
     out.append(_array("uint2", "kGroupOps", [f"{{0x{a:08x}u, 0x{b:08x}u}}" for a, b in ops], 3))
     out.append(_array("uint16_t", "kGroupPhases", phases, 12))
+    out.append(_array("uint2", "kGroupScript", [f"{{{k}u, 0x{r:08x}u}}" for k, r in steps], 4))
     out += ["}  // namespace group", "}  // namespace bls", ""]
     return "\n".join(out)
 

@@ -144,32 +144,37 @@ def build() -> pathlib.Path:
     return so
 
 
-def _declare(lib):
+def _declare(lib, names=KERNELS):
+    """Argument and result types of the entry points bls_<name> of `names`
+    (all the kernels of the library; one unit's in a build of that unit)."""
     vp, i64, i32, u32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_uint
-    lib.bls_mul.argtypes = [vp, vp, vp, i64, i32, vp, u32, vp]
-    lib.bls_add.argtypes = [vp, vp, vp, i64, i32, vp, vp]
-    lib.bls_sub.argtypes = [vp, vp, vp, i64, i32, vp, vp]
-    lib.bls_fp2_mul.argtypes = [vp, vp, vp, vp, vp, vp, i64, vp, u32, vp]
-    lib.bls_fp2_sqr.argtypes = [vp, vp, vp, vp, i64, vp, u32, vp]
-    lib.bls_fp6_mul.argtypes = [vp, vp, i64, vp, u32, vp]
-    lib.bls_fp12_mul.argtypes = [vp, vp, i64, vp, u32, vp]
-    lib.bls_fp12_sqr.argtypes = [vp, vp, i64, vp, u32, vp]
-    lib.bls_miller_dbl_run.argtypes = [vp, vp, vp, i64, i32, i32, vp, u32, vp]
-    lib.bls_miller_add.argtypes = [vp, vp, vp, i64, i32, vp, u32, vp]
-    lib.bls_exp_x.argtypes = [vp, vp, i64, vp, vp, i32, vp, u32, vp]
-    lib.bls_pow_win.argtypes = [vp, vp, i64, i32, vp, i32, vp, u32, vp]
-    lib.bls_pt_mul_const.argtypes = [vp, vp, i64, i32, vp, vp, i32, vp, vp, u32, vp]
-    lib.bls_g2_cofactor.argtypes = [vp, vp, i64, vp, vp, i32, vp, vp, vp, u32, vp]
-    lib.bls_sswu_map2.argtypes = [vp, vp, vp, i64, vp, i32, vp, i32, vp, vp, u32, vp]
-    lib.bls_pt_dbl.argtypes = [vp, vp, i64, i32, i32, vp, u32, vp]
-    lib.bls_pt_add.argtypes = [vp, vp, i64, i32, vp, vp, u32, vp]
-    lib.bls_pt_mul_var.argtypes = [vp, vp, vp, i64, i32, i32, vp, vp, u32, vp]
-    lib.bls_mul014.argtypes = [vp, vp, vp, i64, vp, u32, vp]
-    lib.bls_dbl_step.argtypes = [vp, vp, vp, i64, vp, u32, vp]
-    lib.bls_add_step.argtypes = [vp, vp, vp, vp, i64, vp, u32, vp]
-    lib.bls_cyclo_sqr.argtypes = [vp, vp, i64, i32, vp, u32, vp]
-    for name in KERNELS:
-        getattr(lib, f"bls_{name}").restype = ctypes.c_int
+    argtypes = {
+        "mul": [vp, vp, vp, i64, i32, vp, u32, vp],
+        "add": [vp, vp, vp, i64, i32, vp, vp],
+        "sub": [vp, vp, vp, i64, i32, vp, vp],
+        "fp2_mul": [vp, vp, vp, vp, vp, vp, i64, vp, u32, vp],
+        "fp2_sqr": [vp, vp, vp, vp, i64, vp, u32, vp],
+        "fp6_mul": [vp, vp, i64, vp, u32, vp],
+        "fp12_mul": [vp, vp, i64, vp, u32, vp],
+        "fp12_sqr": [vp, vp, i64, vp, u32, vp],
+        "miller_dbl_run": [vp, vp, vp, i64, i32, i32, vp, u32, vp],
+        "miller_add": [vp, vp, vp, i64, i32, vp, u32, vp],
+        "exp_x": [vp, vp, i64, vp, vp, i32, vp, u32, vp],
+        "pow_win": [vp, vp, i64, i32, vp, i32, vp, u32, vp],
+        "pt_mul_const": [vp, vp, i64, i32, vp, vp, i32, vp, vp, u32, vp],
+        "g2_cofactor": [vp, vp, i64, vp, vp, i32, vp, vp, vp, u32, vp],
+        "sswu_map2": [vp, vp, vp, i64, vp, i32, vp, i32, vp, vp, u32, vp],
+        "pt_dbl": [vp, vp, i64, i32, i32, vp, u32, vp],
+        "pt_add": [vp, vp, i64, i32, vp, vp, u32, vp],
+        "pt_mul_var": [vp, vp, vp, i64, i32, i32, vp, vp, u32, vp],
+        "mul014": [vp, vp, vp, i64, vp, u32, vp],
+        "dbl_step": [vp, vp, vp, i64, vp, u32, vp],
+        "add_step": [vp, vp, vp, vp, i64, vp, u32, vp],
+        "cyclo_sqr": [vp, vp, i64, i32, vp, u32, vp],
+    }
+    for name in names:
+        fn = getattr(lib, f"bls_{name}")
+        fn.argtypes, fn.restype = argtypes[name], ctypes.c_int
 
 
 def library():
@@ -577,12 +582,17 @@ def g2_cofactor(field, p, segments):
         from . import curve
 
         return curve.g2_cofactor_plain(p, segments)
+    lens, muls, nseg = _segments("g2_cofactor", segments)
+    return _packed_launch("g2_cofactor", field, p, 6, 6, lens, muls, nseg, psi_words(field),
+                          _mont_words(field, [1]))
+
+
+def psi_words(field):
+    """Address of g2_cofactor's psi constants cx, cy (Fp2) and c2 (Fp) as
+    host Montgomery words, in the order the kernel takes them."""
     from .. import constants as C
 
-    lens, muls, nseg = _segments("g2_cofactor", segments)
-    psi = _mont_words(field, [*C.PSI_X, *C.PSI_Y, C.PSI2_X_C0])
-    return _packed_launch("g2_cofactor", field, p, 6, 6, lens, muls, nseg, psi,
-                          _mont_words(field, [1]))
+    return _mont_words(field, [*C.PSI_X, *C.PSI_Y, C.PSI2_X_C0])
 
 
 def sswu_map2(field, u):

@@ -80,23 +80,29 @@ Needs one CUDA card and nvcc.  Phases, each fatal on failure:
      the slow plain versions of the others: their one comparison call at
      the main size), and the bound from bytes and
      integer multiply-adds;
-  8. group    -- the group kernels miller_dbl_run (k = 1 and 2) and exp_x
-     (csrc/group.cuh) at 4096 and 4095 elements with mixed valid masks:
-     bit-equal to the plain versions; the sweep's other group sizes (G =
-     4 and 16 threads per element beside the library's 8: throwaway copies
-     of csrc/pairing_kernels.cu built with -DBLS_GROUP=G into build/, in
-     parallel with the library) bit-equal to the wrapper, and device ms
-     per launch of each G at 4096; with --parent DIR, the parent commit's
-     one-thread kernels (its pairing_kernels.cu, built from DIR in
-     parallel too) bit-equal as well and timed interleaved with this
-     tree's (parent, group, group, parent).  ptxas's registers, stack and
-     spills of each group kernel instance are printed under [build].
+  8. group    -- the group kernels (csrc/group.cuh): miller_dbl_run (k =
+     1 and 2) and exp_x at 4096 and 4095 elements with mixed valid masks,
+     pt_mul_const (G1 and G2 by |x|) and g2_cofactor at 4096, 4095 and 1
+     with the ladders' edge points in the first elements (the infinity,
+     G1 points of order 3 and 11, which meet the complete addition's
+     P == -Q and P == Q cases, the off-subgroup points): bit-equal to the
+     plain versions; the sweep's other group sizes (throwaway copies of
+     csrc/pairing_kernels.cu built with -DBLS_GROUP=G for G = 4 and 16
+     beside the library's 8, and of csrc/hash_kernels.cu built with
+     -DBLS_LADDER_GROUP=G for G = 2, 4 and 8, into build/, in parallel
+     with the library) bit-equal to the wrapper, and device ms per launch
+     of each G at 4096 (and at 1 for the ladders); with --parent DIR, the
+     parent commit's kernels (its pairing_kernels.cu and hash_kernels.cu,
+     built from DIR in parallel too) bit-equal as well and timed
+     interleaved with this tree's (parent, group, group, parent).  ptxas's
+     registers, stack and spills and the shared memory per block of each
+     group kernel instance are printed under [build].
 Prints one JSON line of kernels, the card's name and power limit, and as
 its last line {"ok": true, "device": {...}}.  Imports nothing of JAX.
 
     python3 chip_smoke.py --group [--parent DIR]
 
-runs only phases 1, 2 and 8: the two group kernels' checks, sweep and
+runs only phases 1, 2 and 8: the group kernels' checks, sweep and
 timing.
 """
 
@@ -975,11 +981,14 @@ def _pow_products(c, exponent):
 
 
 def _ladder_products(c, segments):
-    """Montgomery products of one constant-scalar ladder per element
-    (csrc/curve.cuh ladder): a doubling is 8 (G1) or 17 (G2), a complete
-    addition 16 or 44.  The addition's doubling case (P == acc, finite)
-    does not arise in this data and is not counted."""
-    dbl, add = (8, 16) if c == 1 else (17, 44)
+    """Montgomery products of one constant-scalar ladder per element (the
+    programs of ops/group_rounds.py): a doubling is 7 (G1) or 17 (G2), a
+    complete addition 16 or 44.  The addition's doubling case (acc == P,
+    finite) needs a doubling more; it arises only where a prefix of the
+    scalar is 1 modulo the point's order (the [group] phase's order-11 G1
+    point, ladder_edge_points), never for the main path's points, whose
+    order is r or a multiple of it, and the bound does not count it."""
+    dbl, add = (7, 16) if c == 1 else (17, 44)
     return sum(s for s, _ in segments) * dbl + sum(1 for _, b in segments if b) * add
 
 
@@ -1580,15 +1589,40 @@ def kernel_phase(torch, K, launches, sizes, verify_s, ctx, keys, steps):
 # parent commit's one-thread kernels
 # ----------------------------------------------------------------------------
 
-GROUP_SWEEP = (4, 8, 16)  # threads per element; the library's is BLS_GROUP
-GROUP_KERNELS = ("miller_dbl_run", "exp_x")
-GROUP_LOG = re.compile(r"(miller_dbl_run|exp_x)_kernelILi(\d+)E(?:Li(\d+)E)?")
+# threads per element swept: the pairing unit's group kernels (the library's
+# is BLS_GROUP) and the hash unit's ladders (kGroupG1, kGroupG2,
+# kGroupCofactor)
+GROUP_SWEEP = {"pairing": (4, 8, 16), "hash": (2, 4, 8)}
+GROUP_UNITS = {"pairing": "pairing_kernels.cu", "hash": "hash_kernels.cu"}
+GROUP_DEFINE = {"pairing": "BLS_GROUP", "hash": "BLS_LADDER_GROUP"}
+# group kernel -> its unit; a group instance: the kernel, or the ladder's field
+GROUP_KERNELS = {"miller_dbl_run": "pairing", "exp_x": "pairing", "pt_mul_const": "hash",
+                 "g2_cofactor": "hash"}
+# ptxas's mangled name of each group kernel instance -> (label, program of
+# ops/group_rounds.py, G)
+GROUP_LOG = (
+    (re.compile(r"miller_dbl_run_kernelILi(\d+)ELi(\d+)E"),
+     lambda m: (f"miller_dbl_run<K={m[1]}, G={m[2]}>", f"miller{m[1]}", int(m[2]))),
+    (re.compile(r"exp_x_kernelILi(\d+)E"),
+     lambda m: (f"exp_x<G={m[1]}>", "exp_x", int(m[1]))),
+    (re.compile(r"pt_mul_const_kernelIN3bls5group\d+Ladder(G[12])ProgramELi(\d+)E"),
+     lambda m: (f"pt_mul_const<{m[1]}, G={m[2]}>", f"ladder_{m[1].lower()}", int(m[2]))),
+    (re.compile(r"g2_cofactor_kernelILi(\d+)E"),
+     lambda m: (f"g2_cofactor<G={m[1]}>", "g2_cofactor", int(m[1]))),
+)
 
 
-def library_group(K):
-    """The library's threads per element: pairing_kernels.cu's BLS_GROUP."""
-    src = (K.CSRC_DIR / "pairing_kernels.cu").read_text()
-    return int(re.search(r"#define BLS_GROUP (\d+)", src).group(1))
+def library_groups(K):
+    """The library's threads per element of each group instance:
+    pairing_kernels.cu's BLS_GROUP, hash_kernels.cu's kGroupG1, kGroupG2
+    and kGroupCofactor."""
+    pairing = int(re.search(r"#define BLS_GROUP (\d+)",
+                            (K.CSRC_DIR / GROUP_UNITS["pairing"]).read_text())[1])
+    g1, g2, cofactor = map(int, re.search(
+        r"#else\nconstexpr int kGroupG1 = (\d+), kGroupG2 = (\d+), kGroupCofactor = (\d+);",
+        (K.CSRC_DIR / GROUP_UNITS["hash"]).read_text()).groups())
+    return {"miller_dbl_run": pairing, "exp_x": pairing, "pt_mul_const G1": g1,
+            "pt_mul_const G2": g2, "g2_cofactor": cofactor}
 
 
 def group_build_report(log_path, label):
@@ -1601,27 +1635,22 @@ def group_build_report(log_path, label):
     name, lines = None, []
     for line in log_path.read_text().splitlines():
         if "Compiling entry function" in line or "Function properties for" in line:
-            hit = GROUP_LOG.search(line)
-            if hit is None:
-                name = None
-            elif hit.group(3):  # miller_dbl_run<K, G>
-                name = (f"miller_dbl_run<K={hit.group(2)}, G={hit.group(3)}>",
-                        f"miller{hit.group(2)}", int(hit.group(3)))
-            else:  # exp_x<G>
-                name = f"exp_x<G={hit.group(2)}>", "exp_x", int(hit.group(2))
+            hits = [(pat.search(line), fn) for pat, fn in GROUP_LOG]
+            name = next((fn(m) for m, fn in hits if m), None)
             continue
         if name and ("stack frame" in line or "Used" in line):
             lines.append((name, line.strip()))
     for name in sorted({n for n, _ in lines}):
+        P = progs[name[1]]
         log(f"[build] ptxas {name[0]} ({label}): "
             + "; ".join(t for n, t in lines if n == name)
-            + f"; {GR.shared_bytes(progs[name[1]], name[2])} bytes of dynamic shared "
-            f"memory per block")
+            + f"; {GR.shared_bytes(P, name[2])} bytes of dynamic shared memory per block "
+            f"({GR.elements_per_block(P, name[2])} elements of {P.nslots} slots)")
 
 
-def pairing_build_start(K, src, so, defines=()):
-    """Start nvcc on one pairing unit `src` into the throwaway library `so`
-    under build/ -> (process, library, log)."""
+def unit_build_start(K, src, so, defines=()):
+    """Start nvcc on one unit `src` into the throwaway library `so` under
+    build/ -> (process, library, log)."""
     K.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     log_path = so.with_suffix(".log")
     with open(log_path, "w") as fh:
@@ -1632,29 +1661,39 @@ def pairing_build_start(K, src, so, defines=()):
 
 
 def sweep_build_start(K):
-    """Start nvcc on this tree's pairing unit at each G of the sweep but the
-    library's -> {G: (process, library, log)}."""
-    src = K.CSRC_DIR / "pairing_kernels.cu"
-    return {g: pairing_build_start(K, src, K.BUILD_DIR / f"sweep_group{g}.so",
-                                   (f"-DBLS_GROUP={g}",))
-            for g in GROUP_SWEEP if g != library_group(K)}
+    """Start nvcc on this tree's group units at each G of their sweep that
+    the library does not hold for every instance of the unit -> {(unit, G):
+    (process, library, log)}."""
+    lib = library_groups(K)
+    started = {}
+    for unit, sweep in GROUP_SWEEP.items():
+        have = {g for key, g in lib.items() if GROUP_KERNELS[key.split()[0]] == unit}
+        for g in sweep:
+            if have != {g}:
+                started[(unit, g)] = unit_build_start(
+                    K, K.CSRC_DIR / GROUP_UNITS[unit], K.BUILD_DIR / f"sweep_{unit}{g}.so",
+                    (f"-D{GROUP_DEFINE[unit]}={g}",))
+    return started
 
 
 def parent_build_start(K, parent):
-    """Start nvcc on the parent tree's pairing unit: DIR is a git archive of
+    """Start nvcc on the parent tree's group units: DIR is a git archive of
     the parent commit in a git-ignored directory of this checkout, such as
-    chip_scratch/ -> (process, library, log)."""
+    chip_scratch/ -> {unit: (process, library, log)}."""
     root = pathlib.Path(parent).resolve()
     if not root.is_relative_to(ROOT):
         raise RuntimeError(f"--parent: {root} lies outside the checkout {ROOT}")
-    src = root / "bls_verify_gadget_tpu_torch" / "csrc" / "pairing_kernels.cu"
-    if not src.is_file():
-        raise RuntimeError(f"--parent: {src} not found")
-    return pairing_build_start(K, src, K.BUILD_DIR / "parent_pairing_kernels.so")
+    started = {}
+    for unit, name in GROUP_UNITS.items():
+        src = root / "bls_verify_gadget_tpu_torch" / "csrc" / name
+        if not src.is_file():
+            raise RuntimeError(f"--parent: {src} not found")
+        started[unit] = unit_build_start(K, src, K.BUILD_DIR / f"parent_{name[:-3]}.so")
+    return started
 
 
-def pairing_library(started):
-    """Wait for a pairing_build_start build -> its library, with the two
+def unit_library(K, unit, started):
+    """Wait for a unit_build_start build -> its library, with the unit's
     group kernels' entry points declared as in ops/kernels.py."""
     import ctypes
 
@@ -1662,10 +1701,7 @@ def pairing_library(started):
     if proc.wait() != 0:
         raise RuntimeError(f"build of {so.name} failed:\n{log_path.read_text()}")
     lib = ctypes.CDLL(str(so))
-    vp, i64, i32, u32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_uint
-    lib.bls_miller_dbl_run.argtypes = [vp, vp, vp, i64, i32, i32, vp, u32, vp]
-    lib.bls_exp_x.argtypes = [vp, vp, i64, vp, vp, i32, vp, u32, vp]
-    lib.bls_miller_dbl_run.restype = lib.bls_exp_x.restype = ctypes.c_int
+    K._declare(lib, [k for k, u in GROUP_KERNELS.items() if u == unit])
     return lib
 
 
@@ -1685,41 +1721,103 @@ def entry_launch(torch, K, name, fn, args):
         def launch():
             K._check_rc(name, fn(packed.data_ptr(), mask.data_ptr(), out.data_ptr(), n, k,
                                  count, p, n0, K._stream(packed)))
-    else:
-        m, segs = args
-        lens, muls, nseg = K._segments(name, segs)
-        out = torch.empty_like(m)
+        return launch, out
+    m, segs = args
+    lens, muls, nseg = K._segments(name, segs)
+    out = torch.empty_like(m)
+    one = K._mont_words(FP, [1])
+    tail = {"exp_x": (lens, muls, nseg),
+            "pt_mul_const": (m.shape[0] // 3, lens, muls, nseg, one),
+            "g2_cofactor": (lens, muls, nseg, K.psi_words(FP), one)}[name]
 
-        def launch():
-            K._check_rc(name, fn(m.data_ptr(), out.data_ptr(), m.shape[1], lens, muls,
-                                 nseg, p, n0, K._stream(m)))
+    def launch():  # holds out: a captured graph writes it after the caller drops it
+        K._check_rc(name, fn(m.data_ptr(), out.data_ptr(), m.shape[1], *tail, p, n0,
+                             K._stream(m)))
     return launch, out
 
 
+def ladder_edge_points():
+    """Host affine edge points of the ladder cases (None the infinity):
+    G1 the infinity, [#E1/3] (5, y) of order 3 (the first addition of the
+    |x| ladder meets acc = [2]P = -P, then acc at infinity), [#E1/121]
+    (4, y) of order 11 (its second addition meets acc = [12]P = P, the
+    doubling case), the off-subgroup point; G2 the infinity and the
+    off-subgroup point."""
+    from bls_verify_gadget_tpu_torch import constants as C
+    from bls_verify_gadget_tpu_torch.golden import field as GF
+
+    p = C.P
+
+    def add(a, b):  # affine, on E1
+        if a is None or b is None:
+            return b if a is None else a
+        (x1, y1), (x2, y2) = a, b
+        if x1 == x2 and (y1 + y2) % p == 0:
+            return None
+        lam = (3 * x1 * x1 * pow(2 * y1, -1, p) if x1 == x2
+               else (y2 - y1) * pow(x2 - x1, -1, p)) % p
+        x3 = (lam * lam - x1 - x2) % p
+        return x3, (lam * (x1 - x3) - y1) % p
+
+    def mul(pt, k):
+        acc = None
+        for bit in bin(k)[2:]:
+            acc = add(acc, acc)
+            acc = add(acc, pt) if bit == "1" else acc
+        return acc
+
+    order = (C.ABS_X + 1) ** 2 // 3 * C.R  # #E1 = h1 r, h1 = (x - 1)^2 / 3
+    small = [mul((x, GF.fp_sqrt((x**3 + 4) % p)), order // m) for x, m in ((5, 3), (4, 121))]
+    off1, off2 = off_subgroup_points()
+    return [None, *small, off1], [None, off2]
+
+
 def group_cases(torch, rng):
-    """(label, kernel, args, timed) of the group phase: miller_dbl_run with
-    two pairs and with one, runs of 32 at 4096 (timed) and of 3 at 4095 (a
-    count that is no multiple of any G's elements per block), exp_x over
-    |x| at 4096 (timed) and 4095; masks mixed (pairing_inputs: 3/4 valid)."""
+    """(label, kernel, instance, args, timed) of the group phase:
+    miller_dbl_run with two pairs and with one, runs of 32 at 4096 (timed)
+    and of 3 at 4095 (a count that is no multiple of any G's elements per
+    block), exp_x over |x| at 4096 (timed) and 4095; masks mixed
+    (pairing_inputs: 3/4 valid); pt_mul_const by |x| in G1 and G2 and
+    g2_cofactor at 4096 (timed), 4095 and 1 (timed), the counts the paths
+    launch them with: seeded random coordinates (off the curve; the kernels
+    and the plain versions compute the same formulas), with
+    ladder_edge_points in elements 0 and up of 4096 and 4095."""
     from bls_verify_gadget_tpu_torch.ops import curve as CV
+    from bls_verify_gadget_tpu_torch.ops.fp import FP
 
     longest = max(c for c, _ in CV.X_SEGMENTS)
-    return [
-        (f"k = 2, run of {longest}, {BATCH}", "miller_dbl_run",
+    cases = [
+        (f"k = 2, run of {longest}, {BATCH}", "miller_dbl_run", "miller_dbl_run",
          pairing_inputs(torch, rng, "miller_dbl_run", BATCH, longest, k=2), True),
-        (f"k = 1, run of {longest}, {BATCH}", "miller_dbl_run",
+        (f"k = 1, run of {longest}, {BATCH}", "miller_dbl_run", "miller_dbl_run",
          pairing_inputs(torch, rng, "miller_dbl_run", BATCH, longest, k=1), True),
-        (f"k = 2, run of 3, {BATCH - 1}", "miller_dbl_run",
+        (f"k = 2, run of 3, {BATCH - 1}", "miller_dbl_run", "miller_dbl_run",
          pairing_inputs(torch, rng, "miller_dbl_run", BATCH - 1, 3, k=2), False),
-        (f"k = 1, run of 3, {BATCH - 1}", "miller_dbl_run",
+        (f"k = 1, run of 3, {BATCH - 1}", "miller_dbl_run", "miller_dbl_run",
          pairing_inputs(torch, rng, "miller_dbl_run", BATCH - 1, 3, k=1), False),
-        (f"|x|, {BATCH}", "exp_x", pairing_inputs(torch, rng, "exp_x", BATCH), True),
-        (f"|x|, {BATCH - 1}", "exp_x", pairing_inputs(torch, rng, "exp_x", BATCH - 1), False),
+        (f"|x|, {BATCH}", "exp_x", "exp_x", pairing_inputs(torch, rng, "exp_x", BATCH), True),
+        (f"|x|, {BATCH - 1}", "exp_x", "exp_x",
+         pairing_inputs(torch, rng, "exp_x", BATCH - 1), False),
     ]
+    top = FP.modulus >> (16 * 23)
+    edges1, edges2 = ladder_edge_points()
+    ladders = (("G1 by |x|", "pt_mul_const", "pt_mul_const G1", 3, CV.FP_OPS,
+                CV.g1_encode_batch, edges1),
+               ("G2 by |x|", "pt_mul_const", "pt_mul_const G2", 6, CV.FP2_OPS,
+                CV.g2_encode_batch, edges2),
+               ("G2", "g2_cofactor", "g2_cofactor", 6, CV.FP2_OPS, CV.g2_encode_batch, edges2))
+    for what, name, key, c, ops, enc, edges in ladders:
+        for n in (BATCH, BATCH - 1, 1):
+            pts = rand_limbs(torch, rng, c * n, top).view(c, n, 24)
+            e = min(len(edges), n) if n > 1 else 0
+            pts[:, :e] = CV.pack_point(ops, enc(edges[:e], "cuda"))
+            label = f"{what}, {n}" + (f", edge points in elements 0-{e - 1}" if e else "")
+            cases.append((label, name, key, (pts, CV.X_SEGMENTS), n != BATCH - 1))
+    return cases
 
 
 def group_phase(torch, K, sweep_started, parent_started=None):
-    """The two group kernels (module docstring, phase 8): on each case of
+    """The group kernels (module docstring, phase 8): on each case of
     group_cases, the wrapper bit-equal to the plain version, each G of the
     sweep (the library's and the throwaway builds of sweep_started) and the
     parent's one-thread kernel bit-equal to the wrapper, all on the same
@@ -1730,13 +1828,15 @@ def group_phase(torch, K, sweep_started, parent_started=None):
     import numpy as np
 
     rng = np.random.default_rng(SEED + 3)
-    libs = {library_group(K): K.library()}
-    for g, started in sweep_started.items():
-        libs[g] = pairing_library(started)
-        group_build_report(started[2], f"sweep build, BLS_GROUP={g}")
-    parent = pairing_library(parent_started) if parent_started else None
+    lib_g = library_groups(K)
+    libs = {}
+    for (unit, g), started in sweep_started.items():
+        libs[(unit, g)] = unit_library(K, unit, started)
+        group_build_report(started[2], f"sweep build, {GROUP_DEFINE[unit]}={g}")
+    parent = {unit: unit_library(K, unit, s) for unit, s in (parent_started or {}).items()}
     out = {name: {} for name in GROUP_KERNELS}
-    for label, name, args, timed in group_cases(torch, rng):
+    for label, name, key, args, timed in group_cases(torch, rng):
+        unit = GROUP_KERNELS[name]
         kern, plain = kernel_call(name)
         got = kern(*args)
         err = max_err(got, plain(*args))
@@ -1744,10 +1844,12 @@ def group_phase(torch, K, sweep_started, parent_started=None):
             raise RuntimeError(f"group kernel {name} ({label}) disagrees with its plain version: "
                                f"max |err| {err}")
         want = torch.cat([g.reshape(-1, *g.shape[-2:]) for g in flat_outputs(got)])
-        variants = [(f"G = {g}", getattr(libs[g], f"bls_{name}")) for g in sorted(libs)]
-        variants.append(("group", getattr(libs[library_group(K)], f"bls_{name}")))
-        if parent is not None:
-            variants.append(("parent", getattr(parent, f"bls_{name}")))
+        variants = [(f"G = {g}", libs.get((unit, g), K.library() if g == lib_g[key] else None))
+                    for g in GROUP_SWEEP[unit]]
+        variants = [(v, getattr(lib, f"bls_{name}")) for v, lib in variants if lib is not None]
+        variants.append(("group", getattr(K.library(), f"bls_{name}")))
+        if parent:
+            variants.append(("parent", getattr(parent[unit], f"bls_{name}")))
         launches = {}
         for vlabel, fn in variants:
             launch, res = entry_launch(torch, K, name, fn, args)
@@ -1756,14 +1858,14 @@ def group_phase(torch, K, sweep_started, parent_started=None):
             if not torch.equal(res, want):
                 raise RuntimeError(f"{name} ({label}), {vlabel}: differs from the wrapper's output")
             launches[vlabel] = launch
-        row = {"elements": args[0].shape[1], "max_abs_err": err}
+        row = {"elements": args[0].shape[1], "max_abs_err": err, "G": lib_g[key]}
         extra = ""
         if timed:
             row.update({v: device_ms(torch, fn, (), 3, 2) for v, fn in launches.items()
                         if v.startswith("G = ")})
             extra = "; device ms per launch: " + ", ".join(
                 f"{v} {row[v]:.5f}" for v in launches if v.startswith("G = "))
-            if parent is not None:
+            if parent:
                 times = {"parent": [], "group": []}
                 for who in ("parent", "group", "group", "parent"):
                     times[who].append(device_ms(torch, launches[who], (), 3, 2))
@@ -1776,7 +1878,7 @@ def group_phase(torch, K, sweep_started, parent_started=None):
                           f"({row['parent_ms'] / row['group_ms']:.2f}x)")
         out[name][label] = row
         log(f"[group] {name} ({label}): bit-equal to plain; {', '.join(launches)} bit-equal "
-            f"to it{extra}")
+            f"to it (library G = {lib_g[key]}){extra}")
     return out
 
 
@@ -1787,11 +1889,11 @@ def main():
 
     ap = argparse.ArgumentParser(description="On-card smoke run of the PyTorch/CUDA port.")
     ap.add_argument("--group", action="store_true",
-                    help="run only the device, build and group phases (the two group kernels)")
+                    help="run only the device, build and group phases (the group kernels)")
     ap.add_argument("--parent", metavar="DIR",
                     help="a git archive of the parent commit in a git-ignored directory of "
-                         "this checkout: time its miller_dbl_run and exp_x kernels "
-                         "interleaved with this tree's in the group phase")
+                         "this checkout: time its miller_dbl_run, exp_x, pt_mul_const and "
+                         "g2_cofactor kernels interleaved with this tree's in the group phase")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1822,7 +1924,7 @@ def main():
                     row["group"] = group[row["name"]]
             print(json.dumps({"kernels": rows}))
     finally:  # a phase that failed leaves no nvcc of the sweep or the parent running
-        for proc, _, _ in [*sweep.values(), *([parent] if parent else [])]:
+        for proc, _, _ in [*sweep.values(), *(parent or {}).values()]:
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()

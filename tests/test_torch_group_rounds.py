@@ -5,16 +5,27 @@ ints as the kernels run it (run_body: phase by phase, every form and
 product with the kernels' bounds checked) gives the limbs of the plain
 versions of miller_dbl_run and exp_x (ops/pairing.py) on seeded random
 operands, off the curve and off the cyclotomic subgroup, with mixed valid
-masks.  Tolerance 0."""
+masks; the point programs' scripts (run_script) give those of
+pt_mul_const (G1, G2) and g2_cofactor (ops/curve.py) on edge points, and
+in affine the JAX package's golden curve and, in G1, its jitted
+pt_mul_const.  Tolerance 0."""
 
+import jax
 import numpy as np
 import pytest
 import torch
 
+from bls_verify_gadget_tpu import constants as JC
+from bls_verify_gadget_tpu.golden import curve as GC
+from bls_verify_gadget_tpu.golden import field as GF
+from bls_verify_gadget_tpu.ops import curve as JCV
 from bls_verify_gadget_tpu_torch import constants as C
+from bls_verify_gadget_tpu_torch.convert import limbs_from_numpy
+from bls_verify_gadget_tpu_torch.ops import curve as CV
 from bls_verify_gadget_tpu_torch.ops import group_rounds as GR
 from bls_verify_gadget_tpu_torch.ops import pairing as PR
 from bls_verify_gadget_tpu_torch.ops.limbs import ints_to_limbs, limbs_to_int
+from test_torch_curve_hash_pairing import g1_off_subgroup, g2_off_subgroup
 
 N = 3  # elements
 
@@ -79,3 +90,115 @@ def test_miller_bodies_match_the_plain_version(k):
                     GR.run_body(P, f"line{q}", slots)
         got = slots[:12] + [slots[12 + 8 * q + c] for q in range(k) for c in range(6)]
         assert got == [want[c][i] for c in range(12 + 6 * k)]
+
+
+# ---------------------------------------------------------------------------
+# the point programs: pt_mul_const (G1, G2) and g2_cofactor
+# ---------------------------------------------------------------------------
+
+def _small_order_g1(x0, m):
+    """[#E1 / m] (x0, y) with #E1 = h1 r, h1 = (x - 1)^2 / 3."""
+    y = GF.fp_sqrt((x0**3 + 4) % JC.P)
+    return GC.g1_mul((x0, y), (JC.ABS_X + 1) ** 2 // 3 * JC.R // m)
+
+
+def _mont(v):
+    return v * (1 << 384) % C.P
+
+
+def _g2_jacobian(pt, z):
+    """Montgomery ints X, Y, Z (re, im each) of the affine G2 point pt
+    scaled by z: (x z^2, y z^3, z)."""
+    z2 = GF.fp2_sqr(z)
+    coords = (GF.fp2_mul(pt[0], z2), GF.fp2_mul(pt[1], GF.fp2_mul(z2, z)), z)
+    return [_mont(v) for c in coords for v in c]
+
+
+def _points(kernel):
+    """(affine points or None, packed (3c, N, 24) operand): G1 the infinity,
+    points of order 3 and 11 (the |x| ladder's first addition meets acc =
+    [2]P = -P, the second acc = [12]P = P), an off-subgroup point; G2 the
+    infinity, an off-subgroup point and, in Jacobian form with Z != 1, a
+    multiple of the generator (ladder) or the off-subgroup point
+    (g2_cofactor)."""
+    if kernel == "ladder_g1":
+        pts = [None, _small_order_g1(5, 3), _small_order_g1(4, 121), g1_off_subgroup()]
+        return pts, CV.pack_point(CV.FP_OPS, CV.g1_encode_batch(pts, "cpu"))
+    off = g2_off_subgroup()
+    last = GC.g2_mul(JC.G2_GEN, 0x1234567) if kernel == "ladder_g2" else off
+    pts = [None, off, last]
+    packed = CV.pack_point(CV.FP2_OPS, CV.g2_encode_batch(pts, "cpu"))
+    jac = _g2_jacobian(last, (3, 7))
+    packed[:, 2] = torch.from_numpy(np.stack(ints_to_limbs(jac, 24)))
+    return pts, packed
+
+
+@pytest.mark.parametrize("kernel", ["ladder_g1", "ladder_g2", "g2_cofactor"])
+def test_point_programs_match_the_plain_versions(kernel, monkeypatch):
+    """The script of each point program (run_script: the ladder by |x|,
+    the whole g2_cofactor body) on Python ints, limb-equal to the plain
+    version and, in affine, to the JAX package's golden curve (and in G1
+    to jax.jit of its pt_mul_const, a cmov ladder with another Jacobian
+    representative); every case of the complete addition that the data
+    meets is counted."""
+    pts, packed = _points(kernel)
+    n = len(pts)
+    if kernel == "g2_cofactor":
+        P = GR.cofactor_program()
+        want = CV.g2_cofactor_plain(packed, CV.X_SEGMENTS)
+        golden = [None if p is None else GC.g2_clear_cofactor(p) for p in pts]
+    else:
+        P = GR.ladder_program(GR.FP_COORD if kernel == "ladder_g1" else GR.FP2_COORD)
+        want = CV.pt_mul_const_plain(packed, CV.X_SEGMENTS)
+        mul = GC.g1_mul if kernel == "ladder_g1" else GC.g2_mul
+        golden = [None if p is None else mul(p, JC.ABS_X) for p in pts]
+    cases, add_case = [], GR.add_case
+
+    def counted(*args):
+        cases.append(add_case(*args))
+        return cases[-1]
+
+    monkeypatch.setattr(GR, "add_case", counted)
+    nc, first = packed.shape[0], P.slots["p" if kernel == "g2_cofactor" else "base"][0]
+    consts = {"one": [1], "cx": C.PSI_X, "cy": C.PSI_Y, "c2": [C.PSI2_X_C0]}
+    got = []
+    for i, vals in enumerate(zip(*ints(packed))):
+        slots = [0] * P.nslots
+        slots[first:first + nc] = vals
+        for name, values in consts.items():
+            if name in P.slots:
+                slots[P.slots[name][0]:P.slots[name][0] + len(values)] = map(_mont, values)
+        acc = P.slots["acc"][0]
+        got.append(GR.run_script(P, CV.X_SEGMENTS, slots)[acc:acc + nc])
+    assert [list(c) for c in zip(*got)] == ints(want)
+    if kernel == "ladder_g1":
+        assert set(cases) == {"take_base", "set_inf", "dbl", "take_sum"}
+        assert CV.g1_decode(CV.unpack_point(CV.FP_OPS, want)) == golden
+        x, y, z = (np.asarray(c) for c in JCV.g1_encode_batch(pts))
+        jac = jax.jit(lambda *q: JCV.pt_mul_const(JCV.FP_OPS, q, JC.ABS_X))(x, y, z)
+        assert CV.g1_decode(tuple(limbs_from_numpy(np.asarray(c), device="cpu")
+                                  for c in jac)) == golden
+    else:
+        assert set(cases) == {"take_base", "take_sum"}
+        assert CV.g2_decode(CV.unpack_point(CV.FP2_OPS, want)) == golden
+    assert len(cases) == n * (5 if kernel != "g2_cofactor" else 15)
+
+
+@pytest.mark.parametrize("flags, case", [
+    ((1, 1, 1, 1), "take_base"),  # P at infinity: Q, whatever else holds
+    ((0, 1, 1, 1), None),  # Q at infinity: P
+    ((0, 0, 1, 1), "dbl"),  # P == Q
+    ((0, 0, 1, 0), "set_inf"),  # P == -Q
+    ((0, 0, 0, 1), "take_sum"),
+])
+def test_add_case_follows_the_jax_order(flags, case):
+    """add_case picks the complete addition's case in _pt_add_body's order
+    from the zero flags of (P's Z, Q's Z, h, r)."""
+    for P in (GR.ladder_program(GR.FP_COORD), GR.cofactor_program()):
+        c = P.consts["kCoord"]
+        slots = [7] * P.nslots
+        for flag, (name, off) in zip(flags, [("acc", 2 * c), ("base", 2 * c), ("h", 0),
+                                             ("r", 0)]):
+            first = P.slots[name][0] + off
+            slots[first:first + c] = [0] * c if flag else [5] * c
+        assert GR.add_case(P, slots) == case
