@@ -1,10 +1,10 @@
 // Device point and chain layer of the port's one-thread hash-stage and
-// point kernels (hash_kernels.cu's pow_win and sswu_map2,
-// point_kernels.cu): Jacobian doubling and complete addition for G1
-// (coordinates in Fp) and G2 (Fp2) as one template over the coordinate
-// field, and the 4-bit window power, for one batch element per thread over
-// tower.cuh.  The constant-scalar ladders run on group.cuh, from the same
-// doubling and addition traced in group_rounds.py.
+// point kernels (hash_kernels.cu's pow_win, point_kernels.cu): Jacobian
+// doubling and complete addition for G1 (coordinates in Fp) and G2 (Fp2)
+// as one template over the coordinate field, and the 4-bit window power,
+// for one batch element per thread over tower.cuh.  The constant-scalar
+// ladders and sswu_map2 run on group.cuh, from the same doubling and
+// addition traced in group_rounds.py.
 //
 // Each function is the counterpart of a JAX kernel body in
 // bls_verify_gadget_tpu/ops/pallas/kernels.py (named beside it).  Values
@@ -15,8 +15,8 @@
 // exceptional cases.  Where the JAX bodies compute a value and then discard
 // it with a cmov on a condition that is the same for every thread (a
 // ladder's set bit, a window's digit), or only rarely true for one thread
-// (the doubling case of an addition, a sqrt candidate), these bodies branch
-// instead and compute only the value they keep.
+// (the doubling case of an addition), these bodies branch instead and
+// compute only the value they keep.
 //
 // tower.cuh's G2Proj is homogeneous projective (the Miller loop's); the
 // ladders here use Jacobian points, Jac<F>.
@@ -35,32 +35,8 @@ __device__ __forceinline__ bool fp_is_zero(const Fp& a) {
   return acc == 0;
 }
 
-__device__ __forceinline__ bool fp_eq(const Fp& a, const Fp& b) {
-  uint32_t acc = 0;
-#pragma unroll
-  for (int j = 0; j < kFpWords; ++j) acc |= a.w[j] ^ b.w[j];
-  return acc == 0;
-}
-
-__device__ __forceinline__ Fp fp_neg(const Fp& a, const FpModulus& M) {
-  return fp_sub(fp_zero(), a, M);
-}
-
-__device__ __forceinline__ Fp2 f2_conj(const Fp2& a, const FpModulus& M) {
-  return {a.c0, fp_neg(a.c1, M)};
-}
-
-// * u: (a0 + a1 u) u = -a1 + a0 u (_F2Rows.muli)
-__device__ __forceinline__ Fp2 f2_muli(const Fp2& a, const FpModulus& M) {
-  return {fp_neg(a.c1, M), a.c0};
-}
-
 __device__ __forceinline__ bool f2_is_zero(const Fp2& a) {
   return fp_is_zero(a.c0) && fp_is_zero(a.c1);
-}
-
-__device__ __forceinline__ bool f2_eq(const Fp2& a, const Fp2& b) {
-  return fp_eq(a.c0, b.c0) && fp_eq(a.c1, b.c1);
 }
 
 // The same names over Fp and Fp2, for the templates below.  A square in Fp
@@ -176,15 +152,6 @@ __device__ __noinline__ Jac<F> pt_add(const Jac<F>& p, const Jac<F>& q,
 }
 
 // --------------------------------------------------------- windowed power
-
-constexpr int kMaxDigits = 192;  // 4-bit digits of a 768-bit exponent
-
-// The MSB-first 4-bit digits of a positive host-constant exponent, by
-// value in the parameter bank; d[0] (the top digit) is not zero.
-struct PowDigits {
-  int count;
-  unsigned char d[kMaxDigits];
-};
 
 // a^e (_pow_win_rows, kernels.py:916): the table a^1 .. a^15 (14
 // products), then f = a^d[0] and per later window 4 squarings and, where

@@ -1,13 +1,14 @@
 // The cooperative layer of the group kernels (pairing_kernels.cu's
-// miller_dbl_run and exp_x, hash_kernels.cu's pt_mul_const and
-// g2_cofactor): one batch element on a group of G threads (G a divisor of
-// 32, so a group lies in one warp), its state in shared memory, its bodies
-// run as the rounds of group_rounds.cuh.
+// miller_dbl_run, miller_add and exp_x, hash_kernels.cu's pt_mul_const,
+// g2_cofactor and sswu_map2): one batch element on a group of G threads
+// (G a divisor of 32, so a group lies in one warp), its state in shared
+// memory, its bodies run as the rounds of group_rounds.cuh.
 //
 // State.  The element's Fp values are numbered slots of 12 32-bit words
 // (48 bytes, 16-byte aligned) in the block's dynamic shared memory; a
 // program (group_rounds.cuh) names them: f, T, the G1 point, the lines, the
-// sums that feed products, and one slot per product of a round.
+// sums that feed products; a product's slot is reused once its value is dead
+// (group_rounds.py allocates the slots by liveness).
 //
 // Rounds.  A body is a list of phases; a phase is a list of independent
 // ops, dealt out round-robin over the group's threads (op j to thread
@@ -24,12 +25,15 @@
 // The tables of ops are read through the read-only cache: the threads of a
 // group read different ops, and __constant__ would serialize them.
 //
-// Point programs (the ladders, g2_cofactor) run a script (run_script):
-// bodies, complete additions and constant-scalar ladders, all through one
-// run<G>, so that a kernel inlines one copy of the op loop.  The complete
-// addition's exceptional cases are branches on flags that every thread of
-// the group reads from the element's slots (add_case), so a group never
-// diverges; only groups of a warp may, and only on rare data.
+// Point programs (the ladders, g2_cofactor, sswu_map2) run a script
+// (run_script): bodies, complete additions, constant-scalar ladders, cases,
+// table loads and exponent chains in lockstep, all through one run<G>, so
+// that a kernel inlines one copy of the op loop.  The complete addition's
+// exceptional cases and the other cases are branches on flags that every
+// thread of the group reads from the element's slots (add_case,
+// pick_case), so a group never diverges; only groups of a warp may, and
+// only on data-dependent choices.  No op reads a slot by a runtime index:
+// a chain's window copies its table entry into a fixed slot (pow_step).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -312,23 +316,159 @@ __device__ __forceinline__ void add_case(const uint32_t* S, unsigned mask,
 }
 
 // The kinds of a script step (kGroupScript; group_rounds.py BODY, ADD,
-// LADDER).
-enum : uint32_t { kStepBody = 0, kStepAdd = 1, kStepLadder = 2 };
+// LADDER, POW, CASE, LOAD).
+enum : uint32_t {
+  kStepBody = 0,
+  kStepAdd = 1,
+  kStepLadder = 2,
+  kStepPow = 3,
+  kStepCase = 4,
+  kStepLoad = 5
+};
+
+// A CASE step (group_rounds.py pick_case): the phase range [p0, p1) of the
+// body that case c picks.  Every lane reads the case's flags from the
+// element's slots (kGroupFlags: all zero, or odd) into one word, waits for
+// the others, and takes the body of the first rule (kGroupRules) whose
+// masked word matches; no rule, no body.  So the whole group takes one
+// branch, as in add_case.
+__device__ __forceinline__ void pick_case(const uint32_t* S, uint32_t c,
+                                          unsigned mask, int& p0, int& p1) {
+  const uint2 e = __ldg(&kGroupCases[c]);
+  uint32_t word = 0;
+  for (uint32_t f = 0; f < (e.x >> 16); ++f) {
+    const uint32_t fl = __ldg(&kGroupFlags[(e.x & 0xFFFF) + f]);
+    const int s = fl & 0xFF, count = (fl >> 8) & 0xFF;
+    const bool on = (fl >> 16) != 0 ? (S[kFpWords * s] & 1u) != 0
+                                    : slots_zero(S, s, count);
+    word |= (uint32_t)on << f;
+  }
+  __syncwarp(mask);
+  p0 = p1 = 0;
+  for (uint32_t r = 0; r < (e.y >> 16); ++r) {
+    const uint2 rule = __ldg(&kGroupRules[(e.y & 0xFFFF) + r]);
+    if ((word & (rule.x & 0xFFFF)) == (rule.x >> 16)) {
+      p0 = rule.y & 0xFFFF, p1 = rule.y >> 16;
+      return;
+    }
+  }
+}
+
+// A LOAD step: rows [row, row + count) of a device table of 24 16-bit limbs
+// per row into slots [slot, slot + count), y = row | count << 8 | slot <<
+// 16, the group's threads sharing the words.
+template <int G>
+__device__ __forceinline__ void load_rows(const int32_t* __restrict__ table,
+                                          uint32_t y, uint32_t* S, int lane) {
+  const int row = y & 0xFF, count = (y >> 8) & 0xFF, slot = y >> 16;
+  for (int w = lane; w < count * kFpWords; w += G) {
+    const int r = w / kFpWords, k = w - kFpWords * r;
+    const int2 l = *reinterpret_cast<const int2*>(
+        table + (long long)(row + r) * kLimbs + 2 * k);
+    S[kFpWords * (slot + r) + k] = (uint32_t)l.x | ((uint32_t)l.y << 16);
+  }
+}
+
+// What a script's POW and LOAD steps read besides the slots: the chains'
+// exponents as 4-bit digits (a chain names e0 or e1) and the device table
+// of LOAD's rows.
+struct ChainInputs {
+  const PowDigits& e0;
+  const PowDigits& e1;
+  const int32_t* table;
+};
+
+// The bit length of e (its top digit is not zero).
+__device__ __forceinline__ int pow_bit_length(const PowDigits& e) {
+  return 4 * (e.count - 1) + 32 - __clz((unsigned)e.d[0]);
+}
+
+// Window w, from the top, of e split into nwin windows of `bits` bits.
+template <int bits>
+__device__ __forceinline__ int pow_digit(const PowDigits& e, int nwin, int w) {
+  const int lo = bits * (nwin - 1 - w);
+  int d = 0;
+#pragma unroll
+  for (int j = 0; j < bits; ++j) {
+    const int b = lo + j;  // bit b % 4 of the digit (b / 4) from the bottom
+    if (b < 4 * e.count) d |= ((e.d[e.count - 1 - (b >> 2)] >> (b & 3)) & 1) << j;
+  }
+  return d;
+}
+
+// Slots [dst, dst + width) = slots [src, src + width) where `entry`, else
+// the field's one (src the one's slot, then zeros); the group's threads
+// share the words.
+template <int G>
+__device__ __forceinline__ void copy_entry(uint32_t* S, int dst, int src,
+                                           bool entry, int width, int lane) {
+  for (int k = lane; k < width * kFpWords; k += G) {
+    S[kFpWords * dst + k] =
+        entry || k < kFpWords ? S[kFpWords * src + k] : 0u;
+  }
+}
+
+// One window of a POW step (group_rounds.py run_pow): Prog's chains
+// (kGroupChains: a table of base^1 .. base^(2^bits - 1), the operand o,
+// the accumulator f, the width, the exponent) in lockstep over the windows
+// of the longer exponent.  win < 0 starts the step; -> (p0, p1) the
+// window's bodies, or win < 0 again at the step's end.  Each lane copies
+// its words of every chain's o: the table entry of the chain's digit, the
+// one where the digit is 0 (so every window runs the same product body; no
+// op reads a slot by a runtime index).  Window 0 also sets f = one and,
+// after a barrier, runs win_mul alone (v = f o, the entry); a later window
+// runs win_sq (v^(2^bits) into f), whose first phase touches neither o,
+// the tables nor the one (group_rounds.py check_phases asserts it), so its
+// barrier publishes the copy, then win_mul.
+template <class Prog, int G>
+__device__ __forceinline__ void pow_step(const ChainInputs& in, uint32_t* S,
+                                         int lane, unsigned mask, int& win,
+                                         int& nwin, int& p0, int& p1) {
+  constexpr int bits = Prog::kPowBits;
+  static_assert(Prog::kEnd_win_sq == Prog::kBody_win_mul,
+                "win_mul follows win_sq");
+  if (win < 0) {
+    const int l0 = pow_bit_length(in.e0), l1 = pow_bit_length(in.e1);
+    nwin = ((l0 > l1 ? l0 : l1) + bits - 1) / bits;
+    win = 0;
+  } else if (++win == nwin) {
+    win = -1;
+    return;
+  }
+  const int d0 = pow_digit<bits>(in.e0, nwin, win);
+  const int d1 = pow_digit<bits>(in.e1, nwin, win);
+  for (int c = Prog::kChains; c < Prog::kEndChains; ++c) {
+    const uint32_t ch = __ldg(&kGroupChains[c]);
+    const int tab = ch & 0xFF, o = (ch >> 8) & 0xFF, f = (ch >> 16) & 0xFF;
+    const int width = (ch >> 24) & 0xF, d = (ch >> 28) != 0 ? d1 : d0;
+    copy_entry<G>(S, o, d != 0 ? tab + (d - 1) * width : Prog::kSlot_one,
+                  d != 0, width, lane);
+    if (win == 0) copy_entry<G>(S, f, Prog::kSlot_one, false, width, lane);
+  }
+  if (win == 0) __syncwarp(mask);
+  p0 = win == 0 ? Prog::kBody_win_mul : Prog::kBody_win_sq;
+  p1 = Prog::kEnd_win_mul;
+}
 
 // Run point program Prog's script on the element's slots: a body step runs
 // its body; an addition step the body add, then the body that add_case
-// picks; a ladder step take_base (acc = base), then per segment of `segs`
-// len doublings and, where it ends on a set bit, an addition (the
-// constant-scalar ladder, _ladder_rows).  One run<G> for all of them.
-template <class Prog, int G>
-__device__ __forceinline__ void run_script(const Segments& segs, uint32_t* S,
+// picks; a ladder step take_base (acc = base), then per segment of `env`
+// (the kernel's Segments) len doublings and, where it ends on a set bit, an
+// addition (the constant-scalar ladder, _ladder_rows); a case step the
+// body that pick_case picks; a load step rows of env.table; a pow step its
+// windows (pow_step, env's ChainInputs).  One run<G> for all of them; the
+// steps that Prog's script lacks (kStepKinds) are not compiled.
+template <class Prog, int G, class Env>
+__device__ __forceinline__ void run_script(const Env& env, uint32_t* S,
                                            int lane, unsigned mask,
                                            const FpModulus& M) {
+  constexpr unsigned kinds = Prog::kStepKinds;
   int k = Prog::kScript;
   int seg = -1, step = 0;  // in a ladder step: its segment and doublings done
+  int win = -1, nwin = 0;  // in a pow step: its window and window count
   bool pick = false;       // the body just run was add
   for (;;) {
-    int p0, p1;
+    int p0 = 0, p1 = 0;
     if (pick) {
       pick = false;
       add_case<Prog>(S, mask, p0, p1);
@@ -336,31 +476,56 @@ __device__ __forceinline__ void run_script(const Segments& segs, uint32_t* S,
       break;
     } else {
       const uint2 e = __ldg(&kGroupScript[k]);
-      if (e.x != kStepLadder) {
+      if (e.x == kStepBody || e.x == kStepAdd) {
         ++k;
         p0 = e.y & 0xFFFF, p1 = e.y >> 16;
         pick = e.x == kStepAdd;
-      } else if (seg < 0) {
-        seg = step = 0;
-        p0 = Prog::kBody_take_base, p1 = Prog::kEnd_take_base;
-      } else {
-        bool found = false;
-        while (!found && seg < segs.count) {
-          if (step < segs.len[seg]) {
-            ++step;
-            p0 = Prog::kBody_dbl, p1 = Prog::kEnd_dbl;
-            found = true;
+      } else if (e.x == kStepLadder) {
+        if constexpr ((kinds >> kStepLadder) & 1) {
+          const Segments& segs = env;
+          if (seg < 0) {
+            seg = step = 0;
+            p0 = Prog::kBody_take_base, p1 = Prog::kEnd_take_base;
           } else {
-            found = pick = segs.mul[seg] != 0;
-            p0 = Prog::kBody_add, p1 = Prog::kEnd_add;
-            ++seg;
-            step = 0;
+            bool found = false;
+            while (!found && seg < segs.count) {
+              if (step < segs.len[seg]) {
+                ++step;
+                p0 = Prog::kBody_dbl, p1 = Prog::kEnd_dbl;
+                found = true;
+              } else {
+                found = pick = segs.mul[seg] != 0;
+                p0 = Prog::kBody_add, p1 = Prog::kEnd_add;
+                ++seg;
+                step = 0;
+              }
+            }
+            if (!found) {  // the ladder's end
+              seg = -1;
+              ++k;
+              continue;
+            }
           }
         }
-        if (!found) {  // the ladder's end
-          seg = -1;
+      } else if (e.x == kStepCase) {
+        if constexpr ((kinds >> kStepCase) & 1) {
           ++k;
+          pick_case(S, e.y, mask, p0, p1);
+        }
+      } else if (e.x == kStepLoad) {
+        if constexpr ((kinds >> kStepLoad) & 1) {
+          ++k;
+          load_rows<G>(env.table, e.y, S, lane);
+          __syncwarp(mask);
           continue;
+        }
+      } else {
+        if constexpr ((kinds >> kStepPow) & 1) {
+          pow_step<Prog, G>(env, S, lane, mask, win, nwin, p0, p1);
+          if (win < 0) {  // the pow's end
+            ++k;
+            continue;
+          }
         }
       }
     }

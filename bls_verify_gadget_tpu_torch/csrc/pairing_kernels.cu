@@ -24,8 +24,9 @@
 // element at 3.35 TB/s and 16.75 T int32 multiply-adds/s).  Fusing buys
 // launches: the Miller loop is 11 launches and an x-chain one.
 //
-// miller_dbl_run and exp_x (the TPU's _millerdbl_kernel and _expx_kernel)
-// run on group.cuh: a group of G threads per batch element, the element's
+// miller_dbl_run, miller_add and exp_x (the TPU's _millerdbl_kernel,
+// _milleradd_kernel and _expx_kernel) run on group.cuh: a group of G
+// threads per batch element, the element's
 // state in shared memory, each body as rounds of independent Montgomery
 // products dealt out over the group (group_rounds.cuh).  The design they
 // replace ran one thread per element through tower.cuh: every product
@@ -40,7 +41,7 @@
 // group kernels now is not one thread's latency: two products at once per
 // thread ran slower.  By instruction count most of a body is mont_mul's
 // CIOS.
-// The other eight kernels of this unit keep tower.cuh and one thread per
+// The other seven kernels of this unit keep tower.cuh and one thread per
 // element: their redesign is later work.
 #include <cuda_runtime.h>
 
@@ -233,27 +234,48 @@ __global__ void __launch_bounds__(bls::group::kThreads)
 // pair is valid; the bound counts 31 per pair and 55 per valid pair (172
 // with both valid: ~6.2 ns of operations against ~1.7 ns of bytes per
 // element; 86 for one valid pair).
-template <int K>
-__global__ void __launch_bounds__(kThreads)
+// On a group of G threads with MillerAdd1Program / MillerAdd2Program
+// (group_rounds.py miller_add_program): the input's coordinates are its
+// first slots; the body add runs tower.cuh's miller_add_step for every pair
+// at once (product phases of 6k, 14k, 9k and 12k products; the lines' c0
+// stored after the third, T after the last), then, per valid pair, the
+// body line<p> (45), as in miller_dbl_run.
+template <int K, int G>
+__global__ void __launch_bounds__(bls::group::kThreads)
     miller_add_kernel(const int32_t* __restrict__ in,
                       const int32_t* __restrict__ valid,
                       int32_t* __restrict__ out, long long n, FpModulus M) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  Fp12 f = load_fp12(in, 0, n, i);
+  using Prog = std::conditional_t<K == 1, bls::group::MillerAdd1Program,
+                                  bls::group::MillerAdd2Program>;
+  extern __shared__ uint4 smem[];
+  const int g = threadIdx.x / G, lane = threadIdx.x % G;
+  const long long i =
+      (long long)blockIdx.x * bls::group::elements_per_block<Prog, G>() + g;
+  if (i >= n) return;  // the whole group: no barrier spans groups
+  uint32_t* S = reinterpret_cast<uint32_t*>(smem) +
+                (long long)g * Prog::kSlots * bls::kFpWords;
+  const unsigned mask = bls::group::lane_mask<G>();
+  bls::group::load_coords<G>(in, n, i, 12 + 12 * K, [](int c) { return c; },
+                             S, lane);
+  bool ok[K];
 #pragma unroll
-  for (int p = 0; p < K; ++p) {
-    const int b = 12 + 12 * p;
-    G2Proj t = load_point(in, b, n, i);
-    const Line l =
-        bls::miller_add_step(t, load_fp2(in, b + 6, n, i),
-                             load_fp2(in, b + 8, n, i),
-                             load_fp(in, b + 10, n, i),
-                             load_fp(in, b + 11, n, i), M);
-    if (valid[p * n + i] != 0) f = bls::f12_mul_014(f, l, M);
-    store_point(out, 12 + 6 * p, n, i, t);
+  for (int p = 0; p < K; ++p) ok[p] = valid[p * n + i] != 0;
+  __syncwarp(mask);
+  bls::group::run<G>(Prog::kBody_add, Prog::kEnd_add, S, lane, mask, M);
+  if (ok[0]) {
+    bls::group::run<G>(Prog::kBody_line0, Prog::kEnd_line0, S, lane, mask, M);
   }
-  store_fp12(out, 0, n, i, f);
+  if constexpr (K == 2) {
+    if (ok[1]) {
+      bls::group::run<G>(Prog::kBody_line1, Prog::kEnd_line1, S, lane, mask,
+                         M);
+    }
+  }
+  // out: f, then per pair T (slots 12 + 12p ..)
+  bls::group::store_coords<G>(
+      out, n, i, 12 + 6 * K,
+      [](int c) { return c < 12 ? c : 12 + 12 * ((c - 12) / 6) + (c - 12) % 6; },
+      S, lane);
 }
 
 // Replaces _expx_kernel (kernels.py:1446): m^e for the exponent whose runs
@@ -298,7 +320,7 @@ __global__ void __launch_bounds__(bls::group::kThreads)
 // ------------------------------------------- the step-wise configuration
 // One launch per Miller step or line product, each a thin body over one
 // tower.cuh function (the formulas that group_rounds.cuh traces for the
-// group kernels; miller_add calls the line product).  Like the others they
+// group kernels).  Like the others they
 // are bound by operations (per-kernel bounds below, per element at 16.75 T
 // int32 multiply-adds/s against 3.35 TB/s), and they do not reach it: a
 // thread's Montgomery products run one after another.  What they cost over
@@ -433,15 +455,14 @@ int bls_miller_add(const int32_t* in, const int32_t* valid, int32_t* out,
   const auto M = bls::make_modulus<bls::kFpWords>(p, n0);
   const cudaStream_t s = (cudaStream_t)stream;
   if (k == 1) {
-    bls_kernels::miller_add_kernel<1>
-        <<<grid_for(n), kThreads, 0, s>>>(in, valid, out, n, M);
-  } else if (k == 2) {
-    bls_kernels::miller_add_kernel<2>
-        <<<grid_for(n), kThreads, 0, s>>>(in, valid, out, n, M);
-  } else {
-    return (int)cudaErrorInvalidValue;
+    return bls::group::launch<bls::group::MillerAdd1Program, kGroup>(
+        bls_kernels::miller_add_kernel<1, kGroup>, n, s, in, valid, out, n, M);
   }
-  return (int)cudaGetLastError();
+  if (k == 2) {
+    return bls::group::launch<bls::group::MillerAdd2Program, kGroup>(
+        bls_kernels::miller_add_kernel<2, kGroup>, n, s, in, valid, out, n, M);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 int bls_exp_x(const int32_t* in, int32_t* out, long long n, const int* lens,

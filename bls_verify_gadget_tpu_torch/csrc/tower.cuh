@@ -57,6 +57,15 @@ struct Segments {
   int mul[kMaxSegments];
 };
 
+constexpr int kMaxDigits = 192;  // 4-bit digits of a 768-bit exponent
+
+// The MSB-first 4-bit digits of a positive host-constant exponent, by
+// value in the parameter bank; d[0] (the top digit) is not zero.
+struct PowDigits {
+  int count;
+  unsigned char d[kMaxDigits];
+};
+
 // Host side: an Fp from 12 host words (a Montgomery constant).
 inline Fp make_fp(const uint32_t* w) {
   Fp r;

@@ -37,10 +37,20 @@ versions' whatever the grouping of products and sums.  The Miller line and
 T are tower.cuh's miller_dbl_step formula and the Granger-Scott square is
 its f12_cyclotomic_sqr formula (both matter off the curve and off the
 cyclotomic subgroup); the Fp12 square and products are exact products.
-The point programs (pt_mul_const, g2_cofactor) trace csrc/curve.cuh's
-Jacobian doubling and complete addition: the Jacobian representative is
-the formulas' polynomial, so the doubling may regroup it (pt_dbl_rounds),
-and the addition's exceptional cases keep its order (add_case).
+The point programs (pt_mul_const, g2_cofactor, sswu_map2) trace
+csrc/curve.cuh's Jacobian doubling and complete addition: the Jacobian
+representative is the formulas' polynomial, so the doubling may regroup
+it (pt_dbl_rounds), and the addition's exceptional cases keep its order
+(add_case).  sswu_map2 traces the one-thread SSWU formulas (its fractions
+and output keep their representatives) and runs its exponent chains in
+lockstep (POW) and its data-dependent choices as cases (CASE).
+
+Every value gets a slot of its own while a program is traced, auto
+bodies are scheduled into phases by their data (Program._flush), and
+allocate() then gives the values the kernel's slots by liveness over the
+order in which the kernel runs the bodies (its script, or the program's
+flow: loops and branches included), so a slot is reused once its value
+is dead (sswu_map2: 106 slots).
 
 run_body() executes a body, run_script() a point program's script, on
 Python ints as the kernels do, for the CPU tests
@@ -150,9 +160,13 @@ class Op:
 
 
 class Program:
-    """The slots and bodies of one kernel.  Named slot ranges are fixed;
-    product slots follow them, are allocated afresh per round and may be
-    read only within the round that wrote them."""
+    """The slots and bodies of one kernel.  While a program is traced, every
+    named range and every product is a value with slots of its own (slot
+    numbers in tracing order); allocate() then gives the values the
+    kernel's slots by liveness over the order in which the kernel runs the
+    bodies (its script, or `flow`), so a slot is reused once its value is
+    dead.  A body's phases are placed by hand (phase()), or the body is
+    auto: its ops are then scheduled into phases by their data (_flush)."""
 
     def __init__(self, name):
         self.name = name
@@ -160,10 +174,20 @@ class Program:
         self.consts = {}  # name -> value, emitted beside the slots
         self.nslots = 0
         self.bodies = {}  # name -> list of phases (lists of Op)
-        self.script = []  # a point program's steps (run_script): (kind, body)
+        self.script = []  # a point program's steps (run_script): (kind, argument)
+        # the order in which a kernel without a script runs the bodies (_flow)
+        self.flow = None
+        # CASE steps: name -> ([flag: (named range, offset, slots, ZERO | PARITY)],
+        #                      [rule: (mask, value, body or None)])
+        self.cases = {}
+        # a POW step's chains: (table range, o range, f range, width, exponent index)
+        self.chains = []
+        self.pow_bits = 0  # a POW step's window width
+        # named ranges: the kernel's loads (the inputs at slots 0 and up, in
+        # order), its constants and its stores
+        self.inputs, self.presets, self.outputs = [], [], []
         self._phases = None
-        self._temp0 = self._temp = None
-        self._live = set()
+        self._pending = None  # an auto body's ops, in program order
 
     def named(self, name, count):
         self.slots[name] = (self.nslots, count)
@@ -174,29 +198,26 @@ class Program:
         first, count = self.slots[name]
         return [Lin.slot(s) for s in range(first, first + count)]
 
-    def body(self, name):
-        """Start body `name` (and a round: products start afresh)."""
-        self._phases = self.bodies.setdefault(name, [])
-        self.round()
+    def fresh(self):
+        """A slot of its own."""
+        self.nslots += 1
+        return Lin.slot(self.nslots - 1)
 
-    def round(self):
-        if self._temp0 is None:
-            self._temp0 = self.nslots
-        self._temp = self._temp0
-        self._live = set()
+    def body(self, name, auto=False):
+        """Start body `name`; an auto body schedules its ops itself."""
+        self._flush()
+        self._phases = self.bodies.setdefault(name, [])
+        if auto:
+            self._pending = []
 
     def phase(self):
+        if self._pending is not None:
+            raise ValueError("phase() in an auto body")
         self._phases.append([])
 
     def mul(self, a, b, dst=None):
-        """A product into a fresh product slot, or into the named slot `dst`."""
-        if dst is None:
-            s = self._temp
-            self._temp += 1
-            self.nslots = max(self.nslots, self._temp)
-            self._live.add(s)
-        else:
-            s = _slot_of(dst)
+        """A product into a fresh slot, or into the named slot `dst`."""
+        s = _slot_of(self.fresh() if dst is None else dst)
         self._op(Op(s, a, b))
         return Lin.slot(s)
 
@@ -205,10 +226,39 @@ class Program:
         self._op(Op(_slot_of(dst), a))
 
     def _op(self, op):
-        for s in op.reads():
-            if s >= self._temp0 and s not in self._live:
-                raise ValueError(f"{self.name}: reads product slot {s} of another round")
-        self._phases[-1].append(op)
+        if self._pending is not None:
+            self._pending.append(op)
+        else:
+            self._phases[-1].append(op)
+
+    def _flush(self):
+        """Schedule the pending ops of an auto body into its phases: each op
+        one level after every earlier op of the body that writes a slot it
+        reads or that reads or writes its destination (as early as its data
+        allows: a stored value frees the product slots it reads), then a
+        phase per level and kind, products first."""
+        ops, self._pending = self._pending, None
+        if not ops:
+            return
+        level, wrote, read = [], {}, {}
+        for op in ops:
+            lv = 1 + max([wrote.get(s, 0) for s in op.reads()]
+                         + [read.get(op.dst, 0), wrote.get(op.dst, 0)])
+            level.append(lv)
+            for s in op.reads():
+                read[s] = max(read.get(s, 0), lv)
+            wrote[op.dst] = lv
+        keys = sorted({(lv, op.b is None) for lv, op in zip(level, ops)})
+        phases = {k: [] for k in keys}
+        for lv, op in zip(level, ops):
+            phases[(lv, op.b is None)].append(op)
+        self._phases.extend(phases[k] for k in keys)
+
+    def allocate(self):
+        """The kernel's slots by liveness (_allocate)."""
+        self._flush()
+        _allocate(self)
+        return self
 
 
 # ----------------------------------------------------------------- the tower
@@ -390,7 +440,9 @@ def exp_x_program():
     out = f12_mul(P, fp12(f), fp12(m), fp6(fs), fp6(ms))
     P.phase()
     store_all(P, f, out)
-    return P
+    P.inputs = P.outputs = ["f"]
+    P.flow = ["setup", ("loop", ("alt", "square", "mul"))]
+    return P.allocate()
 
 
 def miller_program(k):
@@ -402,7 +454,8 @@ def miller_program(k):
         intermediates a, b - f, e, g, b, h, 3j and the line's c0 = e - b];
         round two: [per pair 14 products, the line's c1 and c4 among them];
         [per pair X', Y', Z' into T].
-      body line<p>: f <- f * line_p: [45 products]; [f]."""
+      body line<p>: f <- f * line_p: [45 products]; [f].
+    A run repeats dbl, then line<p> for each valid pair."""
     P = Program(f"miller{k}")
     f = P.named("f", 12)
     pairs = []
@@ -438,7 +491,6 @@ def miller_program(k):
         h = f2_sub(yz2, f2_add(b, c))
         store_all(P, inter[p], (a, f2_sub(b, ff), e, g, b, h, f2_scale(j, 3)))
         store_all(P, lines[p][:2], f2_sub(e, b))
-    P.round()
     P.phase()
     second = []
     for p, (_, xp, yp) in enumerate(pairs):  # second round
@@ -455,24 +507,81 @@ def miller_program(k):
     P.phase()
     for (t, _, _), new in zip(pairs, second):
         store_all(P, flat(t), new)
+    line_bodies(P, f, lines)
+    P.inputs = ["f"] + [f"{n}{p}" for p in range(k) for n in "tp"]
+    P.outputs = ["f"] + [f"t{p}" for p in range(k)]
+    P.flow = ("loop", ["dbl"] + [("alt", None, f"line{p}") for p in range(k)])
+    return P.allocate()
 
-    for p in range(k):
+
+def line_bodies(P, f, lines):
+    """Per pair p the body line<p> of a Miller program: f <- f * line_p
+    (f12_mul_014): [45 products]; [f]."""
+    F = fp12(f)
+    for p, line in enumerate(lines):
         P.body(f"line{p}")
         P.phase()
-        c0, c1, c4 = fp2s(lines[p])
+        c0, c1, c4 = fp2s(line)
         out = f12_mul_014(P, F, c0, c1, c4)
         P.phase()
         store_all(P, f, out)
-    return P
+
+
+def miller_add_program(k):
+    """miller_add with k pairs: f, then per pair X, Y, Z, xq, yq, xp,
+    yp in the slots of the packed operand's coordinates 0 .. 12 + 12k - 1;
+    per pair a line.
+      body add: tower.cuh miller_add_step for every pair at once, scheduled
+        (auto): [yq Z, xq Z]; [theta^2, lambda^2 and the line's theta xq,
+        lambda yq, -theta xp, lambda yp]; [e = lambda dd, f = Z cc, g = X
+        dd]; [the line's c0]; [lambda h, Z e, theta (g - h), e Y]; [T].
+      body line<p>: f <- f * line_p (line_bodies, as miller_program's)."""
+    P = Program(f"miller_add{k}")
+    f = P.named("f", 12)
+    pairs = []
+    for p in range(k):
+        t, q = P.named(f"t{p}", 6), P.named(f"q{p}", 4)
+        xp, yp = P.named(f"p{p}", 2)
+        pairs.append((t, fp2s(q), xp, yp))
+    lines = [P.named(f"line{p}", 6) for p in range(k)]
+    P.inputs = ["f"] + [f"{n}{p}" for p in range(k) for n in "tqp"]
+    P.outputs = ["f"] + [f"t{p}" for p in range(k)]
+    P.body("add", auto=True)
+    for (t, (xq, yq), xp, yp), line in zip(pairs, lines):
+        X, Y, Z = fp2s(t)
+        th = f2_sub(Y, f2_mul(P, yq, Z))
+        lm = f2_sub(X, f2_mul(P, xq, Z))
+        cc, dd = f2_sqr(P, th), f2_sqr(P, lm)
+        e, ff, g = f2_mul(P, lm, dd), f2_mul(P, Z, cc), f2_mul(P, X, dd)
+        h = f2_sub(f2_add(e, ff), f2_scale(g, 2))
+        x3, z3 = f2_mul(P, lm, h), f2_mul(P, Z, e)
+        y3 = f2_sub(f2_mul(P, th, f2_sub(g, h)), f2_mul(P, e, Y))
+        store_all(P, line[:2], f2_sub(f2_mul(P, th, xq), f2_mul(P, lm, yq)))
+        for d, x in zip(line[2:4], f2_neg(th)):  # c1 = -theta xp
+            P.mul(x, xp, dst=d)
+        for d, x in zip(line[4:], lm):  # c4 = lambda yp
+            P.mul(x, yp, dst=d)
+        store_all(P, t, (x3, y3, z3))
+    line_bodies(P, f, lines)
+    P.flow = ["add"] + [("alt", None, f"line{p}") for p in range(k)]
+    return P.allocate()
 
 
 # ------------------------------------------------------------ point programs
 # A point program's kernel runs its script (group.cuh run_script): a list of
-# steps, each a body, an addition (the body add, then the body of the case
-# that its flags pick: add_case) or a ladder over the kernel's segments
-# (take_base, then per segment len doublings and, where it ends on a set
-# bit, an addition).
-BODY, ADD, LADDER = range(3)
+# steps, each
+#   BODY    a body;
+#   ADD     an addition: the body add, then the body of the case that its
+#           flags pick (add_case);
+#   LADDER  a ladder over the kernel's segments (take_base, then per segment
+#           len doublings and, where it ends on a set bit, an addition);
+#   POW     the program's chains in lockstep (run_pow);
+#   CASE    the body that the first matching rule of a case picks from the
+#           flags of named slots (pick_case);
+#   LOAD    rows of the kernel's constant table into a named range.
+BODY, ADD, LADDER, POW, CASE, LOAD = range(6)
+ZERO, PARITY = range(2)  # a CASE flag: the slots all zero, the slot's value odd
+ADD_CASES = ("take_base", "dbl", "set_inf", "take_sum")  # the bodies add_case picks
 # curve.cuh's Jacobian formulas on symbolic coordinates: Fp (G1) a Lin,
 # Fp2 (G2) a pair of them.  A point is (X, Y, Z).
 
@@ -606,8 +715,9 @@ def ladder_program(F):
     P = Program("ladder_g1" if F.width == 1 else "ladder_g2")
     point_slots(P, F)
     ladder_bodies(P, F)
+    P.inputs, P.presets, P.outputs = ["base"], ["one"], ["acc"]
     P.script = [(LADDER, None)]
-    return P
+    return P.allocate()
 
 
 def cofactor_program():
@@ -668,12 +778,462 @@ def cofactor_program():
     P.script = [(BODY, "start"), (LADDER, None), (BODY, "x1"), (LADDER, None)]
     for body in ("aux_in", "psi_aux", "sub_p", "add_psi", "psi2_2p"):
         P.script += [(BODY, body), (ADD, "add")]
-    return P
+    P.inputs, P.presets, P.outputs = ["p"], ["one", "cx", "cy", "c2"], ["acc"]
+    return P.allocate()
+
+
+# ------------------------------------------------------------------ sswu_map2
+# hash_to_g2.py's table of the SSWU constants (an Fp2 two rows): A, B, Z,
+# Z A, Z^3 and Cz3 (the head's, rows 0-11), sqrt(u) (rows 12-13), sqrt(-u)
+# and the isogeny's coefficients (rows 16-45).
+SSWU_HEAD_ROWS, SSWU_SQI_ROW, SSWU_ISO_ROW, SSWU_ROWS = 12, 12, 16, 46
+# Window width of the sqrt and inverse chains: 3-bit windows (tables of 7
+# entries) keep sswu_map2 at 106 slots, so that 4096 elements fit the SMs'
+# shared memory at once at G = 8; 4-bit windows (15 entries, a phase per
+# window less for every 12 bits) need 165 slots, and 4096 elements would
+# run in two waves.
+SSWU_POW_BITS = 3
+
+
+def keep(P, v):
+    """v (an Fp form, or a tuple of them) with each form of several slots
+    stored in a slot of its own: a value that later bodies read."""
+    if isinstance(v, Lin):
+        if len(v.c) <= 1 and not v.h:
+            return v
+        s = P.fresh()
+        P.store(s, v)
+        return s
+    return tuple(keep(P, x) for x in v)
+
+
+def _value(slots, width):
+    """Slots as an Fp (width 1) or an Fp2."""
+    return slots[0] if width == 1 else tuple(slots)
+
+
+def _sq_into(P, a, dst):
+    """a^2 into the slots dst, one product each: Fp a a; Fp2 (a0 + a1)(a0 -
+    a1) and (2 a0) a1."""
+    if isinstance(a, Lin):
+        return P.mul(a, a, dst=dst[0])
+    P.mul(a[0] + a[1], a[0] - a[1], dst=dst[0])
+    P.mul(a[0].scale(2), a[1], dst=dst[1])
+    return tuple(dst)
+
+
+def _mul_into(P, a, b, v):
+    """a b into a chain's product slots v, one product each: Fp a b; Fp2 the
+    Karatsuba a0 b0, a1 b1, (a0 + a1)(b0 + b1) (_vform reads them)."""
+    if isinstance(a, Lin):
+        P.mul(a, b, dst=v[0])
+        return
+    P.mul(a[0], b[0], dst=v[0])
+    P.mul(a[1], b[1], dst=v[1])
+    P.mul(a[0] + a[1], b[0] + b[1], dst=v[2])
+
+
+def _vform(v):
+    """The value in a chain's product slots v (_mul_into)."""
+    return v[0] if len(v) == 1 else (v[0] - v[1], v[2] - v[0] - v[1])
+
+
+def pow_table(P, tab, width, base):
+    """A chain's window table base^1 .. base^(2^bits - 1) into the slots tab
+    (width each): base stored as the first entry; an even power the square
+    of its half, into its slots; an odd one base^hi base^(e - hi) for the
+    largest power of two hi < e (Fp: one product into its slot; Fp2: the
+    product's form, stored).  The products read their operands' forms, so
+    that the auto body schedules the table in `bits` levels of products."""
+    if [(x.c, x.h) for x in flat(base)] != [(x.c, x.h) for x in tab[:width]]:
+        store_all(P, tab[:width], base)
+    val = [None, base]
+    for e in range(2, len(tab) // width + 1):
+        dst = tab[(e - 1) * width:e * width]
+        if e % 2 == 0:
+            val.append(_sq_into(P, val[e // 2], dst))
+            continue
+        hi = 1 << (e.bit_length() - 1)
+        if width == 1:
+            val.append(P.mul(val[hi], val[e - hi], dst=dst[0]))
+        else:
+            val.append(f2_mul(P, val[hi], val[e - hi]))
+            store_all(P, dst, val[-1])
+
+
+def horner(P, coeffs, x):
+    """sum_i coeffs[i] x^i over Fp2 (_horner_rows)."""
+    acc = coeffs[-1]
+    for c in reversed(coeffs[:-1]):
+        acc = f2_add(f2_mul(P, acc, x), c)
+    return acc
+
+
+def _sgn0_rules(off):
+    """([(mask, value)] for sgn0 = 1, [...] for sgn0 = 0) of a value whose
+    flags are bits off .. off + 2: its real part zero, the real part odd,
+    the imaginary part odd.  RFC 9380 sgn0 (m = 2; _sgn0_rows): the real
+    part's parity, or where the real part is zero the imaginary part's."""
+    z, p0, p1 = 1 << off, 2 << off, 4 << off
+    return [(z | p0, p0), (z | p1, z | p1)], [(z | p0, 0), (z | p1, z)]
+
+
+def sswu_program():
+    """sswu_map2 (hash_kernels.cu; _sswu_kernel, kernels.py:1023) on the
+    packed (4, N) u = u0, u1, both maps side by side in every phase, with
+    the values of the one-thread formulas (the fractions xn / xd, yn / yd
+    and the Jacobian output keep their representatives; every other value
+    is unique and may come from any chain).  Its script:
+      LOAD   the head's constants;
+      head   per map tv1 = u^2, tv3 = Z tv1, t = tv3^2 + tv3 (stored: e1's
+             flag), -B (t + 1) and A t, Cz3 u^3 and u out of Montgomery form
+             (sgn0's flags);
+      CASE   per map e1 = (t == 0): (xn, xd) = (B, Z A), else (-B (t + 1), A t);
+      pre    xd^2, xd^3 = gxd, gxn = xn^3 + A xn xd^2 + B xd^3, x2n = tv3 xn
+             and gx2n, g2, g4, g8 = yd, W = gxn gxd^15, w2, w8, b = conj(W)
+             w11; yd^2 and the candidates' right sides R = gx yd^2; the four
+             norms, their product (the Fermat inverse's base) and each norm's
+             cofactor in it (Montgomery's trick), times conj(xd) and conj(yd);
+             the window tables of both maps' b and of the norms' product;
+      POW    three chains in lockstep, window by window: b^((p - 11)/16) for
+             each map, and the norms' product^(p - 2);
+      LOAD   sqrt(u);
+      post1  z1 = b^k w8, z2 = z1 Cz3 u^3, per candidate set X = z^2 gxd and
+             the stored forms X - R, -X - R, u X - R, (X1, -X0) - R, whose
+             zero flags (and R's: R = 0 iff gx = 0, since yd != 0) pick the
+             candidate; z sqrt(u) (z sqrt(-u) is its product by u);
+      CASE   per map the candidate of the first set that has one, else the
+             second set's (_cand_select_rows order; found1 picks the set);
+      LOAD   the isogeny's coefficients;
+      post2  affine x = xn conj(xd) / N(xd), y likewise, y out of Montgomery
+             form, the isogeny's four Horner polynomials, Z = xd' yd', X =
+             xn' yd' Z and y yn' xd' Z^2;
+      CASE   per map sgn0(u) != sgn0(y): the point with -Y into acc (map 0)
+             or base (map 1), else with Y;
+      ADD    acc + base (the complete addition and its case)."""
+    F = FP2_COORD
+    P = Program("sswu_map2")
+    u = fp2s(P.named("u", 4))
+    point_slots(P, F)
+    (one,), (raw1,) = P.slot_list("one"), P.named("raw1", 1)
+    A, B, Z, ZA, _, CZ3 = fp2s(P.named("head_consts", SSWU_HEAD_ROWS))
+    (sqi,) = fp2s(P.named("sqi", 2))
+    iso = fp2s(P.named("iso", SSWU_ROWS - SSWU_ISO_ROW))
+    XNUM, XDEN, YNUM, YDEN = iso[0:4], iso[4:7], iso[7:11], iso[11:15]
+    P.inputs, P.presets, P.outputs = ["u"], ["one", "raw1"], ["acc"]
+    P.pow_bits = bits = SSWU_POW_BITS
+    maps = range(2)
+    chains = (("0", 2, 0), ("1", 2, 0), ("i", 1, 1))  # both maps' sqrt chains, the inverse
+    for c, width, ex in chains:
+        P.named(f"tab{c}", width * ((1 << bits) - 1))
+        for name in "fgo":
+            P.named(f"{name}{c}", width)
+        P.named(f"v{c}", 1 if width == 1 else 3)
+        P.chains.append((f"tab{c}", f"o{c}", f"f{c}", width, ex))
+
+    def flag(name, off=0, count=None, kind=ZERO):
+        return (name, off, P.slots[name][1] if count is None else count, kind)
+
+    P.body("head", auto=True)
+    tv3, bt1, at, cz = [], [], [], []
+    for m in maps:
+        tv1 = f2_sqr(P, u[m])
+        tv3.append(f2_mul(P, Z, tv1))
+        t = f2_add(f2_sqr(P, tv3[m]), tv3[m])
+        store_all(P, P.named(f"t{m}", 2), t)
+        bt1.append(f2_mul(P, B, (t[0] + one, t[1])))
+        at.append(f2_mul(P, A, t))
+        cz.append(keep(P, f2_mul(P, CZ3, f2_mul(P, tv1, u[m]))))
+        for d, x in zip(P.named(f"ru{m}", 2), u[m]):
+            P.mul(x, raw1, dst=d)
+
+    xn = [fp2s(P.named(f"xn{m}", 2))[0] for m in maps]
+    xd = [fp2s(P.named(f"xd{m}", 2))[0] for m in maps]
+    for m in maps:
+        for name, val in ((f"e1_{m}", (B, ZA)), (f"ne1_{m}", (f2_neg(bt1[m]), at[m]))):
+            P.body(name)
+            P.phase()
+            store_all(P, flat(xn[m]) + flat(xd[m]), val)
+        P.cases[f"e1_{m}"] = ([flag(f"t{m}")], [(1, 1, f"e1_{m}"), (0, 0, f"ne1_{m}")])
+
+    P.body("pre", auto=True)
+    w8, gxd, x2, rs, norms, yds = [], [], [], [], [], []
+    for m in maps:
+        xd2, xn2 = f2_sqr(P, xd[m]), f2_sqr(P, xn[m])
+        xd3 = f2_mul(P, xd2, xd[m])
+        bxd3 = f2_mul(P, f2_mul(P, B, xd[m]), xd2)
+        x2n = f2_mul(P, tv3[m], xn[m])
+
+        def gx_num(num, num2):  # num^3 + A num xd^2 + B xd^3, over gxd = xd^3
+            return f2_add(f2_add(f2_mul(P, num2, num), f2_mul(P, f2_mul(P, A, num), xd2)), bxd3)
+
+        gxn, gx2n = gx_num(xn[m], xn2), gx_num(x2n, f2_sqr(P, x2n))
+        g2 = f2_sqr(P, xd3)
+        g4 = f2_sqr(P, g2)
+        g8 = f2_sqr(P, g4)
+        W = f2_mul(P, f2_mul(P, f2_mul(P, f2_mul(P, gxn, xd3), g2), g4), g8)
+        w2 = f2_sqr(P, W)
+        w8.append(keep(P, f2_sqr(P, f2_sqr(P, w2))))
+        b = f2_mul(P, w8[m], f2_mul(P, (W[0], -W[1]), f2_mul(P, w2, W)))
+        pow_table(P, P.slot_list(f"tab{m}"), 2, b)
+        yd2 = f2_sqr(P, g8)
+        rs.append([P.named(f"r{m}{s}", 2) for s in (1, 2)])
+        store_all(P, rs[m][0], f2_mul(P, gxn, yd2))
+        store_all(P, rs[m][1], f2_mul(P, gx2n, yd2))
+        gxd.append(keep(P, xd3))
+        x2.append(keep(P, x2n))
+        norms.append([P.mul(c, c) + P.mul(d, d) for c, d in (xd[m], g8)])
+        yds.append(g8)
+    (nx0, ny0), (nx1, ny1) = norms
+    a01, a23 = P.mul(nx0, ny0), P.mul(nx1, ny1)
+    tabi = P.slot_list("tabi")
+    pow_table(P, tabi, 1, P.mul(a01, a23, dst=tabi[0]))
+    # conj(xd) and conj(yd) times the other three norms: times the inverse
+    # of the product, conj(d) / N(d)
+    ixd, iyd = [], []
+    for m, (cx, cy) in enumerate(((P.mul(ny0, a23), P.mul(nx0, a23)),
+                                  (P.mul(ny1, a01), P.mul(nx1, a01)))):
+        ixd.append((P.mul(xd[m][0], cx), P.mul(-xd[m][1], cx)))
+        iyd.append((P.mul(yds[m][0], cy), P.mul(-yds[m][1], cy)))
+
+    P.body("post1", auto=True)
+    (tinv,) = P.slot_list("vi")
+    cands = []
+    for m in maps:
+        ixd[m] = tuple(P.mul(x, tinv) for x in ixd[m])
+        iyd[m] = tuple(P.mul(x, tinv) for x in iyd[m])
+        z1 = f2_mul(P, _vform(P.slot_list(f"v{m}")), w8[m])
+        z2 = f2_mul(P, z1, cz[m])
+        for s, z in ((1, z1), (2, z2)):
+            X = f2_mul(P, f2_sqr(P, z), gxd[m])
+            R = fp2s(rs[m][s - 1])[0]
+            for k, d in enumerate((X, f2_neg(X), (-X[1], X[0]), (X[1], -X[0]))):
+                store_all(P, P.named(f"d{m}{s}{k}", 2), f2_sub(d, R))
+            cands.append((z, f2_mul(P, z, sqi)))
+
+    xs = [fp2s(P.named(f"xs{m}", 2))[0] for m in maps]
+    ys = [fp2s(P.named(f"ys{m}", 2))[0] for m in maps]
+    for m in maps:
+        flags, rules = [], []
+        for s, x in ((1, xn[m]), (2, x2[m])):
+            z, zs = cands[2 * m + s - 1]
+            flags += [flag(f"r{m}{s}")] + [flag(f"d{m}{s}{k}") for k in range(4)]
+            # 0 where gx = 0; else z c for c^2 = 1, -1, u, -u: c = 1, u,
+            # sqrt(u), sqrt(-u) = sqrt(u) u
+            for k, y in enumerate(((Lin(), Lin()), z, (-z[1], z[0]), zs, (-zs[1], zs[0]))):
+                name = f"cand{m}_{s}{k}"
+                P.body(name)
+                P.phase()
+                store_all(P, flat(xs[m]) + flat(ys[m]), (x, y))
+                rules.append((1 << len(rules), 1 << len(rules), name))
+        P.cases[f"cand{m}"] = (flags, rules + [(0, 0, f"cand{m}_20")])
+
+    P.body("post2", auto=True)
+    pts = []
+    for m in maps:
+        x, y = f2_mul(P, xs[m], ixd[m]), f2_mul(P, ys[m], iyd[m])
+        for d, c in zip(P.named(f"ry{m}", 2), y):
+            P.mul(c, raw1, dst=d)
+        xnum, xden = horner(P, XNUM, x), horner(P, XDEN, x)
+        ynum, yden = horner(P, YNUM, x), horner(P, YDEN, x)
+        z = f2_mul(P, xden, yden)
+        X = f2_mul(P, f2_mul(P, xnum, yden), z)
+        pts.append((X, f2_mul(P, f2_mul(P, f2_mul(P, y, ynum), xden), f2_sqr(P, z)), z))
+
+    one_u, zero_u = _sgn0_rules(0)
+    one_y, zero_y = _sgn0_rules(3)
+    differ = [(mu | my, vu | vy) for a, b in ((one_u, zero_y), (zero_u, one_y))
+              for mu, vu in a for my, vy in b]
+    for m, dst in zip(maps, ("acc", "base")):
+        X, Y, Z3 = pts[m]
+        for name, y in ((f"neg{m}", f2_neg(Y)), (f"pos{m}", Y)):
+            P.body(name)
+            P.phase()
+            store_all(P, P.slot_list(dst), (X, y, Z3))
+        flags = [flag(n, k, 1, kind) for n in (f"ru{m}", f"ry{m}")
+                 for k, kind in ((0, ZERO), (0, PARITY), (1, PARITY))]
+        P.cases[f"sgn0_{m}"] = (flags, [(mk, v, f"neg{m}") for mk, v in differ]
+                                + [(0, 0, f"pos{m}")])
+    ladder_bodies(P, F)
+    P.script = [(LOAD, (0, SSWU_HEAD_ROWS, "head_consts")), (BODY, "head"),
+                (CASE, "e1_0"), (CASE, "e1_1"), (BODY, "pre"), (POW, None),
+                (LOAD, (SSWU_SQI_ROW, 2, "sqi")), (BODY, "post1"), (CASE, "cand0"),
+                (CASE, "cand1"), (LOAD, (SSWU_ISO_ROW, SSWU_ROWS - SSWU_ISO_ROW, "iso")),
+                (BODY, "post2"),
+                (CASE, "sgn0_0"), (CASE, "sgn0_1"), (ADD, "add")]
+
+    # a window: `bits` squares, from v to f by way of g, f, ...; then f * o
+    st = [(c, width) for c, width, _ in chains]
+    dsts = ["fg"[(bits - i) % 2] for i in range(1, bits + 1)]
+    P.body("win_sq")
+    for src, dst in zip(["v"] + dsts, dsts):
+        P.phase()
+        for c, width in st:
+            a = P.slot_list(f"{src}{c}")
+            _sq_into(P, _vform(a) if src == "v" else _value(a, width), P.slot_list(f"{dst}{c}"))
+    P.body("win_mul")
+    P.phase()
+    for c, width in st:
+        _mul_into(P, _value(P.slot_list(f"f{c}"), width), _value(P.slot_list(f"o{c}"), width),
+                  P.slot_list(f"v{c}"))
+    return P.allocate()
+
+
+# ------------------------------------------------------- slots by liveness
+
+def _range(P, name, off=0, count=None):
+    first, n = P.slots[name]
+    return set(range(first + off, first + off + (n - off if count is None else count)))
+
+
+def _flow(P):
+    """The order in which P's kernel runs its bodies, as _flow_graph reads
+    it: a body's name; a list, in sequence; ("loop", x), x any number of
+    times; ("alt", x, ...), one of them (None: nothing); ("touch", reads,
+    writes), slots that the kernel reads and writes outside the bodies.
+    First the kernel's loads, then its script's steps (a CASE's or an
+    addition's flags before the bodies they pick, a ladder's doublings and
+    additions in any order, a POW's copies before each window's bodies) or
+    P.flow, last its stores."""
+
+    def ranges(names):
+        return set().union(*(_range(P, n) for n in names))
+
+    def add():
+        return ["add", ("touch", ranges(("acc", "base", "h", "r")), set()),
+                ("alt", None, *ADD_CASES)]
+
+    flow = [("touch", set(), ranges(P.inputs + P.presets))]
+    for kind, arg in P.script:
+        if kind == BODY:
+            flow.append(arg)
+        elif kind == ADD:
+            flow += add()
+        elif kind == LADDER:
+            flow += ["take_base", ("loop", ("alt", "dbl", add()))]
+        elif kind == LOAD:
+            flow.append(("touch", set(), _range(P, arg[2])))
+        elif kind == CASE:
+            flags, rules = P.cases[arg]
+            bodies = list(dict.fromkeys(b for _, _, b in rules))
+            if all(mask for mask, _, _ in rules):  # no rule may match: no body
+                bodies.append(None)
+            flow += [("touch", set().union(*(_range(P, n, o, c) for n, o, c, _ in flags)),
+                      set()), ("alt", *bodies)]
+        else:  # POW: window 0 sets o and f, a later window o
+            tabs = ranges([t for t, _, _, _, _ in P.chains] + ["one"])
+            o = ranges([o for _, o, _, _, _ in P.chains])
+            f = ranges([f for _, _, f, _, _ in P.chains])
+            flow += [("touch", tabs, o | f), "win_mul",
+                     ("loop", [("touch", tabs, o), "win_sq", "win_mul"])]
+    return flow + [P.flow, ("touch", ranges(P.outputs), set())]
+
+
+def _flow_graph(P, flow):
+    """The flow as a graph of positions: [(reads, writes)], a phase's or a
+    touch's, and each position's successors."""
+    nodes, succ = [], []
+
+    def node(reads, writes, preds):
+        nodes.append((reads, writes))
+        succ.append([])
+        for p in preds:
+            succ[p].append(len(nodes) - 1)
+        return [len(nodes) - 1]
+
+    def walk(x, preds):
+        if x is None:
+            return preds
+        if isinstance(x, str):
+            for ops in P.bodies[x]:
+                preds = node(set().union(*(op.reads() for op in ops)), {op.dst for op in ops},
+                             preds)
+            return preds
+        if isinstance(x, list):
+            for y in x:
+                preds = walk(y, preds)
+            return preds
+        if x[0] == "touch":
+            return node(x[1], x[2], preds)
+        if x[0] == "alt":
+            return [p for y in x[1:] for p in walk(y, preds)]
+        head = node(set(), set(), preds)  # a loop
+        for p in walk(x[1], head):
+            succ[p].append(head[0])
+        return head
+
+    walk(flow, [])
+    return nodes, succ
+
+
+def _allocate(P):
+    """The kernel's slots for P's values: a value occupies the positions of
+    the flow where it is written or live (read there or later before it is
+    written again), and two values share a slot only where no position
+    holds both.  A named range keeps its slots together; the inputs' ranges
+    land first and in order at slots 0 and up (the packed operand's
+    coordinates), then first fit in order of first position."""
+    nodes, succ = _flow_graph(P, _flow(P))
+    live = [set() for _ in nodes]
+    changed = True
+    while changed:
+        changed = False
+        for i in reversed(range(len(nodes))):
+            reads, writes = nodes[i]
+            new = reads | (set().union(*(live[j] for j in succ[i])) - writes)
+            if new != live[i]:
+                live[i], changed = new, True
+    if live[0]:
+        raise ValueError(f"{P.name}: slots {sorted(live[0])} read before written")
+    occ = {}  # value -> bit i set where position i holds it
+    for i, (_, writes) in enumerate(nodes):
+        for s in live[i] | writes:
+            occ[s] = occ.get(s, 0) | 1 << i
+
+    def first(masks):
+        return min((m & -m).bit_length() for m in masks if m)
+
+    units, named = [], set()
+    for i, (name, (lo, count)) in enumerate(P.slots.items()):
+        masks = [occ.get(s, 0) for s in range(lo, lo + count)]
+        if not any(masks):
+            raise ValueError(f"{P.name}: slots {name} unused")
+        order = (0, P.inputs.index(name)) if name in P.inputs else (first(masks), i)
+        units.append((order, lo, masks))
+        named.update(range(lo, lo + count))
+    units += [((first([m]), len(P.slots) + s), s, [m]) for s, m in occ.items() if s not in named]
+    busy, phys = [], {}  # busy[slot]: the positions of the values in it
+    for _, lo, masks in sorted(units):
+        base = 0
+        while any(busy[base + j] & m for j, m in enumerate(masks) if base + j < len(busy)):
+            base += 1
+        busy += [0] * max(0, base + len(masks) - len(busy))
+        for j, m in enumerate(masks):
+            busy[base + j] |= m
+            phys[lo + j] = base + j
+
+    def lin(f):
+        return Lin({phys[s]: k for s, k in f.c.items()}, f.h)
+
+    for phases in P.bodies.values():
+        for ops in phases:
+            for op in ops:
+                op.dst, op.a = phys[op.dst], lin(op.a)
+                op.b = None if op.b is None else lin(op.b)
+    P.slots = {n: (phys[lo], count) for n, (lo, count) in P.slots.items()}
+    P.nslots = len(busy)
+    at = 0
+    for n in P.inputs:
+        if P.slots[n][0] != at:
+            raise ValueError(f"{P.name}: input {n} at slot {P.slots[n][0]}, not {at}")
+        at += P.slots[n][1]
+    check_phases(P)
 
 
 def programs():
     return ([exp_x_program()] + [miller_program(k) for k in MILLER_PAIRS]
-            + [ladder_program(FP_COORD), ladder_program(FP2_COORD), cofactor_program()])
+            + [ladder_program(FP_COORD), ladder_program(FP2_COORD), cofactor_program()]
+            + [miller_add_program(k) for k in MILLER_PAIRS] + [sswu_program()])
 
 
 def elements_per_block(P, g):
@@ -688,7 +1248,17 @@ def shared_bytes(P, g):
 
 def check_phases(P):
     """No op of a phase writes a slot that another op of it reads or writes,
-    and a phase holds products only or combinations only."""
+    and a phase holds products only or combinations only.  A POW step's
+    copies of a later window run beside win_sq's first phase, with no
+    barrier between (group.cuh pow_step): that phase touches none of the
+    slots they read or write (the tables, o and the one)."""
+    if P.chains:
+        copies = _range(P, "one").union(*(_range(P, n) for t, o, _, _, _ in P.chains
+                                          for n in (t, o)))
+        touched = {s for op in P.bodies["win_sq"][0] for s in op.reads() | {op.dst}}
+        if copies & touched:
+            raise ValueError(f"{P.name}.win_sq phase 0: slots {sorted(copies & touched)} "
+                             f"of the window's copies")
     for name, phases in P.bodies.items():
         for i, ops in enumerate(phases):
             if len({op.b is None for op in ops}) != 1:
@@ -780,9 +1350,58 @@ def add_case(P, slots):
     return "take_sum"
 
 
-def run_script(P, segments, slots):
+def pick_case(P, case, slots):
+    """The body that CASE step `case` picks, or None (group.cuh pick_case):
+    every flag of the case read from the slots (ZERO: its slots all zero;
+    PARITY: its slot's value odd) into bit i of a word, then the first rule
+    (mask, value, body) with word & mask == value."""
+    flags, rules = P.cases[case]
+    word = 0
+    for i, (name, off, count, kind) in enumerate(flags):
+        s = P.slots[name][0] + off
+        on = slots[s] & 1 if kind == PARITY else not any(slots[s:s + count])
+        word |= bool(on) << i
+    return next((body for mask, value, body in rules if word & mask == value), None)
+
+
+def pow_windows(exponent, bits):
+    return -(-exponent.bit_length() // bits)
+
+
+def pow_digit(exponent, nwin, w, bits):
+    """Window w (from the top) of `exponent` split into nwin windows."""
+    return (exponent >> (bits * (nwin - 1 - w))) & ((1 << bits) - 1)
+
+
+def run_pow(P, exps, slots):
+    """A POW step on a list of canonical ints, as group.cuh pow_step runs
+    it: every chain (table, o, f, width, exponent index) in lockstep over
+    the windows of the longer exponent.  Window 0: o = the table entry of
+    the chain's digit (the one where the digit is 0, and at the windows
+    before its exponent's first), f = one, then the body win_mul (f o into
+    v); every later window: o = its digit's entry, then the bodies win_sq
+    (v^(2^bits) into f) and win_mul."""
+    bits, one = P.pow_bits, slots[P.slots["one"][0]]
+    nwin = max(pow_windows(e, bits) for e in exps)
+    for w in range(nwin):
+        for tab, o, f, width, ex in P.chains:
+            d = pow_digit(exps[ex], nwin, w, bits)
+            unit = [one] + [0] * (width - 1)
+            t = P.slots[tab][0] + (d - 1) * width
+            first = P.slots[o][0]
+            slots[first:first + width] = slots[t:t + width] if d else unit
+            if w == 0:
+                first = P.slots[f][0]
+                slots[first:first + width] = unit
+        if w:
+            run_body(P, "win_sq", slots)
+        run_body(P, "win_mul", slots)
+
+
+def run_script(P, segments, slots, exps=(), table=()):
     """Run a point program's script on a list of canonical ints, as
-    group.cuh run_script does: `segments` the ladder's (len, set bit) runs."""
+    group.cuh run_script does: `segments` the ladder's (len, set bit) runs,
+    `exps` the POW chains' exponents, `table` the LOAD rows (ints)."""
 
     def add():
         run_body(P, "add", slots)
@@ -790,11 +1409,21 @@ def run_script(P, segments, slots):
         if case:
             run_body(P, case, slots)
 
-    for kind, body in P.script:
+    for kind, arg in P.script:
         if kind == BODY:
-            run_body(P, body, slots)
+            run_body(P, arg, slots)
         elif kind == ADD:
             add()
+        elif kind == CASE:
+            body = pick_case(P, arg, slots)
+            if body:
+                run_body(P, body, slots)
+        elif kind == LOAD:
+            row, count, name = arg
+            first = P.slots[name][0]
+            slots[first:first + count] = table[row:row + count]
+        elif kind == POW:
+            run_pow(P, exps, slots)
         else:
             run_body(P, "take_base", slots)
             for length, mul in segments:
@@ -808,10 +1437,13 @@ def run_script(P, segments, slots):
 # ---------------------------------------------------------------- the header
 
 def _tables(progs):
-    """(terms, forms, ops, phases, {(program, body): (first, last phase)},
-    script steps, {program: (first, last step)})."""
+    """The header's tables and index ranges: terms, forms, ops, phases,
+    {(program, body): (first, last phase)}, script steps, {program: (first,
+    last step)}, cases, flags, rules, chains, {program: (first, last
+    chain)}."""
     terms, forms, ops, phases, ranges = [], [], [], [], {}
     steps, scripts = [], {}
+    cases, flags, rules, chains, chain_ranges, case_index = [], [], [], [], {}, {}
     index = {}  # (terms, mode, halvings) -> form: a square's two operands are one form
 
     def form(lin, mode):
@@ -848,13 +1480,38 @@ def _tables(progs):
     if len(forms) >= 1 << 16 or len(phases) >= 1 << 16:
         raise ValueError("tables too large")
     for P in progs:
+        for name, (fl, ru) in P.cases.items():
+            if len(fl) > 16:
+                raise ValueError(f"{P.name}.{name}: more than 16 flags")
+            case_index[(P.name, name)] = len(cases)
+            cases.append((len(flags) | len(fl) << 16, len(rules) | len(ru) << 16))
+            for n, off, count, kind in fl:
+                flags.append(P.slots[n][0] + off | count << 8 | kind << 16)
+            for mask, value, body in ru:
+                a, b = ranges[(P.name, body)] if body else (0, 0)
+                rules.append((mask | value << 16, a | b << 16))
+        if P.chains:
+            chain_ranges[P.name] = (len(chains), len(chains) + len(P.chains))
+            for tab, o, f, width, ex in P.chains:
+                chains.append(P.slots[tab][0] | P.slots[o][0] << 8 | P.slots[f][0] << 16
+                              | width << 24 | ex << 28)
         if P.script:
             first = len(steps)
-            for kind, body in P.script:
-                a, b = ranges[(P.name, body)] if body else (0, 0)
-                steps.append((kind, a | b << 16))
+            for kind, arg in P.script:
+                if kind in (BODY, ADD):
+                    a, b = ranges[(P.name, arg)]
+                    y = a | b << 16
+                elif kind == CASE:
+                    y = case_index[(P.name, arg)]
+                elif kind == LOAD:
+                    row, count, name = arg
+                    y = row | count << 8 | P.slots[name][0] << 16
+                else:  # LADDER, POW: their bodies are the program's
+                    y = 0
+                steps.append((kind, y))
             scripts[P.name] = (first, len(steps))
-    return terms, forms, ops, phases, ranges, steps, scripts
+    return (terms, forms, ops, phases, ranges, steps, scripts, cases, flags, rules, chains,
+            chain_ranges)
 
 
 def _array(ctype, name, values, per_line=8, fmt="{}"):
@@ -867,7 +1524,8 @@ def _array(ctype, name, values, per_line=8, fmt="{}"):
 def render():
     """The text of csrc/group_rounds.cuh."""
     progs = programs()
-    terms, forms, ops, phases, ranges, steps, scripts = _tables(progs)
+    (terms, forms, ops, phases, ranges, steps, scripts, cases, flags, rules, chains,
+     chain_ranges) = _tables(progs)
     out = [
         "// Generated by bls_verify_gadget_tpu_torch/ops/group_rounds.py: do not edit.",
         "// python3 -m bls_verify_gadget_tpu_torch.ops.group_rounds rewrites it.",
@@ -881,10 +1539,20 @@ def render():
         "//                for a combination}",
         "//   kGroupPhases the first op of each phase (and the end of the last)",
         "//   kGroupScript a point program's step: {kind (0 a body, 1 an addition,",
-        "//                2 a ladder), its body's first | last phase << 16}",
+        "//                2 a ladder, 3 a pow, 4 a case, 5 a load), its body's",
+        "//                first | last phase << 16, the case, or the load's",
+        "//                first row | rows << 8 | first slot << 16}",
+        "//   kGroupCases  a case: {first flag | flags << 16, first rule | rules",
+        "//                << 16}",
+        "//   kGroupFlags  a flag: slot | slots << 8 | kind << 16 (0 all zero, 1",
+        "//                odd)",
+        "//   kGroupRules  a rule: {mask | value << 16 over the case's flags, its",
+        "//                body's first | last phase << 16}",
+        "//   kGroupChains a pow chain: table slot | o slot << 8 | f slot << 16 |",
+        "//                width << 24 | exponent << 28",
         "// and per program its slot count, named slots, bodies [first, last",
-        "// phase) and script [first, last step).  Products per body in the",
-        "// comments.",
+        "// phase), script [first, last step), its script's step kinds and its",
+        "// chains [first, last).  Products per body in the comments.",
         "#pragma once",
         "",
         "#include <cstdint>",
@@ -910,7 +1578,13 @@ def render():
                        f"  // {products(P, name)} products")
         if P.name in scripts:
             a, b = scripts[P.name]
+            kinds = sum(1 << k for k in {k for k, _ in P.script} | {BODY})
             out.append(f"  static constexpr int kScript = {a}, kEndScript = {b};")
+            out.append(f"  static constexpr unsigned kStepKinds = 0x{kinds:x}u;")
+        if P.name in chain_ranges:
+            a, b = chain_ranges[P.name]
+            out.append(f"  static constexpr int kChains = {a}, kEndChains = {b}, "
+                       f"kPowBits = {P.pow_bits};")
         out.append("};")
         out.append("")
     out.append(_array("uint16_t", "kGroupTerms", terms, 12, "0x{:04x}"))
@@ -918,6 +1592,12 @@ def render():
     out.append(_array("uint2", "kGroupOps", [f"{{0x{a:08x}u, 0x{b:08x}u}}" for a, b in ops], 3))
     out.append(_array("uint16_t", "kGroupPhases", phases, 12))
     out.append(_array("uint2", "kGroupScript", [f"{{{k}u, 0x{r:08x}u}}" for k, r in steps], 4))
+    out.append(_array("uint2", "kGroupCases", [f"{{0x{a:08x}u, 0x{b:08x}u}}" for a, b in cases],
+                      3))
+    out.append(_array("uint32_t", "kGroupFlags", flags, 6, "0x{:08x}u"))
+    out.append(_array("uint2", "kGroupRules", [f"{{0x{a:08x}u, 0x{b:08x}u}}" for a, b in rules],
+                      3))
+    out.append(_array("uint32_t", "kGroupChains", chains, 6, "0x{:08x}u"))
     out += ["}  // namespace group", "}  // namespace bls", ""]
     return "\n".join(out)
 

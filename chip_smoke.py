@@ -85,18 +85,21 @@ Needs one CUDA card and nvcc.  Phases, each fatal on failure:
      pt_mul_const (G1 and G2 by |x|) and g2_cofactor at 4096, 4095 and 1
      with the ladders' edge points in the first elements (the infinity,
      G1 points of order 3 and 11, which meet the complete addition's
-     P == -Q and P == Q cases, the off-subgroup points): bit-equal to the
-     plain versions; the sweep's other group sizes (throwaway copies of
+     P == -Q and P == Q cases, the off-subgroup points), miller_add (k = 1
+     and 2) at 4096 and 4095 with mixed valid masks, sswu_map2 at 4096,
+     4095 and 1 on hash_to_field's outputs with u = 0 elements (u0 = u1 =
+     0 meets the sum's doubling case): bit-equal to the plain versions;
+     the sweep's other group sizes (throwaway copies of
      csrc/pairing_kernels.cu built with -DBLS_GROUP=G for G = 4 and 16
      beside the library's 8, and of csrc/hash_kernels.cu built with
-     -DBLS_LADDER_GROUP=G for G = 2, 4 and 8, into build/, in parallel
+     -DBLS_HASH_GROUP=G for G = 2, 4 and 8, into build/, in parallel
      with the library) bit-equal to the wrapper, and device ms per launch
-     of each G at 4096 (and at 1 for the ladders); with --parent DIR, the
-     parent commit's kernels (its pairing_kernels.cu and hash_kernels.cu,
-     built from DIR in parallel too) bit-equal as well and timed
-     interleaved with this tree's (parent, group, group, parent).  ptxas's
-     registers, stack and spills and the shared memory per block of each
-     group kernel instance are printed under [build].
+     of each G at 4096 (and at 1 for the ladders and sswu_map2); with
+     --parent DIR, the parent commit's kernels (its pairing_kernels.cu and
+     hash_kernels.cu, built from DIR in parallel too) bit-equal as well and
+     timed interleaved with this tree's (parent, group, group, parent).
+     ptxas's registers, stack and spills and the shared memory per block of
+     each group kernel instance are printed under [build].
 Prints one JSON line of kernels, the card's name and power limit, and as
 its last line {"ok": true, "device": {...}}.  Imports nothing of JAX.
 
@@ -1001,11 +1004,15 @@ def _finite(p, c):
 
 
 def _sswu_products():
-    """Montgomery products of sswu_map2 per element (csrc/hash_kernels.cu):
-    per map 112 around the sqrt chain plus the chain, and 67 for affine,
-    sgn0 and isogeny; then 8 + 3 for the four norms, the Fermat inverse,
-    6 for Montgomery's trick and 44 for q0 + q1.  The sqrt candidates'
-    products (at most 3 per check, where sqrt(+-u) passes) are not counted."""
+    """Montgomery products that sswu_map2 needs per element, counted from
+    the function (the formulas of hash_to_g2.py's sswu_map2_plain), not from
+    a kernel: per map 112 around the sqrt chain plus the chain, and 67 for
+    affine, sgn0 and the isogeny; then 8 + 3 for the four norms, the Fermat
+    inverse, 6 for Montgomery's trick and 44 for q0 + q1.  Each chain
+    (_pow_products) runs 4-bit windows with no product for a digit of 0, and
+    the chains' table products are counted once each; the sqrt candidates'
+    products (at most 3 per check, where sqrt(+-u) passes) are not counted:
+    3,032 in all."""
     from bls_verify_gadget_tpu_torch.ops import hash_to_g2 as H
     from bls_verify_gadget_tpu_torch.ops.fp import FP
 
@@ -1590,39 +1597,44 @@ def kernel_phase(torch, K, launches, sizes, verify_s, ctx, keys, steps):
 # ----------------------------------------------------------------------------
 
 # threads per element swept: the pairing unit's group kernels (the library's
-# is BLS_GROUP) and the hash unit's ladders (kGroupG1, kGroupG2,
-# kGroupCofactor)
+# is BLS_GROUP) and the hash unit's (kGroupG1, kGroupG2, kGroupCofactor,
+# kGroupSswu)
 GROUP_SWEEP = {"pairing": (4, 8, 16), "hash": (2, 4, 8)}
 GROUP_UNITS = {"pairing": "pairing_kernels.cu", "hash": "hash_kernels.cu"}
-GROUP_DEFINE = {"pairing": "BLS_GROUP", "hash": "BLS_LADDER_GROUP"}
+GROUP_DEFINE = {"pairing": "BLS_GROUP", "hash": "BLS_HASH_GROUP"}
 # group kernel -> its unit; a group instance: the kernel, or the ladder's field
-GROUP_KERNELS = {"miller_dbl_run": "pairing", "exp_x": "pairing", "pt_mul_const": "hash",
-                 "g2_cofactor": "hash"}
+GROUP_KERNELS = {"miller_dbl_run": "pairing", "miller_add": "pairing", "exp_x": "pairing",
+                 "pt_mul_const": "hash", "g2_cofactor": "hash", "sswu_map2": "hash"}
 # ptxas's mangled name of each group kernel instance -> (label, program of
 # ops/group_rounds.py, G)
 GROUP_LOG = (
     (re.compile(r"miller_dbl_run_kernelILi(\d+)ELi(\d+)E"),
      lambda m: (f"miller_dbl_run<K={m[1]}, G={m[2]}>", f"miller{m[1]}", int(m[2]))),
+    (re.compile(r"miller_add_kernelILi(\d+)ELi(\d+)E"),
+     lambda m: (f"miller_add<K={m[1]}, G={m[2]}>", f"miller_add{m[1]}", int(m[2]))),
     (re.compile(r"exp_x_kernelILi(\d+)E"),
      lambda m: (f"exp_x<G={m[1]}>", "exp_x", int(m[1]))),
     (re.compile(r"pt_mul_const_kernelIN3bls5group\d+Ladder(G[12])ProgramELi(\d+)E"),
      lambda m: (f"pt_mul_const<{m[1]}, G={m[2]}>", f"ladder_{m[1].lower()}", int(m[2]))),
     (re.compile(r"g2_cofactor_kernelILi(\d+)E"),
      lambda m: (f"g2_cofactor<G={m[1]}>", "g2_cofactor", int(m[1]))),
+    (re.compile(r"sswu_map2_kernelILi(\d+)E"),
+     lambda m: (f"sswu_map2<G={m[1]}>", "sswu_map2", int(m[1]))),
 )
 
 
 def library_groups(K):
     """The library's threads per element of each group instance:
-    pairing_kernels.cu's BLS_GROUP, hash_kernels.cu's kGroupG1, kGroupG2
-    and kGroupCofactor."""
+    pairing_kernels.cu's BLS_GROUP, hash_kernels.cu's kGroupG1, kGroupG2,
+    kGroupCofactor and kGroupSswu."""
     pairing = int(re.search(r"#define BLS_GROUP (\d+)",
                             (K.CSRC_DIR / GROUP_UNITS["pairing"]).read_text())[1])
-    g1, g2, cofactor = map(int, re.search(
-        r"#else\nconstexpr int kGroupG1 = (\d+), kGroupG2 = (\d+), kGroupCofactor = (\d+);",
-        (K.CSRC_DIR / GROUP_UNITS["hash"]).read_text()).groups())
-    return {"miller_dbl_run": pairing, "exp_x": pairing, "pt_mul_const G1": g1,
-            "pt_mul_const G2": g2, "g2_cofactor": cofactor}
+    g1, g2, cofactor, sswu = map(int, re.search(
+        r"#else\nconstexpr int kGroupG1 = (\d+), kGroupG2 = (\d+), kGroupCofactor = (\d+), "
+        r"kGroupSswu = (\d+);", (K.CSRC_DIR / GROUP_UNITS["hash"]).read_text()).groups())
+    return {"miller_dbl_run": pairing, "miller_add": pairing, "exp_x": pairing,
+            "pt_mul_const G1": g1, "pt_mul_const G2": g2, "g2_cofactor": cofactor,
+            "sswu_map2": sswu}
 
 
 def group_build_report(log_path, label):
@@ -1712,15 +1724,29 @@ def entry_launch(torch, K, name, fn, args):
     from bls_verify_gadget_tpu_torch.ops.fp import FP
 
     p, n0 = K._p_words(FP), FP.n0_word
-    if name == "miller_dbl_run":
-        f, t, xp, yp, valid, count = args
-        packed, mask = K._miller_pack(f, t, (xp, yp), valid)
+    if name in ("miller_dbl_run", "miller_add"):  # miller_dbl_run's run length last
+        count = args[-1:] if name == "miller_dbl_run" else ()
+        f, t, *per_pair, valid = args[:len(args) - len(count)]
+        packed, mask = K._miller_pack(f, t, per_pair, valid)
         k, n = t.shape[0], f.shape[1]
         out = packed.new_empty((12 + 6 * k, n, 24))
 
         def launch():
             K._check_rc(name, fn(packed.data_ptr(), mask.data_ptr(), out.data_ptr(), n, k,
-                                 count, p, n0, K._stream(packed)))
+                                 *count, p, n0, K._stream(packed)))
+        return launch, out
+    if name == "sswu_map2":
+        from bls_verify_gadget_tpu_torch.ops import hash_to_g2 as H
+
+        (u,) = args
+        table, out = H.sswu_consts(u.device), u.new_empty((6, *u.shape[1:]))
+        sqrt_digits, nsqrt = K._digits(H.SQRT_K)
+        inv_digits, ninv = K._digits(FP.modulus - 2)
+
+        def launch():
+            K._check_rc(name, fn(u.data_ptr(), table.data_ptr(), out.data_ptr(), u.shape[1],
+                                 sqrt_digits, nsqrt, inv_digits, ninv, K._mont_words(FP, [1]),
+                                 p, n0, K._stream(u)))
         return launch, out
     m, segs = args
     lens, muls, nseg = K._segments(name, segs)
@@ -1781,8 +1807,16 @@ def group_cases(torch, rng):
     g2_cofactor at 4096 (timed), 4095 and 1 (timed), the counts the paths
     launch them with: seeded random coordinates (off the curve; the kernels
     and the plain versions compute the same formulas), with
-    ladder_edge_points in elements 0 and up of 4096 and 4095."""
+    ladder_edge_points in elements 0 and up of 4096 and 4095; miller_add
+    with two pairs and with one at 4096 (timed) and 4095, masks mixed;
+    sswu_map2 at 4096 (timed), 4095 and 1 (timed) on hash_to_field's
+    outputs for seeded messages, with hash_cases' u = 0 elements (u0 = u1
+    = 0: both maps' e1 branch and the sum's doubling case; u1 = 0) in
+    elements 0 and 1 of 4096 and 4095."""
+    import numpy as np
+
     from bls_verify_gadget_tpu_torch.ops import curve as CV
+    from bls_verify_gadget_tpu_torch.ops import hash_to_g2 as H
     from bls_verify_gadget_tpu_torch.ops.fp import FP
 
     longest = max(c for c, _ in CV.X_SEGMENTS)
@@ -1813,6 +1847,20 @@ def group_cases(torch, rng):
             pts[:, :e] = CV.pack_point(ops, enc(edges[:e], "cuda"))
             label = f"{what}, {n}" + (f", edge points in elements 0-{e - 1}" if e else "")
             cases.append((label, name, key, (pts, CV.X_SEGMENTS), n != BATCH - 1))
+    for k in (2, 1):
+        for n in (BATCH, BATCH - 1):
+            cases.append((f"k = {k}, {n}", "miller_add", "miller_add",
+                          pairing_inputs(torch, rng, "miller_add", n, k=k), n == BATCH))
+    msg = torch.from_numpy(rng.integers(0, 256, (BATCH, MSG_LEN), dtype=np.uint8)).cuda()
+    u = torch.stack([*(c for f2 in H.hash_to_field_fp2(msg, MSG_LEN) for c in f2)])
+    for n in (BATCH, BATCH - 1, 1):
+        un = u[:, BATCH - n:].contiguous()
+        label = f"hash_to_field outputs, {n}"
+        if n > 1:
+            un[:, 0] = 0
+            un[2:, 1] = 0
+            label += ", u0 = u1 = 0 in element 0, u1 = 0 in element 1"
+        cases.append((label, "sswu_map2", "sswu_map2", (un,), n != BATCH - 1))
     return cases
 
 
@@ -1892,8 +1940,9 @@ def main():
                     help="run only the device, build and group phases (the group kernels)")
     ap.add_argument("--parent", metavar="DIR",
                     help="a git archive of the parent commit in a git-ignored directory of "
-                         "this checkout: time its miller_dbl_run, exp_x, pt_mul_const and "
-                         "g2_cofactor kernels interleaved with this tree's in the group phase")
+                         "this checkout: time its miller_dbl_run, miller_add, exp_x, "
+                         "pt_mul_const, g2_cofactor and sswu_map2 kernels interleaved with "
+                         "this tree's in the group phase")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)

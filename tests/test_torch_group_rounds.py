@@ -3,12 +3,16 @@ tables of csrc/group_rounds.cuh that csrc/group.cuh runs) on the CPU: the
 committed header is the generator's output, and each body run on Python
 ints as the kernels run it (run_body: phase by phase, every form and
 product with the kernels' bounds checked) gives the limbs of the plain
-versions of miller_dbl_run and exp_x (ops/pairing.py) on seeded random
-operands, off the curve and off the cyclotomic subgroup, with mixed valid
-masks; the point programs' scripts (run_script) give those of
-pt_mul_const (G1, G2) and g2_cofactor (ops/curve.py) on edge points, and
-in affine the JAX package's golden curve and, in G1, its jitted
-pt_mul_const.  Tolerance 0."""
+versions of miller_dbl_run, miller_add and exp_x (ops/pairing.py) on
+seeded random operands, off the curve and off the cyclotomic subgroup,
+with mixed valid masks; the point programs' scripts (run_script) give
+those of pt_mul_const (G1, G2) and g2_cofactor (ops/curve.py) on edge
+points, and in affine the JAX package's golden curve and, in G1, its
+jitted pt_mul_const, and those of sswu_map2 (ops/hash_to_g2.py) on u
+values that meet each of its branches; the cases' flags, forced, pick
+their bodies in the JAX order.  Tolerance 0."""
+
+import functools
 
 import jax
 import numpy as np
@@ -23,9 +27,11 @@ from bls_verify_gadget_tpu_torch import constants as C
 from bls_verify_gadget_tpu_torch.convert import limbs_from_numpy
 from bls_verify_gadget_tpu_torch.ops import curve as CV
 from bls_verify_gadget_tpu_torch.ops import group_rounds as GR
+from bls_verify_gadget_tpu_torch.ops import hash_to_g2 as H
 from bls_verify_gadget_tpu_torch.ops import pairing as PR
 from bls_verify_gadget_tpu_torch.ops.limbs import ints_to_limbs, limbs_to_int
 from test_torch_curve_hash_pairing import g1_off_subgroup, g2_off_subgroup
+from test_torch_hash_kernels import _gx1_is_square
 
 N = 3  # elements
 
@@ -90,6 +96,26 @@ def test_miller_bodies_match_the_plain_version(k):
                     GR.run_body(P, f"line{q}", slots)
         got = slots[:12] + [slots[12 + 8 * q + c] for q in range(k) for c in range(6)]
         assert got == [want[c][i] for c in range(12 + 6 * k)]
+    # miller_add: its program's body add, then line<p> per valid pair, on f,
+    # T and the G1 points above with seeded affine Q
+    q, qv = packed(rng, 4 * k)
+    tq = t.view(k, 6, N, 24)
+    want_f, want_t = PR.miller_add_plain(f, tq, q.view(k, 4, N, 24), p[0::2], p[1::2], valid)
+    want = ints(torch.cat([want_f, want_t.reshape(6 * k, N, 24)]))
+    P = GR.miller_add_program(k)
+    for i in range(N):
+        slots = [0] * P.nslots  # f, then per pair X, Y, Z, xq, yq, xp, yp
+        slots[:12] = [fv[c][i] for c in range(12)]
+        for j in range(k):
+            slots[12 + 12 * j:24 + 12 * j] = ([tv[6 * j + c][i] for c in range(6)]
+                                              + [qv[4 * j + c][i] for c in range(4)]
+                                              + [pv[2 * j][i], pv[2 * j + 1][i]])
+        GR.run_body(P, "add", slots)
+        for j in range(k):
+            if valid[j, i]:
+                GR.run_body(P, f"line{j}", slots)
+        got = slots[:12] + [slots[12 + 12 * j + c] for j in range(k) for c in range(6)]
+        assert got == [want[c][i] for c in range(12 + 6 * k)]
 
 
 # ---------------------------------------------------------------------------
@@ -133,14 +159,33 @@ def _points(kernel):
     return pts, packed
 
 
-@pytest.mark.parametrize("kernel", ["ladder_g1", "ladder_g2", "g2_cofactor"])
+def _sswu_inputs():
+    """Montgomery ints u0.re, u0.im, u1.re, u1.im of sswu_map2's elements:
+    u0 = u1 = 0 (both maps' e1 branch, q0 == q1: the sum's doubling case),
+    u1 = 0 alone, a u0 whose gx1 is not a square and one whose gx1 is (the
+    two values of found1), and seeded values (with the rest, both sgn0
+    branches)."""
+    rng = np.random.default_rng(77)
+    nonsq = next((k, 1) for k in range(1, 100) if not _gx1_is_square((k, 1)))
+    sq = next((k, 1) for k in range(1, 100) if _gx1_is_square((k, 1)))
+    rand = [tuple(int.from_bytes(rng.bytes(48), "little") % C.P for _ in range(2))
+            for _ in range(4)]
+    us = [((0, 0), (0, 0)), (rand[0], (0, 0)), (nonsq, rand[1]), (sq, rand[2]), (rand[3], nonsq)]
+    return [[_mont(u[m][c]) for u in us] for m in range(2) for c in range(2)]
+
+
+@pytest.mark.parametrize("kernel", ["ladder_g1", "ladder_g2", "g2_cofactor", "sswu_map2"])
 def test_point_programs_match_the_plain_versions(kernel, monkeypatch):
     """The script of each point program (run_script: the ladder by |x|,
-    the whole g2_cofactor body) on Python ints, limb-equal to the plain
-    version and, in affine, to the JAX package's golden curve (and in G1
+    the whole g2_cofactor body, sswu_map2's table loads, cases and chains)
+    on Python ints, limb-equal to the plain version and, for the ladders
+    and g2_cofactor, in affine to the JAX package's golden curve (and in G1
     to jax.jit of its pt_mul_const, a cmov ladder with another Jacobian
-    representative); every case of the complete addition that the data
-    meets is counted."""
+    representative); every case of the complete addition, and of
+    sswu_map2's cases, that the data meets is counted."""
+    if kernel == "sswu_map2":
+        _sswu_program_matches_plain(monkeypatch)
+        return
     pts, packed = _points(kernel)
     n = len(pts)
     if kernel == "g2_cofactor":
@@ -202,3 +247,82 @@ def test_add_case_follows_the_jax_order(flags, case):
             first = P.slots[name][0] + off
             slots[first:first + c] = [0] * c if flag else [5] * c
         assert GR.add_case(P, slots) == case
+
+
+def _sswu_program_matches_plain(monkeypatch):
+    vals = _sswu_inputs()
+    u = torch.from_numpy(np.stack([ints_to_limbs(v, 24) for v in vals]))
+    want = ints(H.sswu_map2_plain(u))
+    P = GR.sswu_program()
+    table = [limbs_to_int(row.numpy()) for row in H.sswu_consts("cpu")]
+    picks, pick_case, add_case = [], GR.pick_case, GR.add_case
+    monkeypatch.setattr(GR, "pick_case", lambda *a: picks.append(pick_case(*a)) or picks[-1])
+    monkeypatch.setattr(GR, "add_case", lambda *a: picks.append(add_case(*a)) or picks[-1])
+    acc = P.slots["acc"][0]
+    for i, u_i in enumerate(zip(*vals)):
+        slots = [0] * P.nslots
+        slots[:4] = u_i
+        slots[P.slots["one"][0]], slots[P.slots["raw1"][0]] = _mont(1), 1
+        got = GR.run_script(P, None, slots, (H.SQRT_K, C.P - 2), table)[acc:acc + 6]
+        assert got == [w[i] for w in want]
+    e1, cand, sign, add = picks[:2], picks[2:4], picks[4:6], picks[6]  # u0 = u1 = 0
+    assert e1 == ["e1_0", "e1_1"] and cand[0][-2:] == cand[1][-2:] and add == "dbl"
+    assert sign[0][:3] == sign[1][:3]
+    met = set(picks)
+    assert {"ne1_0", "ne1_1", "neg0", "neg1", "take_sum"} <= met
+    assert any(c.startswith("cand0_1") and c != "cand0_10" for c in met)  # found1
+    assert any(c.startswith("cand0_2") for c in met)  # not found1
+    assert len(picks) == 7 * len(want[0])
+
+
+_sswu_program = functools.cache(GR.sswu_program)
+
+
+def _sgn0(re, im):
+    """RFC 9380 sgn0 (m = 2) of a canonical (re, im) (_sgn0_rows)."""
+    return re & 1 if re else im & 1
+
+
+@pytest.mark.parametrize("case, on, body", [
+    ("e1_0", {"t0"}, "e1_0"),  # t == 0: (B, Z A)
+    ("e1_0", set(), "ne1_0"),
+    ("e1_1", {"t1"}, "e1_1"),
+    ("e1_1", set(), "ne1_1"),
+    # _cand_select_rows: gx = 0 (R = 0) first, then c^2 = 1, -1, u, -u; the
+    # first set's candidate where it has one (found1), else the second's
+    ("cand0", {"r01", "d010", "d011", "d012", "d013", "r02", "d020"}, "cand0_10"),
+    ("cand0", {"d010", "d011", "d012", "d013", "r02"}, "cand0_11"),
+    ("cand0", {"d011", "d012", "d013", "d020"}, "cand0_12"),
+    ("cand0", {"d012", "d013", "r02"}, "cand0_13"),
+    ("cand0", {"d013", "d020"}, "cand0_14"),
+    ("cand1", {"r12", "d120", "d121", "d122", "d123"}, "cand1_20"),
+    ("cand1", {"d120", "d121", "d122", "d123"}, "cand1_21"),
+    ("cand1", {"d121", "d122", "d123"}, "cand1_22"),
+    ("cand1", {"d122", "d123"}, "cand1_23"),
+    ("cand1", {"d123"}, "cand1_24"),
+    ("cand1", set(), "cand1_20"),  # no candidate: the second set's 0
+    ("sgn0_0", None, None),
+    ("sgn0_1", None, None),
+])
+def test_sswu_cases_follow_the_jax_order(case, on, body):
+    """pick_case picks sswu_map2's bodies from the forced flags of its
+    slots: e1 from t's zero flag; the sqrt candidate in _cand_select_rows
+    order from the zero flags of R and the four candidate forms of each
+    set, the target's first (gx = 0 cannot be reached from data); the sign
+    (neg: -Y) where sgn0(u) != sgn0(y), over u's and y's raw values in {0,
+    1, 2}^2."""
+    P = _sswu_program()
+    flags, _ = P.cases[case]
+    slots = [7] * P.nslots
+    if on is not None:
+        for name, off, count, _ in flags:
+            first = P.slots[name][0] + off
+            slots[first:first + count] = [0 if name in on else 5] * count
+        assert GR.pick_case(P, case, slots) == body
+        return
+    m = case[-1]
+    ru, ry = P.slots[f"ru{m}"][0], P.slots[f"ry{m}"][0]
+    for vals in np.ndindex(3, 3, 3, 3):
+        slots[ru:ru + 2], slots[ry:ry + 2] = vals[:2], vals[2:]
+        differ = _sgn0(*vals[:2]) != _sgn0(*vals[2:])
+        assert GR.pick_case(P, case, slots) == (f"neg{m}" if differ else f"pos{m}")
