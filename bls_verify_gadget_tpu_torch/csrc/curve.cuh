@@ -1,10 +1,10 @@
-// Device point and chain layer of the port's one-thread hash-stage and
-// point kernels (hash_kernels.cu's pow_win, point_kernels.cu): Jacobian
-// doubling and complete addition for G1 (coordinates in Fp) and G2 (Fp2)
-// as one template over the coordinate field, and the 4-bit window power,
-// for one batch element per thread over tower.cuh.  The constant-scalar
-// ladders and sswu_map2 run on group.cuh, from the same doubling and
-// addition traced in group_rounds.py.
+// Device point layer of the port's one-thread point kernels
+// (point_kernels.cu): Jacobian doubling and complete addition for G1
+// (coordinates in Fp) and G2 (Fp2) as one template over the coordinate
+// field, for one batch element per thread over tower.cuh.  The
+// constant-scalar ladders and sswu_map2 run on group.cuh, from the same
+// doubling and addition traced in group_rounds.py; pow_win runs on
+// lanes.cuh.
 //
 // Each function is the counterpart of a JAX kernel body in
 // bls_verify_gadget_tpu/ops/pallas/kernels.py (named beside it).  Values
@@ -149,29 +149,6 @@ __device__ __noinline__ Jac<F> pt_add(const Jac<F>& p, const Jac<F>& q,
     res.Z = F{};
   }
   return res;
-}
-
-// --------------------------------------------------------- windowed power
-
-// a^e (_pow_win_rows, kernels.py:916): the table a^1 .. a^15 (14
-// products), then f = a^d[0] and per later window 4 squarings and, where
-// the digit is not zero, one table product.  The JAX body starts from
-// f = 1 with zero-padded leading windows and selects the table entry with
-// a 16-way cmov; leading windows leave f at exactly one and a zero digit
-// multiplies by one, so skipping them gives the same value.
-template <class F>
-__device__ __noinline__ F pow_win(const F& a, const PowDigits& e,
-                                  const FpModulus& M) {
-  F tab[16];
-  tab[1] = a;
-  for (int t = 2; t < 16; ++t) tab[t] = c_mul(tab[t - 1], a, M);
-  F f = tab[e.d[0]];
-  for (int w = 1; w < e.count; ++w) {
-#pragma unroll
-    for (int s = 0; s < 4; ++s) f = c_sqr(f, M);
-    if (e.d[w]) f = c_mul(f, tab[e.d[w]], M);
-  }
-  return f;
 }
 
 }  // namespace bls

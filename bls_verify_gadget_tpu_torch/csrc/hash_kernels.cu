@@ -33,18 +33,21 @@
 // at 4096 elements.  A G2 doubling's 17 products are 3 rounds here (7, 7,
 // 3), an addition's 44 are 5, and sswu_map2 runs its three exponent chains
 // side by side, window by window.  G per kernel and coordinate field is
-// chosen on the card (PERF.md has the sweep).  pow_win keeps one thread
-// per element (curve.cuh): its redesign is later work.
+// chosen on the card (PERF.md has the sweep).  pow_win is one chain of
+// dependent products per element, which no grouping of independent
+// products shortens (a group phase would hold one product and leave 7 of 8
+// threads idle): it runs each product split across L lanes (lanes.cuh),
+// which cuts the latency of the product itself.
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
-#include "curve.cuh"
 #include "group.cuh"
+#include "lanes.cuh"
 
 namespace {
 
-// One warp per block for the one-thread kernels, as in pairing_kernels.cu.
+// One warp per block for pow_win: kThreads / L elements.
 constexpr int kThreads = 32;
 
 // The group kernels' threads per element (a divisor of 32), from the sweep
@@ -59,9 +62,13 @@ constexpr int kGroupG1 = BLS_HASH_GROUP, kGroupG2 = BLS_HASH_GROUP,
 constexpr int kGroupG1 = 4, kGroupG2 = 8, kGroupCofactor = 8, kGroupSswu = 8;
 #endif
 
-inline unsigned grid_for(long long n) {
-  return (unsigned)((n + kThreads - 1) / kThreads);
-}
+// pow_win's lanes per element (lanes.cuh; L divides 32 and 12), from the
+// sweep at 4096 and 1 elements (PERF.md); chip_smoke.py builds the sweep's
+// other value as a throwaway copy of this unit with -DBLS_POW_LANES=L.
+#ifndef BLS_POW_LANES
+#define BLS_POW_LANES 4
+#endif
+constexpr int kPowLanes = BLS_POW_LANES;
 
 }  // namespace
 
@@ -81,26 +88,72 @@ struct SswuDigits {
 namespace bls_kernels {
 
 using bls::Fp;
-using bls::Fp2;
 using bls::FpModulus;
 
 // ---------------------------------------------------------------- pow_win
 
 // Replaces _powwin_kernel (bls_verify_gadget_tpu/ops/pallas/kernels.py:866):
-// a^e for a host-constant e, Fp (F = Fp) or Fp2.  in (c, n), out (c, n),
-// c = 1 or 2.  Montgomery products per element: 14 for the table, then per
+// a^e for a host-constant e, Fp (C = 1) or Fp2 (C = 2).  in (c, n), out
+// (c, n).  Montgomery products per element: 14 for the table, then per
 // window after the first 4 squarings and one product where its digit is not
 // zero (Fp2: 3 per product, 2 per square).  For the Fermat inverse p - 2:
 // 14 + 380 + 91 = 485, ~17 ns of operations against ~0.06 ns of bytes.
-template <class F>
+// On L lanes per element (lanes.cuh, kPowLanes): every product of the chain
+// split across them, the values whole in every lane (in Fp below 2p, made
+// canonical once before the store).  The window table a^1 .. a^15 lives in
+// shared memory, whole rows, written by lane 0 and read by every lane at
+// the digit's row (the digit is the same for every element: no runtime
+// index into registers, no local memory).  As the one-thread
+// kernel, the chain skips the leading zero windows and a zero digit's
+// product: its schedule depends on the exponent alone, never on the data
+// (derive_pubkeys runs it on the Z of [sk]G).
+template <int C, int L>
 __global__ void __launch_bounds__(kThreads)
     pow_win_kernel(const int32_t* __restrict__ in, int32_t* __restrict__ out,
                    long long n, FpModulus M, bls::PowDigits e) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  F a;
-  bls::load_c(a, in, 0, n, i);
-  bls::store_c(out, 0, n, i, bls::pow_win(a, e, M));
+  using V = bls::lanes::Val<C>;
+  constexpr int kPer = kThreads / L;  // elements per block
+  __shared__ V tab[kPer][15];         // a^1 .. a^15
+  const bls::lanes::Lane<L> ln = bls::lanes::make_lane<L>(M);
+  const int g = threadIdx.x / L;
+  // a tail element's lanes run a copy of the last element and store
+  // nothing: every shuffle and ballot spans the whole warp
+  const long long at = (long long)blockIdx.x * kPer + g;
+  const bool live = at < n;
+  const long long i = live ? at : n - 1;
+  V a, f;
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    bls::load_words<bls::kFpWords>(in + ((long long)c * n + i) * bls::kLimbs,
+                                   a.w[c]);
+  }
+  V* T = tab[g];
+  if (ln.j == 0) T[0] = a;
+  f = a;
+  // loops of one inlined product each: the code stays in the instruction cache
+#pragma unroll 1
+  for (int t = 1; t < 15; ++t) {
+    bls::lanes::val_mul<L>(f, a, f, ln, M);
+    if (ln.j == 0) T[t] = f;
+  }
+  __syncwarp();
+  f = T[e.d[0] - 1];
+  for (int w = 1; w < e.count; ++w) {
+#pragma unroll 1
+    for (int s = 0; s < 4; ++s) bls::lanes::val_sqr<L>(f, f, ln, M);
+    if (e.d[w]) {
+      const V entry = T[e.d[w] - 1];  // into registers: b[i] is on m's path
+      bls::lanes::val_mul<L>(f, entry, f, ln, M);
+    }
+  }
+  if constexpr (C == 1) bls::lanes::canonical(f, M);
+  if (live && ln.j == 0) {
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      bls::store_words<bls::kFpWords>(
+          out + ((long long)c * n + i) * bls::kLimbs, f.w[c]);
+    }
+  }
 }
 
 // ----------------------------------------------------------- pt_mul_const
@@ -273,12 +326,14 @@ int bls_pow_win(const int32_t* in, int32_t* out, long long n, int nc,
     return (int)cudaErrorInvalidValue;
   }
   const auto M = bls::make_modulus<bls::kFpWords>(p, n0);
+  constexpr int per = kThreads / kPowLanes;
+  const unsigned grid = (unsigned)((n + per - 1) / per);
   if (nc == 1) {
-    bls_kernels::pow_win_kernel<bls::Fp>
-        <<<grid_for(n), kThreads, 0, (cudaStream_t)stream>>>(in, out, n, M, e);
+    bls_kernels::pow_win_kernel<1, kPowLanes>
+        <<<grid, kThreads, 0, (cudaStream_t)stream>>>(in, out, n, M, e);
   } else {
-    bls_kernels::pow_win_kernel<bls::Fp2>
-        <<<grid_for(n), kThreads, 0, (cudaStream_t)stream>>>(in, out, n, M, e);
+    bls_kernels::pow_win_kernel<2, kPowLanes>
+        <<<grid, kThreads, 0, (cudaStream_t)stream>>>(in, out, n, M, e);
   }
   return (int)cudaGetLastError();
 }

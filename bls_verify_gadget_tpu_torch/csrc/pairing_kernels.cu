@@ -24,9 +24,9 @@
 // element at 3.35 TB/s and 16.75 T int32 multiply-adds/s).  Fusing buys
 // launches: the Miller loop is 11 launches and an x-chain one.
 //
-// miller_dbl_run, miller_add and exp_x (the TPU's _millerdbl_kernel,
-// _milleradd_kernel and _expx_kernel) run on group.cuh: a group of G
-// threads per batch element, the element's
+// miller_dbl_run, miller_add, exp_x and fp12_mul (the TPU's
+// _millerdbl_kernel, _milleradd_kernel, _expx_kernel and _fp12mul_kernel)
+// run on group.cuh: a group of G threads per batch element, the element's
 // state in shared memory, each body as rounds of independent Montgomery
 // products dealt out over the group (group_rounds.cuh).  The design they
 // replace ran one thread per element through tower.cuh: every product
@@ -37,11 +37,11 @@
 // depth (a Miller iteration: 176 products in 4 rounds; a Granger-Scott
 // square: 18 in one), runs each product inlined in registers, and puts G
 // times the warps on each SM.  G and the block are compile-time constants
-// chosen on the card (kGroup; PERF.md has the sweep).  What bounds the
-// group kernels now is not one thread's latency: two products at once per
-// thread ran slower.  By instruction count most of a body is mont_mul's
-// CIOS.
-// The other seven kernels of this unit keep tower.cuh and one thread per
+// chosen on the card (kGroup, kGroupFp12Mul; PERF.md has the sweep).  What
+// bounds the group kernels now is not one thread's latency: two products
+// at once per thread ran slower.  By instruction count most of a body is
+// mont_mul's CIOS.
+// The other six kernels of this unit keep tower.cuh and one thread per
 // element: their redesign is later work.
 #include <cuda_runtime.h>
 
@@ -58,12 +58,15 @@ namespace {
 constexpr int kThreads = 32;
 
 // The group kernels' threads per batch element (a divisor of 32), from the
-// sweep at 4096 elements (PERF.md).  chip_smoke.py builds the sweep's other
-// values as throwaway copies of this unit with -DBLS_GROUP=G.
-#ifndef BLS_GROUP
-#define BLS_GROUP 8
+// sweep at 4096 elements (PERF.md): the Miller kernels and exp_x, and
+// fp12_mul, whose one phase of 54 products takes 4 rounds at 16 threads.
+// chip_smoke.py builds the sweep's other values as throwaway copies of this
+// unit with -DBLS_GROUP=G, which sets both.
+#ifdef BLS_GROUP
+constexpr int kGroup = BLS_GROUP, kGroupFp12Mul = BLS_GROUP;
+#else
+constexpr int kGroup = 8, kGroupFp12Mul = 16;
 #endif
-constexpr int kGroup = BLS_GROUP;
 
 inline unsigned grid_for(long long n) {
   return (unsigned)((n + kThreads - 1) / kThreads);
@@ -145,13 +148,30 @@ __global__ void __launch_bounds__(kThreads)
 // Replaces _fp12mul_kernel (kernels.py:584):
 // in (24, n) = a then b, out (12, n).  54 Montgomery products, 36 Fp in or
 // out per element: ~1.9 ns of operations against ~1.0 ns of bytes.
-__global__ void __launch_bounds__(kThreads)
+// On a group of G threads (group.cuh) with Fp12MulProgram (group_rounds.py
+// fp12_mul_program): a and b into slots 0-23, then the body mul -- the
+// Karatsuba sums (12 forms), the 54 products of f12_mul in one phase, the
+// product's 12 forms -- and out.  The one-thread kernel it replaces ran the
+// 54 products one after another per element (~139 us at 4096 elements);
+// here they are one phase dealt over the group: 54 / G rounds.
+template <int G>
+__global__ void __launch_bounds__(bls::group::kThreads)
     fp12_mul_kernel(const int32_t* __restrict__ in, int32_t* __restrict__ out,
                     long long n, FpModulus M) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  store_fp12(out, 0, n, i,
-             bls::f12_mul(load_fp12(in, 0, n, i), load_fp12(in, 12, n, i), M));
+  using Prog = bls::group::Fp12MulProgram;
+  extern __shared__ uint4 smem[];
+  const int g = threadIdx.x / G, lane = threadIdx.x % G;
+  const long long i =
+      (long long)blockIdx.x * bls::group::elements_per_block<Prog, G>() + g;
+  if (i >= n) return;  // the whole group: no barrier spans groups
+  uint32_t* S = reinterpret_cast<uint32_t*>(smem) +
+                (long long)g * Prog::kSlots * bls::kFpWords;
+  const unsigned mask = bls::group::lane_mask<G>();
+  bls::group::load_coords<G>(in, n, i, 24, [](int c) { return c; }, S, lane);
+  __syncwarp(mask);
+  bls::group::run<G>(Prog::kBody_mul, Prog::kEnd_mul, S, lane, mask, M);
+  bls::group::store_coords<G>(
+      out, n, i, 12, [](int c) { return Prog::kSlot_out + c; }, S, lane);
 }
 
 // Replaces _fp12sqr_kernel (kernels.py:596): in (12, n), out (12, n).  36
@@ -425,10 +445,9 @@ int bls_fp6_mul(const int32_t* in, int32_t* out, long long n,
 
 int bls_fp12_mul(const int32_t* in, int32_t* out, long long n,
                  const uint32_t* p, unsigned n0, void* stream) {
-  bls_kernels::fp12_mul_kernel<<<grid_for(n), kThreads, 0,
-                                 (cudaStream_t)stream>>>(
+  return bls::group::launch<bls::group::Fp12MulProgram, kGroupFp12Mul>(
+      bls_kernels::fp12_mul_kernel<kGroupFp12Mul>, n, (cudaStream_t)stream,
       in, out, n, bls::make_modulus<bls::kFpWords>(p, n0));
-  return (int)cudaGetLastError();
 }
 
 int bls_fp12_sqr(const int32_t* in, int32_t* out, long long n,

@@ -445,6 +445,29 @@ def exp_x_program():
     return P.allocate()
 
 
+def fp12_mul_program():
+    """fp12_mul: a and b from the input (slots 0-23); body mul: [the
+    Karatsuba sums a.c0 + a.c1 and b.c0 + b.c1: 12 forms]; [the 54
+    products of f12_mul, as exp_x's mul body traces them]; [the product
+    into out]."""
+    P = Program("fp12_mul")
+    a, b = P.named("a", 12), P.named("b", 12)
+    a_sum, b_sum = P.named("a_sum", 6), P.named("b_sum", 6)
+    out = P.named("out", 12)
+    A, B = fp12(a), fp12(b)
+    P.body("mul")
+    P.phase()
+    store_all(P, a_sum, f6_add(A[0], A[1]))
+    store_all(P, b_sum, f6_add(B[0], B[1]))
+    P.phase()
+    res = f12_mul(P, A, B, fp6(a_sum), fp6(b_sum))
+    P.phase()
+    store_all(P, out, res)
+    P.inputs, P.outputs = ["a", "b"], ["out"]
+    P.flow = "mul"
+    return P.allocate()
+
+
 def miller_program(k):
     """miller_dbl_run with k pairs: f, then per pair X, Y, Z, xp, yp in the
     slots of the packed operand's coordinates 0 .. 12 + 8k - 1; per pair a
@@ -1233,7 +1256,8 @@ def _allocate(P):
 def programs():
     return ([exp_x_program()] + [miller_program(k) for k in MILLER_PAIRS]
             + [ladder_program(FP_COORD), ladder_program(FP2_COORD), cofactor_program()]
-            + [miller_add_program(k) for k in MILLER_PAIRS] + [sswu_program()])
+            + [miller_add_program(k) for k in MILLER_PAIRS] + [sswu_program()]
+            + [fp12_mul_program()])
 
 
 def elements_per_block(P, g):

@@ -40,7 +40,8 @@ CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "build"
 UNITS = ("field_kernels.cu", "pairing_kernels.cu", "hash_kernels.cu",
          "point_kernels.cu")  # one nvcc each
-SOURCES = ("field.cuh", "tower.cuh", "curve.cuh", "group.cuh", "group_rounds.cuh", *UNITS)
+SOURCES = ("field.cuh", "tower.cuh", "curve.cuh", "group.cuh", "group_rounds.cuh", "lanes.cuh",
+           *UNITS)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -55,7 +56,7 @@ KERNELS = (
 MILLER_PAIRS = (1, 2)  # pair counts of a Miller launch (csrc/pairing_kernels.cu)
 SCALAR_LIMBS = 16  # raw Fr scalar limbs of pt_mul_var (csrc/point_kernels.cu)
 MAX_SEGMENTS = 64  # runs of a ladder or exp_x chain (csrc/tower.cuh kMaxSegments)
-MAX_DIGITS = 192  # 4-bit windows of a pow_win exponent (csrc/curve.cuh kMaxDigits)
+MAX_DIGITS = 192  # 4-bit windows of a pow_win exponent (csrc/tower.cuh kMaxDigits)
 
 
 class LaunchCounts:

@@ -82,19 +82,23 @@ Needs one CUDA card and nvcc.  Phases, each fatal on failure:
      integer multiply-adds;
   8. group    -- the group kernels (csrc/group.cuh): miller_dbl_run (k =
      1 and 2) and exp_x at 4096 and 4095 elements with mixed valid masks,
+     fp12_mul at 4096, 4095 and 1,
      pt_mul_const (G1 and G2 by |x|) and g2_cofactor at 4096, 4095 and 1
      with the ladders' edge points in the first elements (the infinity,
      G1 points of order 3 and 11, which meet the complete addition's
      P == -Q and P == Q cases, the off-subgroup points), miller_add (k = 1
      and 2) at 4096 and 4095 with mixed valid masks, sswu_map2 at 4096,
      4095 and 1 on hash_to_field's outputs with u = 0 elements (u0 = u1 =
-     0 meets the sum's doubling case): bit-equal to the plain versions;
-     the sweep's other group sizes (throwaway copies of
+     0 meets the sum's doubling case), and the lane-split pow_win
+     (csrc/lanes.cuh) in Fp (e = p - 2) at 4096, 4095 and 1 with edge
+     values and in Fp2 (e = (p - 11)/16) at 4096: bit-equal to the plain
+     versions; the sweep's other group sizes (throwaway copies of
      csrc/pairing_kernels.cu built with -DBLS_GROUP=G for G = 4 and 16
-     beside the library's 8, and of csrc/hash_kernels.cu built with
-     -DBLS_HASH_GROUP=G for G = 2, 4 and 8, into build/, in parallel
-     with the library) bit-equal to the wrapper, and device ms per launch
-     of each G at 4096 (and at 1 for the ladders and sswu_map2); with
+     beside the library's 8, of csrc/hash_kernels.cu built with
+     -DBLS_HASH_GROUP=G for G = 2, 4 and 8 and with -DBLS_POW_LANES=L for
+     pow_win's L = 2 and 4, into build/, in parallel with the library)
+     bit-equal to the wrapper, and device ms per launch of each G or L at
+     4096 (and at 1 for the ladders, sswu_map2, fp12_mul and pow_win); with
      --parent DIR, the parent commit's kernels (its pairing_kernels.cu and
      hash_kernels.cu, built from DIR in parallel too) bit-equal as well and
      timed interleaved with this tree's (parent, group, group, parent).
@@ -972,7 +976,7 @@ def work(name, n, args):
 
 
 def _pow_products(c, exponent):
-    """Montgomery products of pow_win per element (csrc/curve.cuh pow_win):
+    """Montgomery products of pow_win per element (csrc/hash_kernels.cu):
     14 table products, then per window after the first 4 squarings and a
     product where its digit is not 0; an Fp2 product is 3, a square 2."""
     from bls_verify_gadget_tpu_torch.ops import kernels as K
@@ -1593,18 +1597,21 @@ def kernel_phase(torch, K, launches, sizes, verify_s, ctx, keys, steps):
 
 # ----------------------------------------------------------------------------
 # group phase: the group kernels (csrc/group.cuh) at each G, against the
-# parent commit's one-thread kernels
+# parent commit's kernels
 # ----------------------------------------------------------------------------
 
 # threads per element swept: the pairing unit's group kernels (the library's
-# is BLS_GROUP) and the hash unit's (kGroupG1, kGroupG2, kGroupCofactor,
-# kGroupSswu)
-GROUP_SWEEP = {"pairing": (4, 8, 16), "hash": (2, 4, 8)}
-GROUP_UNITS = {"pairing": "pairing_kernels.cu", "hash": "hash_kernels.cu"}
-GROUP_DEFINE = {"pairing": "BLS_GROUP", "hash": "BLS_HASH_GROUP"}
-# group kernel -> its unit; a group instance: the kernel, or the ladder's field
+# is BLS_GROUP), the hash unit's (kGroupG1, kGroupG2, kGroupCofactor,
+# kGroupSswu) and pow_win's lanes (kPowLanes, in the hash unit's source)
+GROUP_SWEEP = {"pairing": (4, 8, 16), "hash": (2, 4, 8), "pow": (2, 4)}
+GROUP_UNITS = {"pairing": "pairing_kernels.cu", "hash": "hash_kernels.cu",
+               "pow": "hash_kernels.cu"}
+GROUP_DEFINE = {"pairing": "BLS_GROUP", "hash": "BLS_HASH_GROUP", "pow": "BLS_POW_LANES"}
+GROUP_VAR = {"pairing": "G", "hash": "G", "pow": "L"}  # the swept value's name
+# group kernel -> its sweep; a group instance: the kernel, or the ladder's field
 GROUP_KERNELS = {"miller_dbl_run": "pairing", "miller_add": "pairing", "exp_x": "pairing",
-                 "pt_mul_const": "hash", "g2_cofactor": "hash", "sswu_map2": "hash"}
+                 "fp12_mul": "pairing", "pt_mul_const": "hash", "g2_cofactor": "hash",
+                 "sswu_map2": "hash", "pow_win": "pow"}
 # ptxas's mangled name of each group kernel instance -> (label, program of
 # ops/group_rounds.py, G)
 GROUP_LOG = (
@@ -1620,27 +1627,37 @@ GROUP_LOG = (
      lambda m: (f"g2_cofactor<G={m[1]}>", "g2_cofactor", int(m[1]))),
     (re.compile(r"sswu_map2_kernelILi(\d+)E"),
      lambda m: (f"sswu_map2<G={m[1]}>", "sswu_map2", int(m[1]))),
+    (re.compile(r"fp12_mul_kernelILi(\d+)E"),
+     lambda m: (f"fp12_mul<G={m[1]}>", "fp12_mul", int(m[1]))),
+    (re.compile(r"pow_win_kernelILi(\d+)ELi(\d+)E"),
+     lambda m: (f"pow_win<C={m[1]}, L={m[2]}>", None, int(m[2]))),
 )
 
 
 def library_groups(K):
     """The library's threads per element of each group instance:
-    pairing_kernels.cu's BLS_GROUP, hash_kernels.cu's kGroupG1, kGroupG2,
-    kGroupCofactor and kGroupSswu."""
-    pairing = int(re.search(r"#define BLS_GROUP (\d+)",
-                            (K.CSRC_DIR / GROUP_UNITS["pairing"]).read_text())[1])
+    pairing_kernels.cu's kGroup and kGroupFp12Mul, hash_kernels.cu's
+    kGroupG1, kGroupG2, kGroupCofactor, kGroupSswu and BLS_POW_LANES
+    (pow_win's L)."""
+    pairing, fp12 = map(int, re.search(
+        r"#else\nconstexpr int kGroup = (\d+), kGroupFp12Mul = (\d+);",
+        (K.CSRC_DIR / GROUP_UNITS["pairing"]).read_text()).groups())
+    hash_src = (K.CSRC_DIR / GROUP_UNITS["hash"]).read_text()
     g1, g2, cofactor, sswu = map(int, re.search(
         r"#else\nconstexpr int kGroupG1 = (\d+), kGroupG2 = (\d+), kGroupCofactor = (\d+), "
-        r"kGroupSswu = (\d+);", (K.CSRC_DIR / GROUP_UNITS["hash"]).read_text()).groups())
+        r"kGroupSswu = (\d+);", hash_src).groups())
+    lanes = int(re.search(r"#define BLS_POW_LANES (\d+)", hash_src)[1])
     return {"miller_dbl_run": pairing, "miller_add": pairing, "exp_x": pairing,
-            "pt_mul_const G1": g1, "pt_mul_const G2": g2, "g2_cofactor": cofactor,
-            "sswu_map2": sswu}
+            "fp12_mul": fp12, "pt_mul_const G1": g1, "pt_mul_const G2": g2,
+            "g2_cofactor": cofactor, "sswu_map2": sswu, "pow_win Fp": lanes,
+            "pow_win Fp2": lanes}
 
 
 def group_build_report(log_path, label):
     """ptxas's registers, stack and spills of the group kernels, one line
-    per instance, from a build's report, and each instance's dynamic
-    shared memory per block (ops/group_rounds.py shared_bytes)."""
+    per instance, from a build's report, and each group instance's dynamic
+    shared memory per block (ops/group_rounds.py shared_bytes; pow_win's
+    table is static shared memory, in ptxas's line)."""
     from bls_verify_gadget_tpu_torch.ops import group_rounds as GR
 
     progs = {P.name: P for P in GR.programs()}
@@ -1652,12 +1669,13 @@ def group_build_report(log_path, label):
             continue
         if name and ("stack frame" in line or "Used" in line):
             lines.append((name, line.strip()))
-    for name in sorted({n for n, _ in lines}):
-        P = progs[name[1]]
+    for name in sorted({n for n, _ in lines}, key=str):
+        P = progs.get(name[1])
         log(f"[build] ptxas {name[0]} ({label}): "
             + "; ".join(t for n, t in lines if n == name)
-            + f"; {GR.shared_bytes(P, name[2])} bytes of dynamic shared memory per block "
-            f"({GR.elements_per_block(P, name[2])} elements of {P.nslots} slots)")
+            + ("" if P is None else
+               f"; {GR.shared_bytes(P, name[2])} bytes of dynamic shared memory per block "
+               f"({GR.elements_per_block(P, name[2])} elements of {P.nslots} slots)"))
 
 
 def unit_build_start(K, src, so, defines=()):
@@ -1689,19 +1707,20 @@ def sweep_build_start(K):
 
 
 def parent_build_start(K, parent):
-    """Start nvcc on the parent tree's group units: DIR is a git archive of
-    the parent commit in a git-ignored directory of this checkout, such as
-    chip_scratch/ -> {unit: (process, library, log)}."""
+    """Start nvcc on the parent tree's group units, one build per source:
+    DIR is a git archive of the parent commit in a git-ignored directory of
+    this checkout, such as chip_scratch/ -> {sweep: (process, library,
+    log)}."""
     root = pathlib.Path(parent).resolve()
     if not root.is_relative_to(ROOT):
         raise RuntimeError(f"--parent: {root} lies outside the checkout {ROOT}")
-    started = {}
-    for unit, name in GROUP_UNITS.items():
+    builds = {}
+    for name in sorted(set(GROUP_UNITS.values())):
         src = root / "bls_verify_gadget_tpu_torch" / "csrc" / name
         if not src.is_file():
             raise RuntimeError(f"--parent: {src} not found")
-        started[unit] = unit_build_start(K, src, K.BUILD_DIR / f"parent_{name[:-3]}.so")
-    return started
+        builds[name] = unit_build_start(K, src, K.BUILD_DIR / f"parent_{name[:-3]}.so")
+    return {unit: builds[name] for unit, name in GROUP_UNITS.items()}
 
 
 def unit_library(K, unit, started):
@@ -1724,6 +1743,23 @@ def entry_launch(torch, K, name, fn, args):
     from bls_verify_gadget_tpu_torch.ops.fp import FP
 
     p, n0 = K._p_words(FP), FP.n0_word
+    if name == "fp12_mul":
+        packed = torch.cat(args)
+        out = packed.new_empty((12, *packed.shape[1:]))
+
+        def launch():
+            K._check_rc(name, fn(packed.data_ptr(), out.data_ptr(), packed.shape[1], p, n0,
+                                 K._stream(packed)))
+        return launch, out
+    if name == "pow_win":
+        a, exponent = args
+        digits, ndig = K._digits(exponent)
+        out = torch.empty_like(a)
+
+        def launch():
+            K._check_rc(name, fn(a.data_ptr(), out.data_ptr(), a.shape[1], a.shape[0], digits,
+                                 ndig, p, n0, K._stream(a)))
+        return launch, out
     if name in ("miller_dbl_run", "miller_add"):  # miller_dbl_run's run length last
         count = args[-1:] if name == "miller_dbl_run" else ()
         f, t, *per_pair, valid = args[:len(args) - len(count)]
@@ -1812,12 +1848,17 @@ def group_cases(torch, rng):
     sswu_map2 at 4096 (timed), 4095 and 1 (timed) on hash_to_field's
     outputs for seeded messages, with hash_cases' u = 0 elements (u0 = u1
     = 0: both maps' e1 branch and the sum's doubling case; u1 = 0) in
-    elements 0 and 1 of 4096 and 4095."""
+    elements 0 and 1 of 4096 and 4095; fp12_mul at 4096 (timed), 4095 and
+    1 (pairing_inputs); pow_win in Fp with e = p - 2 at 4096 (timed), 4095
+    and 1 (timed), with 0, 1, p - 1 and values whose low 6 and 11 words
+    are all 0xFFFFFFFF in elements 0-4 of 4096 and 4095, and in Fp2 with e
+    = (p - 11)/16 at 4096 (timed), the same values in its coordinates."""
     import numpy as np
 
     from bls_verify_gadget_tpu_torch.ops import curve as CV
     from bls_verify_gadget_tpu_torch.ops import hash_to_g2 as H
     from bls_verify_gadget_tpu_torch.ops.fp import FP
+    from bls_verify_gadget_tpu_torch.ops.limbs import ints_to_limbs
 
     longest = max(c for c, _ in CV.X_SEGMENTS)
     cases = [
@@ -1861,6 +1902,21 @@ def group_cases(torch, rng):
             un[2:, 1] = 0
             label += ", u0 = u1 = 0 in element 0, u1 = 0 in element 1"
         cases.append((label, "sswu_map2", "sswu_map2", (un,), n != BATCH - 1))
+    for n in (BATCH, BATCH - 1, 1):
+        cases.append((f"{n}", "fp12_mul", "fp12_mul", pairing_inputs(torch, rng, "fp12_mul", n),
+                      n != BATCH - 1))
+    edges = torch.from_numpy(ints_to_limbs(
+        [0, 1, FP.modulus - 1, (1 << 192) - 1, (1 << 352) - 1], 24)).cuda()
+    for n in (BATCH, BATCH - 1, 1):
+        a = rand_limbs(torch, rng, n, top).view(1, n, 24)
+        e = len(edges) if n > 1 else 0
+        a[0, :e] = edges[:e]
+        label = f"Fp, e = p - 2, {n}" + (", edge values in elements 0-4" if e else "")
+        cases.append((label, "pow_win", "pow_win Fp", (a, FP.modulus - 2), n != BATCH - 1))
+    a = rand_limbs(torch, rng, 2 * BATCH, top).view(2, BATCH, 24)
+    a[0, :len(edges)], a[1, :len(edges)] = edges, edges.roll(1, 0)
+    cases.append((f"Fp2, e = (p - 11)/16, {BATCH}, edge values in elements 0-4", "pow_win",
+                  "pow_win Fp2", (a, H.SQRT_K), True))
     return cases
 
 
@@ -1868,7 +1924,7 @@ def group_phase(torch, K, sweep_started, parent_started=None):
     """The group kernels (module docstring, phase 8): on each case of
     group_cases, the wrapper bit-equal to the plain version, each G of the
     sweep (the library's and the throwaway builds of sweep_started) and the
-    parent's one-thread kernel bit-equal to the wrapper, all on the same
+    parent's kernel bit-equal to the wrapper, all on the same
     CUDA tensors; on the timed cases device ms per launch (CUDA-graph
     replay) of each G, and of the parent's kernel and the wrapper
     interleaved (parent, group, group, parent).  -> {kernel: {case:
@@ -1892,7 +1948,9 @@ def group_phase(torch, K, sweep_started, parent_started=None):
             raise RuntimeError(f"group kernel {name} ({label}) disagrees with its plain version: "
                                f"max |err| {err}")
         want = torch.cat([g.reshape(-1, *g.shape[-2:]) for g in flat_outputs(got)])
-        variants = [(f"G = {g}", libs.get((unit, g), K.library() if g == lib_g[key] else None))
+        var = GROUP_VAR[unit]
+        variants = [(f"{var} = {g}",
+                     libs.get((unit, g), K.library() if g == lib_g[key] else None))
                     for g in GROUP_SWEEP[unit]]
         variants = [(v, getattr(lib, f"bls_{name}")) for v, lib in variants if lib is not None]
         variants.append(("group", getattr(K.library(), f"bls_{name}")))
@@ -1906,13 +1964,12 @@ def group_phase(torch, K, sweep_started, parent_started=None):
             if not torch.equal(res, want):
                 raise RuntimeError(f"{name} ({label}), {vlabel}: differs from the wrapper's output")
             launches[vlabel] = launch
-        row = {"elements": args[0].shape[1], "max_abs_err": err, "G": lib_g[key]}
+        row = {"elements": args[0].shape[1], "max_abs_err": err, var: lib_g[key]}
+        swept = [v for v in launches if v not in ("group", "parent")]
         extra = ""
         if timed:
-            row.update({v: device_ms(torch, fn, (), 3, 2) for v, fn in launches.items()
-                        if v.startswith("G = ")})
-            extra = "; device ms per launch: " + ", ".join(
-                f"{v} {row[v]:.5f}" for v in launches if v.startswith("G = "))
+            row.update({v: device_ms(torch, launches[v], (), 3, 2) for v in swept})
+            extra = "; device ms per launch: " + ", ".join(f"{v} {row[v]:.5f}" for v in swept)
             if parent:
                 times = {"parent": [], "group": []}
                 for who in ("parent", "group", "group", "parent"):
@@ -1926,7 +1983,7 @@ def group_phase(torch, K, sweep_started, parent_started=None):
                           f"({row['parent_ms'] / row['group_ms']:.2f}x)")
         out[name][label] = row
         log(f"[group] {name} ({label}): bit-equal to plain; {', '.join(launches)} bit-equal "
-            f"to it (library G = {lib_g[key]}){extra}")
+            f"to it (library {var} = {lib_g[key]}){extra}")
     return out
 
 
@@ -1941,8 +1998,8 @@ def main():
     ap.add_argument("--parent", metavar="DIR",
                     help="a git archive of the parent commit in a git-ignored directory of "
                          "this checkout: time its miller_dbl_run, miller_add, exp_x, "
-                         "pt_mul_const, g2_cofactor and sswu_map2 kernels interleaved with "
-                         "this tree's in the group phase")
+                         "fp12_mul, pt_mul_const, g2_cofactor, sswu_map2 and pow_win "
+                         "kernels interleaved with this tree's in the group phase")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)

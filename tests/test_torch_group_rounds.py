@@ -3,7 +3,8 @@ tables of csrc/group_rounds.cuh that csrc/group.cuh runs) on the CPU: the
 committed header is the generator's output, and each body run on Python
 ints as the kernels run it (run_body: phase by phase, every form and
 product with the kernels' bounds checked) gives the limbs of the plain
-versions of miller_dbl_run, miller_add and exp_x (ops/pairing.py) on
+versions of miller_dbl_run, miller_add and exp_x (ops/pairing.py) and
+fp12_mul (ops/tower.py) on
 seeded random operands, off the curve and off the cyclotomic subgroup,
 with mixed valid masks; the point programs' scripts (run_script) give
 those of pt_mul_const (G1, G2) and g2_cofactor (ops/curve.py) on edge
@@ -29,6 +30,7 @@ from bls_verify_gadget_tpu_torch.ops import curve as CV
 from bls_verify_gadget_tpu_torch.ops import group_rounds as GR
 from bls_verify_gadget_tpu_torch.ops import hash_to_g2 as H
 from bls_verify_gadget_tpu_torch.ops import pairing as PR
+from bls_verify_gadget_tpu_torch.ops import tower as T
 from bls_verify_gadget_tpu_torch.ops.limbs import ints_to_limbs, limbs_to_int
 from test_torch_curve_hash_pairing import g1_off_subgroup, g2_off_subgroup
 from test_torch_hash_kernels import _gx1_is_square
@@ -67,6 +69,20 @@ def test_exp_x_bodies_match_the_plain_version():
             if mul:
                 GR.run_body(P, "mul", slots)
         assert slots[:12] == [want[c][i] for c in range(12)]
+
+
+def test_fp12_mul_body_matches_the_plain_version():
+    rng = np.random.default_rng(75)
+    a, av = packed(rng, 12)
+    b, bv = packed(rng, 12)
+    want = ints(T.fp12_mul_plain(a, b))
+    P = GR.fp12_mul_program()
+    out = P.slots["out"][0]
+    for i in range(N):
+        slots = [0] * P.nslots  # a, then b: the packed operand's order
+        slots[:24] = [av[c][i] for c in range(12)] + [bv[c][i] for c in range(12)]
+        GR.run_body(P, "mul", slots)
+        assert slots[out:out + 12] == [want[c][i] for c in range(12)]
 
 
 @pytest.mark.parametrize("k", GR.MILLER_PAIRS)
