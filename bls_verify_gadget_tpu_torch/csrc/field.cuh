@@ -50,6 +50,104 @@ __device__ __forceinline__ void store_words(int32_t* __restrict__ row,
   }
 }
 
+// ---------------------------------------------------------------- staged rows
+// A block's rows of an operand are one contiguous span of rows x 8 NW bytes,
+// 16-byte aligned (a row of 2 NW int32 limbs is NW / 2 int4; the wrappers
+// check the base).  stage_rows copies it into shared memory with 16-byte
+// loads, neighbouring threads on neighbouring int4, every load of a thread
+// issued before its first store; a thread then reads its element's row from
+// there.  unstage_rows writes result rows back the same way.
+//
+// In shared memory a row takes kStagedStride<NW> int32, 4 more than its
+// limbs: (2 NW + 4) / 4 int4 (7 in Fp, 5 in Fr) is odd, so the 8 threads of
+// a quarter-warp that read one int4 each of 8 different rows hit 8
+// different groups of 4 banks, no conflict (at 2 NW the stride of 6 or 4
+// int4 would hit 4 or 2 groups: 2- or 4-way conflicts).
+template <int NW>
+constexpr int kStagedStride = 2 * NW + 4;
+
+// Rows [first, first + rows) of each of the K operands src[k] into dst[k]
+// (E rows of kStagedStride<NW> int32 each), by the block's T threads.
+template <int NW, int E, int T, int K>
+__device__ __forceinline__ void stage_rows(const int32_t* const (&src)[K],
+                                           int32_t* const (&dst)[K],
+                                           long long first, int rows) {
+  constexpr int Q = NW / 2;                  // int4 per row
+  constexpr int kIter = (E * Q + T - 1) / T;  // int4 per thread and operand
+  const int span = rows * Q;
+  int4 v[K][kIter];
+#pragma unroll
+  for (int it = 0; it < kIter; ++it) {
+    const int g = threadIdx.x + it * T;
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      if (g < span) {
+        v[k][it] = reinterpret_cast<const int4*>(src[k] + first * 2 * NW)[g];
+      }
+    }
+  }
+#pragma unroll
+  for (int it = 0; it < kIter; ++it) {
+    const int g = threadIdx.x + it * T;
+    const int r = g / Q;
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      if (g < span) {
+        *reinterpret_cast<int4*>(dst[k] + r * kStagedStride<NW> + 4 * (g - r * Q)) =
+            v[k][it];
+      }
+    }
+  }
+}
+
+// The staged rows [0, rows) of each src[k] to rows [first, first + rows)
+// of dst[k] in device memory.
+template <int NW, int E, int T, int K>
+__device__ __forceinline__ void unstage_rows(const int32_t* const (&src)[K],
+                                             int32_t* const (&dst)[K],
+                                             long long first, int rows) {
+  constexpr int Q = NW / 2;
+  constexpr int kIter = (E * Q + T - 1) / T;
+  const int span = rows * Q;
+#pragma unroll
+  for (int it = 0; it < kIter; ++it) {
+    const int g = threadIdx.x + it * T;
+    const int r = g / Q;
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      if (g < span) {
+        reinterpret_cast<int4*>(dst[k] + first * 2 * NW)[g] =
+            *reinterpret_cast<const int4*>(src[k] + r * kStagedStride<NW> +
+                                           4 * (g - r * Q));
+      }
+    }
+  }
+}
+
+// One staged row <-> NW words, by 16-byte shared-memory accesses.
+template <int NW>
+__device__ __forceinline__ void load_staged(const int32_t* row,
+                                            uint32_t (&w)[NW]) {
+#pragma unroll
+  for (int q = 0; q < NW / 2; ++q) {
+    const int4 v = reinterpret_cast<const int4*>(row)[q];
+    w[2 * q] = (uint32_t)v.x | ((uint32_t)v.y << 16);
+    w[2 * q + 1] = (uint32_t)v.z | ((uint32_t)v.w << 16);
+  }
+}
+
+template <int NW>
+__device__ __forceinline__ void store_staged(int32_t* row,
+                                             const uint32_t (&w)[NW]) {
+#pragma unroll
+  for (int q = 0; q < NW / 2; ++q) {
+    reinterpret_cast<int4*>(row)[q] =
+        make_int4((int32_t)(w[2 * q] & 0xFFFFu), (int32_t)(w[2 * q] >> 16),
+                  (int32_t)(w[2 * q + 1] & 0xFFFFu),
+                  (int32_t)(w[2 * q + 1] >> 16));
+  }
+}
+
 // r = a + b over NW words; returns the carry out (0/1).
 template <int NW>
 __device__ __forceinline__ uint32_t add_words(const uint32_t (&a)[NW],

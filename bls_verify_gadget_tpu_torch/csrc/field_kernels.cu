@@ -1,41 +1,82 @@
 // The port's field kernels for Hopper (sm_90a), with a plain C interface
 // loaded through ctypes by ops/kernels.py.
 //
-// Every kernel maps ONE thread to one field element (one Fp2 element for
-// the fp2 kernels): it reads the element's int32 16-bit-limb rows, packs
-// them to 32-bit words in registers, runs the word-level arithmetic of
-// field.cuh and writes canonical 16-bit limbs (< 2^16, value < p) back.
-// Operands are contiguous (n, 2*NW) int32 rows; outputs are allocated by
-// the torch wrapper.  Each entry point launches on the caller's stream and
-// returns cudaGetLastError() so that a refused launch raises in Python.
+// Operands are contiguous (n, 2*NW) int32 rows of 16-bit limbs; outputs are
+// allocated by the torch wrapper.  Each entry point launches on the caller's
+// stream and returns cudaGetLastError() (or cudaErrorInvalidValue for a
+// width or alignment it does not take) so that a refused launch raises in
+// Python.  Every kernel writes canonical 16-bit limbs (< 2^16,
+// value < p).
 //
-// What bounds them.  Per element a Montgomery product moves 288 bytes
-// (two 96-byte inputs, one output) and issues about 600 32-bit integer
+// What bounds them.  Per element a Montgomery product moves 288 bytes (two
+// 96-byte inputs, one output) and issues about 600 32-bit integer
 // multiply-adds (12x12 word products for a*b and 12x12 for m*p, each a
 // lo/hi pair).  At 3.35 TB/s and ~16.7 T int32 multiply-adds/s (half the
-// fp32 FMA rate) the bytes bound first, at ~86 ps per element; add and sub
-// are bytes-bound with no multiplies at all.  The design answers only the
-// first-order need -- one launch covers a whole stacked tower call (k x B
-// elements), and each thread keeps every word in registers so nothing but
-// the operands and the result touches memory.  Coalesced 16-byte loads,
-// shared-memory staging and a warp-cooperative limb layout are later
-// work; so is fusing tower products, which removes the launches that
-// dominate the main path today.
+// fp32 FMA rate) the bytes bound first; add and sub are bytes-bound with no
+// multiplies at all.  At the main path's sizes (4096-8192 elements) every
+// bound is 0.35-1.4 us, at or below the time of one launch (chip_smoke.py
+// times launch_floor_kernel, PERF.md): what a launch costs beyond that is
+// its latency, not its rate.
+//
+// mul, add and fp2_sqr map ONE thread to one element, in blocks of 128, and
+// read and write their rows with scalar 4-byte accesses (a warp's load
+// spans 3 KB).  sub and fp2_mul stage a block's rows: the block reads each
+// operand as one contiguous span with 16-byte loads into shared memory
+// (field.cuh stage_rows, rows padded against bank conflicts) and writes its
+// results back the same way, kSubPerBlock and kFp2MulPerBlock elements per
+// block (chip_smoke.py's sweep, PERF.md), on a grid the entry point
+// computes from n.
+//   - sub runs one thread per element on its staged rows.
+//   - fp2_mul runs each element on 4 lanes of a warp: its three Karatsuba
+//     products in lockstep, each split across the lanes (lanes.cuh
+//     mont_mul_slices, the product of pow_win; ~0.55 us a product against
+//     ~1.35 us for field.cuh's one-thread CIOS, whose serial carry chains
+//     set the old kernel's time), each row step taken for all three before
+//     the next so that one product's shuffles and carries hide behind the
+//     others' work; the differences on the lanes' slices (sub_slice, the
+//     borrows by lookahead), and each lane stores its own words: no
+//     gather.  A tail element's lanes run a copy of a live element and
+//     store nothing: every shuffle and ballot spans the whole warp.
+// chip_smoke.py's throwaway sweep builds set -DBLS_SUB_PER_BLOCK=E and
+// -DBLS_FP2_MUL_PER_BLOCK=E, and -DBLS_FP2_MUL_LANES=1: fp2_mul's
+// one-thread body on the same staged rows, the baseline that splits the
+// gain between the staged I/O and the lanes.
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
 #include "field.cuh"
+#include "lanes.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;
+constexpr int kThreads = 128;  // mul, add, fp2_sqr
+
+// Elements per block of the staged kernels, and threads per fp2_mul
+// element (the header note).
+#ifndef BLS_SUB_PER_BLOCK
+#define BLS_SUB_PER_BLOCK 64
+#endif
+#ifndef BLS_FP2_MUL_PER_BLOCK
+#define BLS_FP2_MUL_PER_BLOCK 8
+#endif
+#ifndef BLS_FP2_MUL_LANES
+#define BLS_FP2_MUL_LANES 4
+#endif
+constexpr int kSubPerBlock = BLS_SUB_PER_BLOCK;
+constexpr int kFp2MulPerBlock = BLS_FP2_MUL_PER_BLOCK;
+constexpr int kFp2MulLanes = BLS_FP2_MUL_LANES;
+static_assert(kFp2MulLanes == 4 || kFp2MulLanes == 1, "BLS_FP2_MUL_LANES is 4 or 1");
+static_assert(kFp2MulLanes == 1 || kFp2MulPerBlock * kFp2MulLanes % 32 == 0,
+              "whole warps for the lanes' shuffles");
 
 using bls::make_modulus;
 
-inline unsigned grid_for(long long n) {
-  return (unsigned)((n + kThreads - 1) / kThreads);
+inline unsigned grid_for(long long n, int per_block = kThreads) {
+  return (unsigned)((n + per_block - 1) / per_block);
 }
+
+inline bool aligned16(const void* p) { return ((uintptr_t)p & 15u) == 0; }
 
 }  // namespace
 
@@ -76,55 +117,166 @@ __global__ void add_kernel(const int32_t* __restrict__ a,
   bls::store_words<NW>(out + i * 2 * NW, r);
 }
 
-// Replaces _sub_kernel (kernels.py:241): canonical (a - b) mod m.
-// Bytes-bound like add.
+// Replaces _sub_kernel (kernels.py:241): canonical (a - b) mod m for Fp
+// (NW = 12) and Fr (NW = 8).  Bytes-bound like add, and at the main path's
+// 4096 elements (0.35 us of bytes) below the time of a launch.  E elements
+// per block, one thread each: the block stages its rows of a and b (two
+// spans of E x 8 NW bytes), each thread runs mod_sub on its staged row and
+// puts the result in a's row, and the block writes the span of out back.
 template <int NW>
-__global__ void sub_kernel(const int32_t* __restrict__ a,
-                           const int32_t* __restrict__ b,
-                           int32_t* __restrict__ out, long long n,
-                           bls::Modulus<NW> M) {
-  long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  uint32_t x[NW], y[NW], r[NW];
-  bls::load_words<NW>(a + i * 2 * NW, x);
-  bls::load_words<NW>(b + i * 2 * NW, y);
-  bls::mod_sub<NW>(x, y, r, M);
-  bls::store_words<NW>(out + i * 2 * NW, r);
+__global__ void __launch_bounds__(kSubPerBlock)
+    sub_kernel(const int32_t* __restrict__ a, const int32_t* __restrict__ b,
+               int32_t* __restrict__ out, long long n, bls::Modulus<NW> M) {
+  constexpr int E = kSubPerBlock, W = bls::kStagedStride<NW>;
+  __shared__ __align__(16) int32_t s[2][E * W];
+  const long long first = (long long)blockIdx.x * E;
+  if (first >= n) return;  // the whole block
+  const int rows = (int)(n - first < E ? n - first : E);
+  {
+    const int32_t* src[2] = {a, b};
+    int32_t* dst[2] = {s[0], s[1]};
+    bls::stage_rows<NW, E, E, 2>(src, dst, first, rows);
+  }
+  __syncthreads();
+  const int g = threadIdx.x;
+  if (g < rows) {
+    uint32_t x[NW], y[NW], r[NW];
+    bls::load_staged<NW>(s[0] + g * W, x);
+    bls::load_staged<NW>(s[1] + g * W, y);
+    bls::mod_sub<NW>(x, y, r, M);
+    bls::store_staged<NW>(s[0] + g * W, r);
+  }
+  __syncthreads();
+  {
+    const int32_t* src[1] = {s[0]};
+    int32_t* dst[1] = {out};
+    bls::unstage_rows<NW, E, E, 1>(src, dst, first, rows);
+  }
+}
+
+// (a - b) mod p on this lane's slices of canonical a, b, split across the
+// element's lanes as lanes.cuh's products are: the borrows, then the carries
+// of the correction by p, across lanes by lookahead (fp2_mul).
+template <int L>
+__device__ __forceinline__ void sub_slice(const uint32_t (&a)[bls::lanes::Lane<L>::S],
+                                          const uint32_t (&b)[bls::lanes::Lane<L>::S],
+                                          uint32_t (&r)[bls::lanes::Lane<L>::S],
+                                          const bls::lanes::Lane<L>& ln) {
+  constexpr int S = bls::lanes::Lane<L>::S;
+  uint32_t d[S], e[S], bw = 0;
+  bool zero = true;
+#pragma unroll
+  for (int k = 0; k < S; ++k) {
+    const uint64_t v = (uint64_t)a[k] - b[k] - bw;
+    d[k] = (uint32_t)v;
+    bw = (uint32_t)(v >> 32) & 1u;
+    zero = zero && d[k] == 0;
+  }
+  const uint32_t borrows = bls::lanes::lookahead<L>(bw != 0, zero, ln);
+  bw = (borrows >> ln.j) & 1u;
+  const bool under = (borrows >> L) & 1u;  // a < b: add p
+  uint64_t c = 0;
+  bool ones = true;
+#pragma unroll
+  for (int k = 0; k < S; ++k) {
+    const uint64_t v = (uint64_t)d[k] - bw;
+    bw = (uint32_t)(v >> 32) & 1u;
+    d[k] = (uint32_t)v;
+    c += (uint64_t)d[k] + ln.p[k];
+    e[k] = (uint32_t)c;
+    c >>= 32;
+    ones = ones && e[k] == 0xFFFFFFFFu;
+  }
+  c = (bls::lanes::lookahead<L>(c != 0, ones, ln) >> ln.j) & 1u;
+#pragma unroll
+  for (int k = 0; k < S; ++k) {
+    c += e[k];
+    e[k] = (uint32_t)c;
+    c >>= 32;
+    r[k] = bls::lanes::pick(under, e[k], d[k]);
+  }
 }
 
 // Replaces _fp2mul_kernel (kernels.py:262): Karatsuba Fp2 product
-// (a0 + a1 u)(b0 + b1 u), u^2 = -1, with 3 Montgomery products.  The
-// operand sums a0 + a1, b0 + b1 stay unreduced (< 2p); mont_mul takes
-// inputs < 2p.  576 bytes and ~1,800 multiply-adds per element: bound by
-// bytes (~172 ps per element), the operation bound (~107 ps) is about 60%
-// of the byte bound.
-__global__ void fp2_mul_kernel(const int32_t* __restrict__ a0,
-                               const int32_t* __restrict__ a1,
-                               const int32_t* __restrict__ b0,
-                               const int32_t* __restrict__ b1,
-                               int32_t* __restrict__ c0,
-                               int32_t* __restrict__ c1, long long n,
-                               bls::Modulus<12> M) {
-  constexpr int NW = 12;
-  long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const long long off = i * 2 * NW;
+// (a0 + a1 u)(b0 + b1 u), u^2 = -1, with 3 Montgomery products; the operand
+// sums a0 + a1, b0 + b1 stay unreduced (< 2p), which every product takes.
+// 576 bytes and ~1,800 multiply-adds per element: bound by bytes (~172 ps
+// per element; the operations ~107 ps), 1.4 us at 8192 elements.  E
+// elements per block on kFp2MulLanes threads each: the block stages its
+// rows of a0, a1, b0, b1, each element's threads read its operands whole,
+// and the block writes the spans of c0 and c1 back.
+__global__ void __launch_bounds__(kFp2MulPerBlock * kFp2MulLanes)
+    fp2_mul_kernel(const int32_t* __restrict__ a0,
+                   const int32_t* __restrict__ a1,
+                   const int32_t* __restrict__ b0,
+                   const int32_t* __restrict__ b1, int32_t* __restrict__ c0,
+                   int32_t* __restrict__ c1, long long n, bls::FpModulus M) {
+  constexpr int NW = bls::kFpWords, W = bls::kStagedStride<NW>;
+  constexpr int E = kFp2MulPerBlock, T = E * kFp2MulLanes;
+  __shared__ __align__(16) int32_t s[4][E * W];
+  const long long first = (long long)blockIdx.x * E;
+  if (first >= n) return;  // the whole block
+  const int rows = (int)(n - first < E ? n - first : E);
+  {
+    const int32_t* src[4] = {a0, a1, b0, b1};
+    int32_t* dst[4] = {s[0], s[1], s[2], s[3]};
+    bls::stage_rows<NW, E, T, 4>(src, dst, first, rows);
+  }
+  __syncthreads();
+  const int g = threadIdx.x / kFp2MulLanes;  // the block's element
+  const bool live = g < rows;
+  const int at = live ? g : rows - 1;  // a tail element: a copy of a live one
   uint32_t x0[NW], x1[NW], y0[NW], y1[NW];
-  bls::load_words<NW>(a0 + off, x0);
-  bls::load_words<NW>(a1 + off, x1);
-  bls::load_words<NW>(b0 + off, y0);
-  bls::load_words<NW>(b1 + off, y1);
-  uint32_t xs[NW], ys[NW], v0[NW], v1[NW], v2[NW], r[NW];
-  bls::add_words<NW>(x0, x1, xs);
-  bls::add_words<NW>(y0, y1, ys);
-  bls::mont_mul<NW>(x0, y0, v0, M);
-  bls::mont_mul<NW>(x1, y1, v1, M);
-  bls::mont_mul<NW>(xs, ys, v2, M);
-  bls::mod_sub<NW>(v0, v1, r, M);
-  bls::store_words<NW>(c0 + off, r);
-  bls::mod_sub<NW>(v2, v0, xs, M);
-  bls::mod_sub<NW>(xs, v1, r, M);
-  bls::store_words<NW>(c1 + off, r);
+  bls::load_staged<NW>(s[0] + at * W, x0);
+  bls::load_staged<NW>(s[1] + at * W, x1);
+  bls::load_staged<NW>(s[2] + at * W, y0);
+  bls::load_staged<NW>(s[3] + at * W, y1);
+  __syncthreads();  // every operand in registers: the rows of s[0], s[1] take c0, c1
+  if constexpr (kFp2MulLanes == 4) {
+    constexpr int S = bls::lanes::Lane<4>::S;
+    const bls::lanes::Lane<4> ln = bls::lanes::make_lane<4>(M);
+    uint32_t u[3][NW], v[3][NW], t[3][S], r0[S];
+#pragma unroll
+    for (int k = 0; k < NW; ++k) {
+      u[0][k] = x0[k], u[1][k] = x1[k];
+      v[0][k] = y0[k], v[1][k] = y1[k];
+    }
+    bls::add_words<NW>(x0, x1, u[2]);  // < 2p
+    bls::add_words<NW>(y0, y1, v[2]);
+    bls::lanes::mont_mul_slices<4, 3, true>(u, v, t, ln);
+    sub_slice<4>(t[0], t[1], r0, ln);
+    sub_slice<4>(t[2], t[0], t[2], ln);
+    sub_slice<4>(t[2], t[1], t[1], ln);
+    if (live) {  // lane j stores words j S .. j S + S - 1 of c0 and c1
+      int2* row0 = reinterpret_cast<int2*>(s[0] + g * W + 2 * S * ln.j);
+      int2* row1 = reinterpret_cast<int2*>(s[1] + g * W + 2 * S * ln.j);
+#pragma unroll
+      for (int k = 0; k < S; ++k) {
+        row0[k] = make_int2((int32_t)(r0[k] & 0xFFFFu), (int32_t)(r0[k] >> 16));
+        row1[k] = make_int2((int32_t)(t[1][k] & 0xFFFFu), (int32_t)(t[1][k] >> 16));
+      }
+    }
+  } else {  // the one-thread body of a sweep build
+    uint32_t xs[NW], ys[NW], v0[NW], v1[NW], v2[NW], r[NW];
+    bls::add_words<NW>(x0, x1, xs);
+    bls::add_words<NW>(y0, y1, ys);
+    bls::mont_mul<NW>(x0, y0, v0, M);
+    bls::mont_mul<NW>(x1, y1, v1, M);
+    bls::mont_mul<NW>(xs, ys, v2, M);
+    if (live) {
+      bls::mod_sub<NW>(v0, v1, r, M);
+      bls::store_staged<NW>(s[0] + g * W, r);
+      bls::mod_sub<NW>(v2, v0, xs, M);
+      bls::mod_sub<NW>(xs, v1, r, M);
+      bls::store_staged<NW>(s[1] + g * W, r);
+    }
+  }
+  __syncthreads();
+  {
+    const int32_t* src[2] = {s[0], s[1]};
+    int32_t* dst[2] = {c0, c1};
+    bls::unstage_rows<NW, E, T, 2>(src, dst, first, rows);
+  }
 }
 
 // Replaces _fp2sqr_kernel (kernels.py:276): (a0 + a1 u)^2 =
@@ -152,11 +304,16 @@ __global__ void fp2_sqr_kernel(const int32_t* __restrict__ a0,
   bls::store_words<NW>(c1 + off, r);
 }
 
+// Replaces no TPU kernel: it returns at once, so chip_smoke.py's time of
+// it at a field kernel's grid is the floor under every launch (PERF.md).
+__global__ void launch_floor_kernel() {}
+
 }  // namespace bls_kernels
 
 using bls_kernels::add_kernel;
 using bls_kernels::fp2_mul_kernel;
 using bls_kernels::fp2_sqr_kernel;
+using bls_kernels::launch_floor_kernel;
 using bls_kernels::mul_kernel;
 using bls_kernels::sub_kernel;
 
@@ -192,26 +349,32 @@ int bls_add(const int32_t* a, const int32_t* b, int32_t* out, long long n,
   return (int)cudaGetLastError();
 }
 
+// Every operand 16-byte aligned.
 int bls_sub(const int32_t* a, const int32_t* b, int32_t* out, long long n,
             int nlimb, const uint32_t* p, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
+  if (!aligned16(a) || !aligned16(b) || !aligned16(out)) return (int)cudaErrorInvalidValue;
+  const unsigned blocks = grid_for(n, kSubPerBlock);
   if (nlimb == 24) {
-    sub_kernel<12><<<grid_for(n), kThreads, 0, s>>>(a, b, out, n,
-                                                    make_modulus<12>(p, 0));
+    sub_kernel<12><<<blocks, kSubPerBlock, 0, s>>>(a, b, out, n, make_modulus<12>(p, 0));
   } else if (nlimb == 16) {
-    sub_kernel<8><<<grid_for(n), kThreads, 0, s>>>(a, b, out, n,
-                                                   make_modulus<8>(p, 0));
+    sub_kernel<8><<<blocks, kSubPerBlock, 0, s>>>(a, b, out, n, make_modulus<8>(p, 0));
   } else {
     return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
 }
 
+// Every operand 16-byte aligned.
 int bls_fp2_mul(const int32_t* a0, const int32_t* a1, const int32_t* b0,
                 const int32_t* b1, int32_t* c0, int32_t* c1, long long n,
                 const uint32_t* p, unsigned n0, void* stream) {
-  fp2_mul_kernel<<<grid_for(n), kThreads, 0, (cudaStream_t)stream>>>(
-      a0, a1, b0, b1, c0, c1, n, make_modulus<12>(p, n0));
+  if (!aligned16(a0) || !aligned16(a1) || !aligned16(b0) || !aligned16(b1) ||
+      !aligned16(c0) || !aligned16(c1)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  fp2_mul_kernel<<<grid_for(n, kFp2MulPerBlock), kFp2MulPerBlock * kFp2MulLanes, 0,
+                   (cudaStream_t)stream>>>(a0, a1, b0, b1, c0, c1, n, make_modulus<12>(p, n0));
   return (int)cudaGetLastError();
 }
 
@@ -220,6 +383,11 @@ int bls_fp2_sqr(const int32_t* a0, const int32_t* a1, int32_t* c0,
                 void* stream) {
   fp2_sqr_kernel<<<grid_for(n), kThreads, 0, (cudaStream_t)stream>>>(
       a0, a1, c0, c1, n, make_modulus<12>(p, n0));
+  return (int)cudaGetLastError();
+}
+
+int bls_launch_floor(unsigned blocks, int threads, void* stream) {
+  launch_floor_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>();
   return (int)cudaGetLastError();
 }
 

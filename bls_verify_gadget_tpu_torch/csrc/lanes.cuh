@@ -1,6 +1,9 @@
 // A Montgomery product split across the lanes of one element: the product
 // of hash_kernels.cu's pow_win, whose chain of dependent products (485 for
-// the Fermat inverse e = p - 2) one product cannot hide behind another.
+// the Fermat inverse e = p - 2) one product cannot hide behind another,
+// and of field_kernels.cu's fp2_mul, whose three independent Karatsuba
+// products run in lockstep (mont_mul_slices, N = 3) and hide each other's
+// latency.
 //
 // What it replaces, and what bounds it.  The one-thread pow_win (once in
 // curve.cuh) ran field.cuh's mont_mul on one thread per element: a 12-word
@@ -126,82 +129,141 @@ __device__ __forceinline__ uint32_t lookahead(bool g, bool p,
   return (x + G) ^ x ^ G;
 }
 
-// r = a b R^-1 mod p for a, b < 2p whole in every lane; r whole in every
-// lane and may alias a or b.  kCanonical: r < p, else r < 2p (the
-// conditional subtraction of p left out, for a chain's next product).
+// t[q] = this lane's slice of a[q] b[q] R^-1 mod p for N independent
+// products of a, b < 2p whole in every lane, in lockstep: each step is
+// taken for every q before the next, so the N chains hide each other's
+// latency (fp2_mul's three Karatsuba products; pow_win runs N = 1).
+// kCanonical: below p, else below 2p (the conditional subtraction of p
+// left out, for a chain's next product).
+template <int L, int N, bool kCanonical>
+__device__ __forceinline__ void mont_mul_slices(const uint32_t (&a)[N][kFpWords],
+                                                const uint32_t (&b)[N][kFpWords],
+                                                uint32_t (&t)[N][Lane<L>::S],
+                                                const Lane<L>& ln) {
+  constexpr int S = Lane<L>::S;
+  uint32_t as[N][S], an0[N], h[N];  // a's words of this lane, a[0] n0, t's carry word
+#pragma unroll
+  for (int q = 0; q < N; ++q) {
+    slice_of<L>(a[q], ln.j, as[q]);
+    an0[q] = as[q][0] * ln.n0;  // a[0] n0 in lane 0
+    h[q] = 0;
+#pragma unroll
+    for (int k = 0; k < S; ++k) t[q][k] = 0;
+  }
+#pragma unroll
+  for (int i = 0; i < kFpWords; ++i) {
+    // each step for every product before the next: warps issue in order,
+    // so the independent instructions must stand between a shuffle and
+    // its use in the source
+    uint32_t m[N], w0[N], c1[N], c2[N];
+#pragma unroll
+    for (int q = 0; q < N; ++q) {
+      // lane 0's m = (t0 + a[0] b[i]) n0, one product after t0
+      m[q] = __shfl_sync(ln.mask, t[q][0] * ln.n0 + an0[q] * b[q][i], 0, L);
+    }
+#pragma unroll
+    for (int q = 0; q < N; ++q) {
+      uint64_t x = (uint64_t)as[q][0] * b[q][i] + t[q][0];
+      uint64_t y = (uint64_t)m[q] * ln.p[0] + (uint32_t)x;
+      c1[q] = (uint32_t)(x >> 32), c2[q] = (uint32_t)(y >> 32);
+      w0[q] = (uint32_t)y;  // 0 in lane 0
+#pragma unroll
+      for (int k = 1; k < S; ++k) {
+        x = (uint64_t)as[q][k] * b[q][i] + t[q][k] + c1[q];
+        c1[q] = (uint32_t)(x >> 32);
+        y = (uint64_t)m[q] * ln.p[k] + (uint32_t)x + c2[q];
+        c2[q] = (uint32_t)(y >> 32);
+        t[q][k - 1] = (uint32_t)y;
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < N; ++q) {
+      // the shift: the bottom word of the lane above, and this lane's carries
+      const uint32_t up = __shfl_down_sync(ln.mask, w0[q], 1, L);
+      const uint64_t top = (uint64_t)pick(ln.j == L - 1, 0u, up) + h[q] + c1[q] + c2[q];
+      t[q][S - 1] = (uint32_t)top;
+      h[q] = (uint32_t)(top >> 32);
+    }
+  }
+  // the deferred carries: the carry word of the lane below, then the 0/1
+  // carries across lanes (the top lane's carries are 0: t < 2p < R)
+  uint32_t below[N], cin[N];
+#pragma unroll
+  for (int q = 0; q < N; ++q) below[q] = __shfl_up_sync(ln.mask, h[q], 1, L);
+#pragma unroll
+  for (int q = 0; q < N; ++q) {
+    uint64_t c = pick(ln.j == 0, 0u, below[q]);
+    bool ones = true;
+#pragma unroll
+    for (int k = 0; k < S; ++k) {
+      c += t[q][k];
+      t[q][k] = (uint32_t)c;
+      c >>= 32;
+      ones = ones && t[q][k] == 0xFFFFFFFFu;
+    }
+    cin[q] = lookahead<L>(c != 0, ones, ln);
+  }
+#pragma unroll
+  for (int q = 0; q < N; ++q) {
+    uint64_t c = (cin[q] >> ln.j) & 1u;
+#pragma unroll
+    for (int k = 0; k < S; ++k) {
+      c += t[q][k];
+      t[q][k] = (uint32_t)c;
+      c >>= 32;
+    }
+  }
+  if constexpr (kCanonical) {
+    // t - p where t >= p: the borrows across lanes by the same lookahead
+    uint32_t d[N][S], borrows[N];
+#pragma unroll
+    for (int q = 0; q < N; ++q) {
+      uint32_t bw = 0;
+      bool zero = true;
+#pragma unroll
+      for (int k = 0; k < S; ++k) {
+        const uint64_t v = (uint64_t)t[q][k] - ln.p[k] - bw;
+        d[q][k] = (uint32_t)v;
+        bw = (uint32_t)(v >> 32) & 1u;
+        zero = zero && d[q][k] == 0;
+      }
+      borrows[q] = lookahead<L>(bw != 0, zero, ln);
+    }
+#pragma unroll
+    for (int q = 0; q < N; ++q) {
+      uint32_t bw = (borrows[q] >> ln.j) & 1u;
+      const bool keep = (borrows[q] >> L) & 1u;  // t < p
+#pragma unroll
+      for (int k = 0; k < S; ++k) {
+        const uint64_t v = (uint64_t)d[q][k] - bw;
+        bw = (uint32_t)(v >> 32) & 1u;
+        t[q][k] = pick(keep, t[q][k], (uint32_t)v);
+      }
+    }
+  }
+}
+
+// One product of mont_mul_slices: t = this lane's slice of a b R^-1 mod p.
+template <int L, bool kCanonical>
+__device__ __forceinline__ void mont_mul_slice(const uint32_t (&a)[kFpWords],
+                                               const uint32_t (&b)[kFpWords],
+                                               uint32_t (&t)[Lane<L>::S],
+                                               const Lane<L>& ln) {
+  using Row = uint32_t[1][kFpWords];
+  mont_mul_slices<L, 1, kCanonical>(reinterpret_cast<const Row&>(a),
+                                    reinterpret_cast<const Row&>(b),
+                                    reinterpret_cast<uint32_t(&)[1][Lane<L>::S]>(t), ln);
+}
+
+// r = a b R^-1 mod p as mont_mul_slice, whole in every lane; r may alias a
+// or b.
 template <int L, bool kCanonical>
 __device__ __forceinline__ void mont_mul(const uint32_t (&a)[kFpWords],
                                          const uint32_t (&b)[kFpWords],
                                          uint32_t (&r)[kFpWords],
                                          const Lane<L>& ln) {
-  constexpr int S = Lane<L>::S;
-  uint32_t as[S];  // a's words of this lane
-  slice_of<L>(a, ln.j, as);
-  const uint32_t an0 = as[0] * ln.n0;  // a[0] n0 in lane 0
-  uint32_t t[S], h = 0;                // this lane's slice of the accumulator
-#pragma unroll
-  for (int k = 0; k < S; ++k) t[k] = 0;
-#pragma unroll
-  for (int i = 0; i < kFpWords; ++i) {
-    // lane 0's m = (t0 + a[0] b[i]) n0, one product after t0
-    const uint32_t m = __shfl_sync(ln.mask, t[0] * ln.n0 + an0 * b[i], 0, L);
-    uint64_t x = (uint64_t)as[0] * b[i] + t[0];
-    uint64_t y = (uint64_t)m * ln.p[0] + (uint32_t)x;
-    uint32_t c1 = (uint32_t)(x >> 32), c2 = (uint32_t)(y >> 32);
-    const uint32_t w0 = (uint32_t)y;  // 0 in lane 0
-#pragma unroll
-    for (int k = 1; k < S; ++k) {
-      x = (uint64_t)as[k] * b[i] + t[k] + c1;
-      c1 = (uint32_t)(x >> 32);
-      y = (uint64_t)m * ln.p[k] + (uint32_t)x + c2;
-      c2 = (uint32_t)(y >> 32);
-      t[k - 1] = (uint32_t)y;
-    }
-    // the shift: the bottom word of the lane above, and this lane's carries
-    const uint32_t up = __shfl_down_sync(ln.mask, w0, 1, L);
-    const uint64_t top = (uint64_t)pick(ln.j == L - 1, 0u, up) + h + c1 + c2;
-    t[S - 1] = (uint32_t)top;
-    h = (uint32_t)(top >> 32);
-  }
-  // the deferred carries: the carry word of the lane below, then the 0/1
-  // carries across lanes (the top lane's carries are 0: t < 2p < R)
-  uint64_t c = pick(ln.j == 0, 0u, __shfl_up_sync(ln.mask, h, 1, L));
-  bool ones = true;
-#pragma unroll
-  for (int k = 0; k < S; ++k) {
-    c += t[k];
-    t[k] = (uint32_t)c;
-    c >>= 32;
-    ones = ones && t[k] == 0xFFFFFFFFu;
-  }
-  c = (lookahead<L>(c != 0, ones, ln) >> ln.j) & 1u;
-#pragma unroll
-  for (int k = 0; k < S; ++k) {
-    c += t[k];
-    t[k] = (uint32_t)c;
-    c >>= 32;
-  }
-  if constexpr (kCanonical) {
-    // t - p where t >= p: the borrows across lanes by the same lookahead
-    uint32_t d[S], bw = 0;
-    bool zero = true;
-#pragma unroll
-    for (int k = 0; k < S; ++k) {
-      const uint64_t v = (uint64_t)t[k] - ln.p[k] - bw;
-      d[k] = (uint32_t)v;
-      bw = (uint32_t)(v >> 32) & 1u;
-      zero = zero && d[k] == 0;
-    }
-    const uint32_t borrows = lookahead<L>(bw != 0, zero, ln);
-    bw = (borrows >> ln.j) & 1u;
-    const bool keep = (borrows >> L) & 1u;  // t < p
-#pragma unroll
-    for (int k = 0; k < S; ++k) {
-      const uint64_t v = (uint64_t)d[k] - bw;
-      bw = (uint32_t)(v >> 32) & 1u;
-      t[k] = pick(keep, t[k], (uint32_t)v);
-    }
-  }
+  uint32_t t[Lane<L>::S];
+  mont_mul_slice<L, kCanonical>(a, b, t, ln);
   gather<L>(t, r, ln);
 }
 

@@ -21,7 +21,9 @@ CPU goes to the kernel's plain PyTorch version (ops/fp.py, ops/tower.py,
 ops/curve.py, ops/hash_to_g2.py, ops/pairing.py); a CUDA
 tensor launches the kernel on the current stream or raises -- there is no
 fallback from a CUDA tensor to the plain version.  Each launch adds one to
-the kernel's count in COUNTS.
+the kernel's count in COUNTS.  The staged kernels (sub, fp2_mul) read
+and write whole rows as 16-byte vectors: their wrappers refuse an operand
+that does not start on a 16-byte boundary.
 """
 
 import collections
@@ -172,6 +174,7 @@ def _declare(lib, names=KERNELS):
         "dbl_step": [vp, vp, vp, i64, vp, u32, vp],
         "add_step": [vp, vp, vp, vp, i64, vp, u32, vp],
         "cyclo_sqr": [vp, vp, i64, i32, vp, u32, vp],
+        "launch_floor": [u32, i32, vp],
     }
     for name in names:
         fn = getattr(lib, f"bls_{name}")
@@ -184,7 +187,7 @@ def library():
     with _lib_lock:
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
-            _declare(lib)
+            _declare(lib, (*KERNELS, "launch_floor"))
             _lib = lib
     return _lib
 
@@ -241,6 +244,14 @@ def _cuda_operands(field, ts):
     return out
 
 
+def _check_aligned(name, ts):
+    """The staged kernels read and write rows as 16-byte vectors: every
+    operand and output must start on a 16-byte boundary."""
+    for t in ts:
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: operand at {t.data_ptr():#x} is not 16-byte aligned")
+
+
 def _check_rc(name: str, rc: int):
     if rc != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError {rc}")
@@ -258,14 +269,14 @@ def _binary(name, field, a, b, plain):
     out = torch.empty_like(a)
     n = a.numel() // field.nlimb
     if n:
-        lib = library()
-        fn = getattr(lib, f"bls_{name}")
+        fn = getattr(library(), f"bls_{name}")
+        ptrs = (a.data_ptr(), b.data_ptr(), out.data_ptr(), n, field.nlimb, _p_words(field))
         if name == "mul":
-            rc = fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), n, field.nlimb,
-                    _p_words(field), field.n0_word, _stream(a))
+            rc = fn(*ptrs, field.n0_word, _stream(a))
         else:
-            rc = fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), n, field.nlimb,
-                    _p_words(field), _stream(a))
+            if name == "sub":
+                _check_aligned(name, (a, b, out))
+            rc = fn(*ptrs, _stream(a))
         _check_rc(name, rc)
         COUNTS.record(name, n)
     return out
@@ -297,6 +308,7 @@ def fp2_mul(field, a0, a1, b0, b1):
     c0, c1 = torch.empty_like(a0), torch.empty_like(a0)
     n = a0.numel() // field.nlimb
     if n:
+        _check_aligned("fp2_mul", (a0, a1, b0, b1, c0, c1))
         rc = library().bls_fp2_mul(
             a0.data_ptr(), a1.data_ptr(), b0.data_ptr(), b1.data_ptr(),
             c0.data_ptr(), c1.data_ptr(), n, _p_words(field), field.n0_word,

@@ -75,11 +75,16 @@ Needs one CUDA card and nvcc.  Phases, each fatal on failure:
      elements at every run length at 4096 and 1) and on seeded random ones
      (mul014 with a quarter of the lines neutral, cyclo_sqr at every run
      length at 4096 and 1);
+     sub (Fp and Fr) and fp2_mul also on edge operands (0, 1, m - 1,
+     a = b, borrows across every word and, in fp2_mul, every lane) at 1,
+     4095, 4096, 8191 and 8192 elements;
      device time per launch from CUDA-graph replay, eager call time and
      plain time from CUDA events (a mean of 3 calls for the field kernels;
      the slow plain versions of the others: their one comparison call at
      the main size), and the bound from bytes and
-     integer multiply-adds;
+     integer multiply-adds; the launch floor: an empty kernel
+     (launch_floor_kernel) timed the same way at 1 block and on each field
+     kernel's grid;
   8. group    -- the group kernels (csrc/group.cuh): miller_dbl_run (k =
      1 and 2) and exp_x at 4096 and 4095 elements with mixed valid masks,
      fp12_mul at 4096, 4095 and 1,
@@ -103,14 +108,29 @@ Needs one CUDA card and nvcc.  Phases, each fatal on failure:
      hash_kernels.cu, built from DIR in parallel too) bit-equal as well and
      timed interleaved with this tree's (parent, group, group, parent).
      ptxas's registers, stack and spills and the shared memory per block of
-     each group kernel instance are printed under [build].
+     each group kernel instance are printed under [build];
+  9. field    -- the staged field kernels (csrc/field_kernels.cu sub and
+     fp2_mul): fp2_mul at 8192, 4096 and 1 elements, sub in Fp at 4096,
+     8192 and 1 and in Fr at 4096 and 1, on seeded rows with edge operands:
+     the wrapper bit-equal to the plain version, and bit-equal to it the
+     sweep builds (throwaway copies of the unit built with
+     -DBLS_SUB_PER_BLOCK=E -DBLS_FP2_MUL_PER_BLOCK=E for E = 8, 16, 32 and
+     64, each with fp2_mul on 4 lanes and with -DBLS_FP2_MUL_LANES=1, the
+     one-thread body on the same staged rows, into build/, in parallel with
+     the library) and with --parent DIR the parent commit's kernels (its
+     field_kernels.cu, built from DIR in parallel too); device ms per launch
+     of each, of the empty kernel on the library's grid, and of the parent's
+     kernel and the library's interleaved (parent, change, change, parent);
+     ptxas's lines of each instance under [build].
 Prints one JSON line of kernels, the card's name and power limit, and as
 its last line {"ok": true, "device": {...}}.  Imports nothing of JAX.
 
     python3 chip_smoke.py --group [--parent DIR]
+    python3 chip_smoke.py --field [--parent DIR]
 
-runs only phases 1, 2 and 8: the group kernels' checks, sweep and
-timing.
+run only phases 1, 2 and 8 (the group kernels' checks, sweep and
+timing) or 1, 2 and 9 (the staged field kernels'), and start only the
+builds of that phase.
 """
 
 import json
@@ -200,6 +220,7 @@ def build_phase(K):
         if any(k in line for k in keys):
             log(f"[build] {line.strip()}")
     group_build_report(so.with_suffix(".log"), "library")
+    field_build_report(so.with_suffix(".log"), "library")
 
 
 def unhex(s):
@@ -1564,6 +1585,8 @@ def kernel_phase(torch, K, launches, sizes, verify_s, ctx, keys, steps):
         for path in steps["sizes"]:
             check_covered(name, counts, path, steps["sizes"][path][name])
             row[f"launches_{path}"] = steps["launches"][path][name]
+        if field:  # the empty kernel on the same grid
+            row["floor_ms"] = device_ms(torch, floor_launch(torch, K, *field_grid(K, name, n)), ())
         rows.append(row)
         at = f"{n} elements" + (f", run of {count}" if count else "")
         checked = f"sizes {counts}" + (f" x run lengths {runs}" if count else "")
@@ -1573,6 +1596,16 @@ def kernel_phase(torch, K, launches, sizes, verify_s, ctx, keys, steps):
             f"unchanged by plain; at {at}: device {ms:.5f} ms, eager call {eager_ms:.5f} "
             f"ms, plain {plain_ms:.4f} ms, bound {bound_ms:.5f} ms "
             f"({bound_by}); {launches[name]} launches per verify")
+    by_name = {r["name"]: r for r in rows}
+    for name, fields in staged_edge_checks(torch, K, rng, plain_call).items():
+        by_name[name]["edge_counts"] = list(EDGE_COUNTS)
+        by_name[name]["edge_fields"] = fields
+    floor_ms = device_ms(torch, floor_launch(torch, K, 1, 32), ())
+    log(f"[kernel] launch floor (an empty kernel, timed as device_ms times every kernel): "
+        f"{floor_ms:.5f} ms at 1 block of 32 threads; on each field kernel's grid at its size "
+        f"above, kernel / floor / bound ms: " + "; ".join(
+            f"{r['name']} {r['ms']:.5f} / {r['floor_ms']:.5f} / {r['bound_ms']:.5f}"
+            for r in rows if "floor_ms" in r))
     from bls_verify_gadget_tpu_torch.ops.fp import FR
 
     n_fr = rows[0]["elements"]
@@ -1584,7 +1617,6 @@ def kernel_phase(torch, K, launches, sizes, verify_s, ctx, keys, steps):
     log(f"[kernel] kernel device time per verify batch (launches x device time "
         f"at each size) {kernel_ms:.3f} ms of {verify_s * 1e3:.3f} ms wall "
         f"({100 * kernel_ms / (verify_s * 1e3):.2f}%)")
-    by_name = {r["name"]: r for r in rows}
     miller_ms = (step_ms["dbl_step"] + step_ms["add_step"] + step_ms["mul014"]
                  + 63 * by_name["fp12_sqr"]["ms"])
     chains_ms = step_ms["cyclo_sqr"] + 25 * by_name["fp12_mul"]["ms"]
@@ -1653,6 +1685,21 @@ def library_groups(K):
             "pow_win Fp2": lanes}
 
 
+def ptxas_report(log_path, patterns):
+    """ptxas's lines (stack frame and spills; registers and shared memory)
+    of each kernel instance whose mangled name matches one of `patterns`
+    ((regex, name of the match), ...) in a build's report -> {name: lines}."""
+    name, out = None, {}
+    for line in log_path.read_text().splitlines():
+        if "Compiling entry function" in line or "Function properties for" in line:
+            hits = [(pat.search(line), fn) for pat, fn in patterns]
+            name = next((fn(m) for m, fn in hits if m), None)
+            continue
+        if name and ("stack frame" in line or "Used" in line):
+            out.setdefault(name, []).append(line.strip())
+    return out
+
+
 def group_build_report(log_path, label):
     """ptxas's registers, stack and spills of the group kernels, one line
     per instance, from a build's report, and each group instance's dynamic
@@ -1661,21 +1708,21 @@ def group_build_report(log_path, label):
     from bls_verify_gadget_tpu_torch.ops import group_rounds as GR
 
     progs = {P.name: P for P in GR.programs()}
-    name, lines = None, []
-    for line in log_path.read_text().splitlines():
-        if "Compiling entry function" in line or "Function properties for" in line:
-            hits = [(pat.search(line), fn) for pat, fn in GROUP_LOG]
-            name = next((fn(m) for m, fn in hits if m), None)
-            continue
-        if name and ("stack frame" in line or "Used" in line):
-            lines.append((name, line.strip()))
-    for name in sorted({n for n, _ in lines}, key=str):
+    lines = ptxas_report(log_path, GROUP_LOG)
+    for name in sorted(lines, key=str):
         P = progs.get(name[1])
-        log(f"[build] ptxas {name[0]} ({label}): "
-            + "; ".join(t for n, t in lines if n == name)
+        log(f"[build] ptxas {name[0]} ({label}): " + "; ".join(lines[name])
             + ("" if P is None else
                f"; {GR.shared_bytes(P, name[2])} bytes of dynamic shared memory per block "
                f"({GR.elements_per_block(P, name[2])} elements of {P.nslots} slots)"))
+
+
+def field_build_report(log_path, label):
+    """ptxas's registers, stack, spills and static shared memory of the
+    staged field kernels (sub, fp2_mul) and the launch floor, one line per
+    instance."""
+    for name, lines in ptxas_report(log_path, FIELD_LOG).items():
+        log(f"[build] ptxas {name} ({label}): " + "; ".join(lines))
 
 
 def unit_build_start(K, src, so, defines=()):
@@ -1706,21 +1753,25 @@ def sweep_build_start(K):
     return started
 
 
-def parent_build_start(K, parent):
-    """Start nvcc on the parent tree's group units, one build per source:
-    DIR is a git archive of the parent commit in a git-ignored directory of
-    this checkout, such as chip_scratch/ -> {sweep: (process, library,
-    log)}."""
+def parent_build_start(K, parent, group=True, field=True):
+    """Start nvcc on the parent tree's group units (group) and its field
+    unit (field), one build per source: DIR is a git archive of the parent
+    commit in a git-ignored directory of this checkout, such as
+    chip_scratch/ -> {sweep or "field": (process, library, log)}."""
     root = pathlib.Path(parent).resolve()
     if not root.is_relative_to(ROOT):
         raise RuntimeError(f"--parent: {root} lies outside the checkout {ROOT}")
     builds = {}
-    for name in sorted(set(GROUP_UNITS.values())):
+    names = ({*GROUP_UNITS.values()} if group else set()) | ({FIELD_UNIT} if field else set())
+    for name in sorted(names):
         src = root / "bls_verify_gadget_tpu_torch" / "csrc" / name
         if not src.is_file():
             raise RuntimeError(f"--parent: {src} not found")
         builds[name] = unit_build_start(K, src, K.BUILD_DIR / f"parent_{name[:-3]}.so")
-    return {unit: builds[name] for unit, name in GROUP_UNITS.items()}
+    out = {unit: builds[name] for unit, name in GROUP_UNITS.items() if name in builds}
+    if FIELD_UNIT in builds:
+        out["field"] = builds[FIELD_UNIT]
+    return out
 
 
 def unit_library(K, unit, started):
@@ -1937,7 +1988,8 @@ def group_phase(torch, K, sweep_started, parent_started=None):
     for (unit, g), started in sweep_started.items():
         libs[(unit, g)] = unit_library(K, unit, started)
         group_build_report(started[2], f"sweep build, {GROUP_DEFINE[unit]}={g}")
-    parent = {unit: unit_library(K, unit, s) for unit, s in (parent_started or {}).items()}
+    parent = {unit: unit_library(K, unit, s) for unit, s in (parent_started or {}).items()
+              if unit in GROUP_SWEEP}
     out = {name: {} for name in GROUP_KERNELS}
     for label, name, key, args, timed in group_cases(torch, rng):
         unit = GROUP_KERNELS[name]
@@ -1987,19 +2039,242 @@ def group_phase(torch, K, sweep_started, parent_started=None):
     return out
 
 
+# ----------------------------------------------------------------------------
+# field phase: the staged field kernels (sub, fp2_mul) at each elements-per-
+# block count and fp2_mul form, the launch floor, and the parent's kernels
+# ----------------------------------------------------------------------------
+
+FIELD_UNIT = "field_kernels.cu"
+FIELD_E = (8, 16, 32, 64)  # elements per block of the sweep builds
+# threads per fp2_mul element of the sweep builds: the library's lanes and
+# the one-thread body on the same staged rows
+FIELD_LANES = (4, 1)
+EDGE_COUNTS = (1, 4095, 4096, 8191, 8192)  # element counts of the edge operands
+FIELD_LOG = (
+    (re.compile(r"fp2_mul_kernel"), lambda m: "fp2_mul"),
+    (re.compile(r"sub_kernelILi(\d+)E"), lambda m: f"sub<NW={m[1]}>"),
+    (re.compile(r"launch_floor_kernel"), lambda m: "launch_floor"),
+)
+
+
+def library_field(K):
+    """The library's elements per block of sub and fp2_mul and fp2_mul's
+    threads per element (BLS_SUB_PER_BLOCK, BLS_FP2_MUL_PER_BLOCK and
+    BLS_FP2_MUL_LANES in csrc/field_kernels.cu)."""
+    src = (K.CSRC_DIR / FIELD_UNIT).read_text()
+    return {key: int(re.search(rf"#define BLS_{define} (\d+)", src)[1])
+            for key, define in (("sub", "SUB_PER_BLOCK"), ("fp2_mul", "FP2_MUL_PER_BLOCK"),
+                                ("lanes", "FP2_MUL_LANES"))}
+
+
+def field_build_start(K):
+    """Start nvcc on this tree's field unit at each elements-per-block
+    count E of FIELD_E (both staged kernels) and each of FIELD_LANES ->
+    {(lanes, E): (process, library, log)}."""
+    return {(lanes, e): unit_build_start(
+                K, K.CSRC_DIR / FIELD_UNIT, K.BUILD_DIR / f"sweep_field_l{lanes}_e{e}.so",
+                (f"-DBLS_SUB_PER_BLOCK={e}", f"-DBLS_FP2_MUL_PER_BLOCK={e}",
+                 f"-DBLS_FP2_MUL_LANES={lanes}"))
+            for lanes in FIELD_LANES for e in FIELD_E}
+
+
+def field_library(K, started):
+    """Wait for a build of a field unit -> its library, with sub and
+    fp2_mul declared as in ops/kernels.py."""
+    import ctypes
+
+    proc, so, log_path = started
+    if proc.wait() != 0:
+        raise RuntimeError(f"build of {so.name} failed:\n{log_path.read_text()}")
+    lib = ctypes.CDLL(str(so))
+    K._declare(lib, ("sub", "fp2_mul"))
+    return lib
+
+
+def field_launch(torch, K, name, fn, field, ops):
+    """A closure that launches `fn` (bls_sub or bls_fp2_mul of some build)
+    on `ops` into preallocated outputs -> (launch, outputs)."""
+    n = ops[0].shape[0]
+    outs = [torch.empty_like(ops[0]) for _ in range(1 if name == "sub" else 2)]
+    ptrs = [t.data_ptr() for t in (*ops, *outs)]
+    mid = (field.nlimb, K._p_words(field)) if name == "sub" else (K._p_words(field), field.n0_word)
+
+    def launch(_keep=(ops, outs)):  # holds outs: a captured graph writes them
+        K._check_rc(name, fn(*ptrs, n, *mid, K._stream(ops[0])))
+    return launch, outs
+
+
+def floor_launch(torch, K, blocks, threads):
+    """A closure that launches the empty kernel on `blocks` x `threads`."""
+    lib = K.library()
+
+    def launch():
+        K._check_rc("launch_floor", lib.bls_launch_floor(
+            blocks, threads, torch.cuda.current_stream().cuda_stream))
+    return launch
+
+
+def field_grid(K, name, n):
+    """(blocks, threads) of the library's launch of field kernel `name` at n
+    elements."""
+    if name in ("sub", "fp2_mul"):
+        cfg = library_field(K)
+        e = cfg[name]
+        return -(-n // e), e * (cfg["lanes"] if name == "fp2_mul" else 1)
+    return -(-n // 128), 128  # mul, add, fp2_sqr: one thread per element
+
+
+def staged_edge_inputs(torch, rng, name, n, field):
+    """Operands of sub or fp2_mul at n elements: field_inputs' seeded rows
+    with edge operands in the first elements.  sub: 0 - 1 (a borrow across
+    every word), a = b = m - 1, 0 - (m - 1), 1 - 0, a = b seeded; fp2_mul:
+    (x, x + 1) by the Montgomery one (1, 1) (v0 - v1 = -1: a borrow across
+    every word and lane), p - 1 in all four (sums 2p - 2), 0 by p - 1, the
+    Montgomery one by itself, (1, 0) by (0, 1)."""
+    from bls_verify_gadget_tpu_torch.ops.limbs import ints_to_limbs
+
+    m = field.modulus
+    one = field.mont_r % m
+    x = int.from_bytes(rng.bytes(48), "little") % (m - 1)
+    if name == "sub":
+        rows = [(0, 1), (m - 1, m - 1), (0, m - 1), (1, 0), (x, x)]
+    else:
+        rows = [(x, x + 1, one, one), (m - 1,) * 4, (0, 0, m - 1, m - 1), (one,) * 4,
+                (one, 0, 0, one)]
+    ops = field_inputs(torch, rng, name, n, field)
+    e = min(len(rows), n)
+    for i, t in enumerate(ops):
+        t[:e] = torch.from_numpy(ints_to_limbs([r[i] for r in rows[:e]], field.nlimb)).cuda()
+    return ops
+
+
+def staged_edge_checks(torch, K, rng, plain_call):
+    """sub (Fp and Fr) and fp2_mul bit-equal to their plain versions on
+    staged_edge_inputs at EDGE_COUNTS -> {kernel: [field names]}."""
+    from bls_verify_gadget_tpu_torch.ops import tower as T
+    from bls_verify_gadget_tpu_torch.ops.fp import FP, FR
+
+    checked = {"sub": [], "fp2_mul": []}
+    for name, fname, field in (("sub", "Fp", FP), ("sub", "Fr", FR), ("fp2_mul", "Fp", FP)):
+        plain = field.sub_plain if name == "sub" else T.fp2_mul_plain
+        for n in EDGE_COUNTS:
+            ops = staged_edge_inputs(torch, rng, name, n, field)
+            err = max_err(getattr(K, name)(field, *ops), plain_call(name, plain, ops))
+            if err != 0:
+                raise RuntimeError(f"kernel {name} ({fname}) disagrees with its plain version on "
+                                   f"edge operands at {n} elements: max |err| {err}")
+        checked[name].append(fname)
+        log(f"[kernel] {name} ({fname}, {field.nlimb} limbs): bit-equal to plain on edge operands "
+            f"and seeded rows at {list(EDGE_COUNTS)} elements")
+    return checked
+
+
+def field_cases(torch, rng):
+    """(label, kernel, field, operands) of the field phase, each on
+    staged_edge_inputs: fp2_mul at 8192, 4096 and 1; sub in Fp at 4096,
+    8192 and 1, in Fr at 4096 and 1."""
+    from bls_verify_gadget_tpu_torch.ops.fp import FP, FR
+
+    cases = [(f"{n}", "fp2_mul", FP) for n in (2 * BATCH, BATCH, 1)]
+    cases += [(f"Fp, {n}", "sub", FP) for n in (BATCH, 2 * BATCH, 1)]
+    cases += [(f"Fr, {n}", "sub", FR) for n in (BATCH, 1)]
+    return [(label, name, field,
+             staged_edge_inputs(torch, rng, name, int(label.split()[-1]), field))
+            for label, name, field in cases]
+
+
+def field_phase(torch, K, field_started, parent_started=None):
+    """The staged field kernels (module docstring, phase 9): on each case of
+    field_cases the wrapper bit-equal to the plain version; the sweep
+    builds (every E of FIELD_E, fp2_mul also on one thread) and the
+    parent's kernel bit-equal to the wrapper on the same CUDA tensors;
+    device ms per launch of the library's kernel and of each build
+    (CUDA-graph replay), of the empty kernel at the library's grid, and of
+    the parent's kernel and the library's interleaved (parent, change,
+    change, parent).  -> {kernel: {case: timings}} for the kernel rows."""
+    import numpy as np
+
+    from bls_verify_gadget_tpu_torch.ops import tower as T
+
+    rng = np.random.default_rng(SEED + 4)
+    cfg = library_field(K)
+    libs = {}
+    for (lanes, e), started in sorted(field_started.items(), reverse=True):
+        libs[(lanes, e)] = field_library(K, started)
+        field_build_report(started[2], f"sweep build, E = {e}, fp2_mul on {lanes} lane(s)")
+    parent = field_library(K, parent_started) if parent_started else None
+    if parent is not None:
+        field_build_report(parent_started[2], "parent")
+    out = {"sub": {}, "fp2_mul": {}}
+    for label, name, field, ops in field_cases(torch, rng):
+        plain = field.sub_plain if name == "sub" else T.fp2_mul_plain
+        got = getattr(K, name)(field, *ops)
+        err = max_err(got, plain(*ops))
+        got = flat_outputs(got)
+        if err != 0:
+            raise RuntimeError(f"{name} ({label}) disagrees with its plain version: max |err| {err}")
+        lib_label = f"E = {cfg[name]}" + (f", {cfg['lanes']} lanes" if name == "fp2_mul" else "")
+        builds = {"library": K.library()}
+        for (lanes, e), lib in libs.items():
+            if name == "fp2_mul":
+                builds[f"E = {e}, {lanes} lane{'s' * (lanes > 1)}"] = lib
+            elif lanes == cfg["lanes"]:  # sub is the same in every lanes build
+                builds[f"E = {e}"] = lib
+        if parent is not None:
+            builds["parent"] = parent
+        launches = {}
+        for v, lib in builds.items():
+            launch, res = field_launch(torch, K, name, getattr(lib, f"bls_{name}"), field, ops)
+            launch()
+            torch.cuda.synchronize()
+            if not all(torch.equal(r, g) for r, g in zip(res, got)):
+                raise RuntimeError(f"{name} ({label}), {v}: differs from the wrapper's output")
+            launches[v] = launch
+        n = ops[0].shape[0]
+        row = {"elements": n, "max_abs_err": err, "library_config": lib_label,
+               **{v: device_ms(torch, launch, ()) for v, launch in launches.items()
+                  if v != "parent"}}
+        blocks, threads = field_grid(K, name, n)
+        row["floor_ms"] = device_ms(torch, floor_launch(torch, K, blocks, threads), ())
+        extra = ""
+        if parent is not None:
+            times = {"parent": [], "change": []}
+            for who in ("parent", "change", "change", "parent"):
+                times[who].append(device_ms(torch, launches["library" if who == "change"
+                                                             else "parent"], ()))
+            row["interleaved"] = times
+            row["parent_ms"] = sum(times["parent"]) / 2
+            row["change_ms"] = sum(times["change"]) / 2
+            extra = (f"; interleaved parent / change / change / parent: "
+                     f"{times['parent'][0]:.5f} / {times['change'][0]:.5f} / "
+                     f"{times['change'][1]:.5f} / {times['parent'][1]:.5f} ms "
+                     f"({row['parent_ms'] / row['change_ms']:.2f}x)")
+        out[name][label] = row
+        log(f"[field] {name} ({label}): bit-equal to plain; {', '.join(launches)} bit-equal to it "
+            f"(library: {lib_label}); device ms per launch: "
+            + ", ".join(f"{v} {row[v]:.5f}" for v in launches if v != "parent")
+            + f"; empty kernel on the library's grid ({blocks} x {threads}) "
+            f"{row['floor_ms']:.5f}" + extra)
+    return out
+
+
 def main():
     import argparse
 
     import torch
 
     ap = argparse.ArgumentParser(description="On-card smoke run of the PyTorch/CUDA port.")
-    ap.add_argument("--group", action="store_true",
-                    help="run only the device, build and group phases (the group kernels)")
+    only = ap.add_mutually_exclusive_group()
+    only.add_argument("--group", action="store_true",
+                      help="run only the device, build and group phases (the group kernels)")
+    only.add_argument("--field", action="store_true",
+                      help="run only the device, build and field phases (sub and fp2_mul)")
     ap.add_argument("--parent", metavar="DIR",
                     help="a git archive of the parent commit in a git-ignored directory of "
                          "this checkout: time its miller_dbl_run, miller_add, exp_x, "
                          "fp12_mul, pt_mul_const, g2_cofactor, sswu_map2 and pow_win "
-                         "kernels interleaved with this tree's in the group phase")
+                         "kernels interleaved with this tree's in the group phase, and its "
+                         "sub and fp2_mul in the field phase")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2012,25 +2287,33 @@ def main():
     from bls_verify_gadget_tpu_torch.ops import kernels as K
 
     smi, kind = device_phase(torch)
-    sweep = sweep_build_start(K)
-    parent = parent_build_start(K, args.parent) if args.parent else None
+    groups, fields = not args.field, not args.group  # the phases that run
+    sweep = sweep_build_start(K) if groups else {}
+    field_sweep = field_build_start(K) if fields else {}
+    parent = parent_build_start(K, args.parent, groups, fields) if args.parent else {}
+    parent_group = {u: b for u, b in parent.items() if u != "field"}
     try:
         build_phase(K)
         if args.group:
-            group_phase(torch, K, sweep, parent)
+            group_phase(torch, K, sweep, parent_group)
+        elif args.field:
+            field_phase(torch, K, field_sweep, parent.get("field"))
         else:
             launches, sizes, verify_s, parts, want, ctx = main_path_phase(torch, K)
             profile_phase(torch, parts, ctx["msg"], want, verify_s)
             keys = keys_phase(torch, K)
             steps = steps_phase(torch, K, ctx, want, launches, keys)
             rows = kernel_phase(torch, K, launches, sizes, verify_s, ctx, keys, steps)
-            group = group_phase(torch, K, sweep, parent)
+            group = group_phase(torch, K, sweep, parent_group)
+            staged = field_phase(torch, K, field_sweep, parent.get("field"))
             for row in rows:
                 if row["name"] in group:
                     row["group"] = group[row["name"]]
+                if row["name"] in staged:
+                    row["field"] = staged[row["name"]]
             print(json.dumps({"kernels": rows}))
-    finally:  # a phase that failed leaves no nvcc of the sweep or the parent running
-        for proc, _, _ in [*sweep.values(), *(parent or {}).values()]:
+    finally:  # a phase that failed leaves no nvcc of the sweeps or the parent running
+        for proc, _, _ in [*sweep.values(), *field_sweep.values(), *parent.values()]:
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
