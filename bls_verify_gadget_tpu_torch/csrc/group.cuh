@@ -1,8 +1,9 @@
 // The cooperative layer of the group kernels (pairing_kernels.cu's
-// miller_dbl_run, miller_add, exp_x and fp12_mul, hash_kernels.cu's
-// pt_mul_const, g2_cofactor and sswu_map2): one batch element on a group
-// of G threads (G a divisor of 32, so a group lies in one warp), its state
-// in shared memory, its bodies run as the rounds of group_rounds.cuh.
+// miller_dbl_run, miller_add, exp_x, fp12_mul, fp6_mul and fp12_sqr,
+// hash_kernels.cu's pt_mul_const, g2_cofactor and sswu_map2): one batch
+// element on a group of G threads (G a divisor of 32, so a group lies in
+// one warp), its state in shared memory, its bodies run as the rounds of
+// group_rounds.cuh.
 //
 // State.  The element's Fp values are numbered slots of 12 32-bit words
 // (48 bytes, 16-byte aligned) in the block's dynamic shared memory; a

@@ -24,25 +24,26 @@
 // element at 3.35 TB/s and 16.75 T int32 multiply-adds/s).  Fusing buys
 // launches: the Miller loop is 11 launches and an x-chain one.
 //
-// miller_dbl_run, miller_add, exp_x and fp12_mul (the TPU's
-// _millerdbl_kernel, _milleradd_kernel, _expx_kernel and _fp12mul_kernel)
-// run on group.cuh: a group of G threads per batch element, the element's
-// state in shared memory, each body as rounds of independent Montgomery
-// products dealt out over the group (group_rounds.cuh).  The design they
-// replace ran one thread per element through tower.cuh: every product
-// after the one before it (1,404 in a row per exp_x element, ~2.5 us
-// each), behind __noinline__ calls with the state in an L1-backed stack,
-// and at 4096 elements one warp on each SM, so nothing hid a product's
-// latency.  The group cuts the serial chain per element to the rounds'
-// depth (a Miller iteration: 176 products in 4 rounds; a Granger-Scott
-// square: 18 in one), runs each product inlined in registers, and puts G
-// times the warps on each SM.  G and the block are compile-time constants
-// chosen on the card (kGroup, kGroupFp12Mul; PERF.md has the sweep).  What
-// bounds the group kernels now is not one thread's latency: two products
-// at once per thread ran slower.  By instruction count most of a body is
-// mont_mul's CIOS.
-// The other six kernels of this unit keep tower.cuh and one thread per
-// element: their redesign is later work.
+// miller_dbl_run, miller_add, exp_x, fp12_mul, fp6_mul and fp12_sqr (the TPU's
+// _millerdbl_kernel, _milleradd_kernel, _expx_kernel, _fp12mul_kernel,
+// _fp6mul_kernel and _fp12sqr_kernel) run on group.cuh: a group of G threads
+// per batch element, the element's state in shared memory, each body as rounds
+// of independent Montgomery products dealt out over the group
+// (group_rounds.cuh).  The design they replace ran one thread per element
+// through tower.cuh: every product after the one before it (1,404 in a row per
+// exp_x element, ~2.5 us each), behind __noinline__ calls with the state in an
+// L1-backed stack, and at 4096 elements one warp on each SM, so nothing hid a
+// product's latency.  The group cuts the serial chain per element to the
+// rounds' depth (a Miller iteration: 176 products in 4 rounds; a Granger-Scott
+// square: 18 in one), runs each product inlined in registers, and puts G times
+// the warps on each SM.  G and the block are compile-time constants chosen on
+// the card (kGroup, kGroupFp12Mul, kGroupFp6Mul, kGroupFp12Sqr; PERF.md has the
+// sweep).  What bounds the group kernels now is not one thread's latency: two
+// products at once per thread ran slower.  By instruction count most of a body
+// is mont_mul's CIOS.
+// The four step kernels of this unit (mul014, dbl_step, add_step,
+// cyclo_sqr) keep tower.cuh and one thread per element: their redesign is
+// later work.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -58,14 +59,19 @@ namespace {
 constexpr int kThreads = 32;
 
 // The group kernels' threads per batch element (a divisor of 32), from the
-// sweep at 4096 elements (PERF.md): the Miller kernels and exp_x, and
-// fp12_mul, whose one phase of 54 products takes 4 rounds at 16 threads.
-// chip_smoke.py builds the sweep's other values as throwaway copies of this
-// unit with -DBLS_GROUP=G, which sets both.
+// sweep at the main path's counts (PERF.md): the Miller kernels and exp_x;
+// fp12_mul, whose one phase of 54 products takes 4 rounds at 16 threads;
+// fp6_mul, 18 products in 5 rounds at 4 threads (a little ahead of 8 at
+// verify's 8192 elements; 8 and 16 are faster at a few elements); and
+// fp12_sqr, 36 products in 3 rounds at 16.  chip_smoke.py builds the
+// sweep's other values as throwaway copies of this unit with
+// -DBLS_GROUP=G, which sets all four.
 #ifdef BLS_GROUP
-constexpr int kGroup = BLS_GROUP, kGroupFp12Mul = BLS_GROUP;
+constexpr int kGroup = BLS_GROUP, kGroupFp12Mul = BLS_GROUP,
+              kGroupFp6Mul = BLS_GROUP, kGroupFp12Sqr = BLS_GROUP;
 #else
-constexpr int kGroup = 8, kGroupFp12Mul = 16;
+constexpr int kGroup = 8, kGroupFp12Mul = 16, kGroupFp6Mul = 4,
+              kGroupFp12Sqr = 16;
 #endif
 
 inline unsigned grid_for(long long n) {
@@ -132,33 +138,19 @@ __device__ __forceinline__ void store_line(int32_t* buf, int j, long long n,
   store_fp2(buf, j + 4, n, i, l.c4);
 }
 
-// Replaces _fp6mul_kernel (bls_verify_gadget_tpu/ops/pallas/kernels.py:291):
-// in (12, n) = a then b, out (6, n).  18 Montgomery products (6 Fp2
-// Karatsuba products), 18 Fp in or out per element: ~0.65 ns of operations
-// against ~0.5 ns of bytes.
-__global__ void __launch_bounds__(kThreads)
-    fp6_mul_kernel(const int32_t* __restrict__ in, int32_t* __restrict__ out,
-                   long long n, FpModulus M) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  store_fp6(out, 0, n, i,
-            bls::f6_mul(load_fp6(in, 0, n, i), load_fp6(in, 6, n, i), M));
-}
-
-// Replaces _fp12mul_kernel (kernels.py:584):
-// in (24, n) = a then b, out (12, n).  54 Montgomery products, 36 Fp in or
-// out per element: ~1.9 ns of operations against ~1.0 ns of bytes.
-// On a group of G threads (group.cuh) with Fp12MulProgram (group_rounds.py
-// fp12_mul_program): a and b into slots 0-23, then the body mul -- the
-// Karatsuba sums (12 forms), the 54 products of f12_mul in one phase, the
-// product's 12 forms -- and out.  The one-thread kernel it replaces ran the
-// 54 products one after another per element (~139 us at 4096 elements);
-// here they are one phase dealt over the group: 54 / G rounds.
-template <int G>
-__global__ void __launch_bounds__(bls::group::kThreads)
-    fp12_mul_kernel(const int32_t* __restrict__ in, int32_t* __restrict__ out,
-                    long long n, FpModulus M) {
-  using Prog = bls::group::Fp12MulProgram;
+// The tower products on a group of G threads per element (group.cuh): the
+// input's `nin` coordinates into slots 0 and up, the body [p0, p1) of
+// program Prog, and `nout` coordinates out from Prog's slots `out`.  A
+// one-thread body runs a tower product's Montgomery products one after
+// another per element, behind an L1-backed stack, with a warp or two on
+// each SM; here the products are one phase dealt over the group, so the
+// serial chain per element is that phase's rounds.
+template <class Prog, int G>
+__device__ __forceinline__ void tower_group(const int32_t* __restrict__ in,
+                                            int32_t* __restrict__ out,
+                                            long long n, int nin, int nout,
+                                            int p0, int p1,
+                                            const FpModulus& M) {
   extern __shared__ uint4 smem[];
   const int g = threadIdx.x / G, lane = threadIdx.x % G;
   const long long i =
@@ -167,22 +159,60 @@ __global__ void __launch_bounds__(bls::group::kThreads)
   uint32_t* S = reinterpret_cast<uint32_t*>(smem) +
                 (long long)g * Prog::kSlots * bls::kFpWords;
   const unsigned mask = bls::group::lane_mask<G>();
-  bls::group::load_coords<G>(in, n, i, 24, [](int c) { return c; }, S, lane);
+  bls::group::load_coords<G>(in, n, i, nin, [](int c) { return c; }, S, lane);
   __syncwarp(mask);
-  bls::group::run<G>(Prog::kBody_mul, Prog::kEnd_mul, S, lane, mask, M);
+  bls::group::run<G>(p0, p1, S, lane, mask, M);
   bls::group::store_coords<G>(
-      out, n, i, 12, [](int c) { return Prog::kSlot_out + c; }, S, lane);
+      out, n, i, nout, [](int c) { return Prog::kSlot_out + c; }, S, lane);
 }
 
-// Replaces _fp12sqr_kernel (kernels.py:596): in (12, n), out (12, n).  36
-// Montgomery products, 24 Fp per element: ~1.3 ns of operations against
-// ~0.7 ns of bytes.
-__global__ void __launch_bounds__(kThreads)
+// Replaces _fp6mul_kernel (bls_verify_gadget_tpu/ops/pallas/kernels.py:291):
+// in (12, n) = a then b, out (6, n).  18 Montgomery products (6 Fp2
+// Karatsuba products) of ~600 multiply-adds, 18 Fp in or out per element:
+// ~0.65 ns of operations at 16.75 T/s against ~0.5 ns of bytes.
+// With Fp6MulProgram (group_rounds.py fp6_mul_program): a and b into slots
+// 0-11, then the body mul -- the 18 products of f6_mul in one phase, the
+// Karatsuba and Toom sums evaluated in their operands, then the Toom
+// combination's 6 forms into out: 18 / G rounds.
+template <int G>
+__global__ void __launch_bounds__(bls::group::kThreads)
+    fp6_mul_kernel(const int32_t* __restrict__ in, int32_t* __restrict__ out,
+                   long long n, FpModulus M) {
+  using Prog = bls::group::Fp6MulProgram;
+  tower_group<Prog, G>(in, out, n, 12, 6, Prog::kBody_mul, Prog::kEnd_mul, M);
+}
+
+// Replaces _fp12mul_kernel (kernels.py:584):
+// in (24, n) = a then b, out (12, n).  54 Montgomery products, 36 Fp in or
+// out per element: ~1.9 ns of operations against ~1.0 ns of bytes.
+// With Fp12MulProgram (group_rounds.py fp12_mul_program): a and b into
+// slots 0-23, then the body mul -- the Karatsuba sums (12 forms), the 54
+// products of f12_mul in one phase, the product's 12 forms -- and out.
+// The one-thread kernel it replaces ran the 54 products one after another
+// per element (~139 us at 4096 elements); here they take 54 / G rounds.
+template <int G>
+__global__ void __launch_bounds__(bls::group::kThreads)
+    fp12_mul_kernel(const int32_t* __restrict__ in, int32_t* __restrict__ out,
+                    long long n, FpModulus M) {
+  using Prog = bls::group::Fp12MulProgram;
+  tower_group<Prog, G>(in, out, n, 24, 12, Prog::kBody_mul, Prog::kEnd_mul,
+                       M);
+}
+
+// Replaces _fp12sqr_kernel (kernels.py:596): in (12, n), out (12, n).  The
+// generic square, 2 Fp6 products: 36 Montgomery products, 24 Fp per
+// element: ~1.3 ns of operations against ~0.7 ns of bytes.
+// With Fp12SqrProgram (group_rounds.py fp12_sqr_program): a into slots
+// 0-11, then the body sqr -- s = a.c0 + a.c1 and t_in = a.c0 + v a.c1 (12
+// forms), the 36 products a.c0 a.c1 and s t_in in one phase, the square's
+// 12 forms -- and out: 36 / G rounds.
+template <int G>
+__global__ void __launch_bounds__(bls::group::kThreads)
     fp12_sqr_kernel(const int32_t* __restrict__ in, int32_t* __restrict__ out,
                     long long n, FpModulus M) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  store_fp12(out, 0, n, i, bls::f12_sqr(load_fp12(in, 0, n, i), M));
+  using Prog = bls::group::Fp12SqrProgram;
+  tower_group<Prog, G>(in, out, n, 12, 12, Prog::kBody_sqr, Prog::kEnd_sqr,
+                       M);
 }
 
 // The Miller kernels are templates over the pair count K, instantiated for
@@ -437,10 +467,9 @@ extern "C" {
 
 int bls_fp6_mul(const int32_t* in, int32_t* out, long long n,
                 const uint32_t* p, unsigned n0, void* stream) {
-  bls_kernels::fp6_mul_kernel<<<grid_for(n), kThreads, 0,
-                                (cudaStream_t)stream>>>(
-      in, out, n, bls::make_modulus<bls::kFpWords>(p, n0));
-  return (int)cudaGetLastError();
+  return bls::group::launch<bls::group::Fp6MulProgram, kGroupFp6Mul>(
+      bls_kernels::fp6_mul_kernel<kGroupFp6Mul>, n, (cudaStream_t)stream, in,
+      out, n, bls::make_modulus<bls::kFpWords>(p, n0));
 }
 
 int bls_fp12_mul(const int32_t* in, int32_t* out, long long n,
@@ -452,10 +481,9 @@ int bls_fp12_mul(const int32_t* in, int32_t* out, long long n,
 
 int bls_fp12_sqr(const int32_t* in, int32_t* out, long long n,
                  const uint32_t* p, unsigned n0, void* stream) {
-  bls_kernels::fp12_sqr_kernel<<<grid_for(n), kThreads, 0,
-                                 (cudaStream_t)stream>>>(
+  return bls::group::launch<bls::group::Fp12SqrProgram, kGroupFp12Sqr>(
+      bls_kernels::fp12_sqr_kernel<kGroupFp12Sqr>, n, (cudaStream_t)stream,
       in, out, n, bls::make_modulus<bls::kFpWords>(p, n0));
-  return (int)cudaGetLastError();
 }
 
 int bls_miller_dbl_run(const int32_t* in, const int32_t* valid, int32_t* out,

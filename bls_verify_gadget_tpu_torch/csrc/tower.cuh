@@ -13,7 +13,7 @@
 // Karatsuba sums of two canonical values (fp_lazy_add), which stay below 2p.
 //
 // Code size: the products are __noinline__ (fp_mul, the Fp2 product and
-// square, the Fp6/Fp12 products, the Miller steps, the Granger-Scott
+// square, the sparse Fp12 line product, the Miller steps, the Granger-Scott
 // square).  A doubling iteration has 176 Montgomery products; inlined they
 // would take nvcc minutes and overflow the instruction cache.  Additions
 // and subtractions (two 12-word carry chains each) are inlined.  The
@@ -226,22 +226,6 @@ __device__ __forceinline__ Fp6 f6_mul_v(const Fp6& a, const FpModulus& M) {
   return {f2_xi(a.c2, M), a.c0, a.c1};
 }
 
-// Toom/Karatsuba product with 6 Fp2 products (_f6_mul).
-static __device__ __noinline__ Fp6 f6_mul(const Fp6& a, const Fp6& b,
-                                   const FpModulus& M) {
-  const Fp2 v0 = f2_mul(a.c0, b.c0, M);
-  const Fp2 v1 = f2_mul(a.c1, b.c1, M);
-  const Fp2 v2 = f2_mul(a.c2, b.c2, M);
-  const Fp2 t12 = f2_mul(f2_add(a.c1, a.c2, M), f2_add(b.c1, b.c2, M), M);
-  const Fp2 t01 = f2_mul(f2_add(a.c0, a.c1, M), f2_add(b.c0, b.c1, M), M);
-  const Fp2 t02 = f2_mul(f2_add(a.c0, a.c2, M), f2_add(b.c0, b.c2, M), M);
-  return {
-      f2_add(v0, f2_xi(f2_sub(t12, f2_add(v1, v2, M), M), M), M),
-      f2_add(f2_sub(t01, f2_add(v0, v1, M), M), f2_xi(v2, M), M),
-      f2_add(f2_sub(t02, f2_add(v0, v2, M), M), v1, M),
-  };
-}
-
 // (a0, a1, a2)(d0 + d1 v) (_f6_mul_by_01)
 __device__ __forceinline__ Fp6 f6_mul_by_01(const Fp6& a, const Fp2& d0,
                                             const Fp2& d1,
@@ -264,25 +248,6 @@ __device__ __forceinline__ Fp6 f6_mul_by_1(const Fp6& a, const Fp2& d1,
 
 // ---------------------------------------------------------------- Fp12
 // Fp12 = Fp6[w]/(w^2 - v) (kernels.py:492-544).
-
-// Karatsuba over Fp6: 3 Fp6 products, 54 Montgomery products (_f12_mul).
-static __device__ __noinline__ Fp12 f12_mul(const Fp12& a, const Fp12& b,
-                                     const FpModulus& M) {
-  const Fp6 v0 = f6_mul(a.c0, b.c0, M);
-  const Fp6 v1 = f6_mul(a.c1, b.c1, M);
-  const Fp6 v2 = f6_mul(f6_add(a.c0, a.c1, M), f6_add(b.c0, b.c1, M), M);
-  return {f6_add(v0, f6_mul_v(v1, M), M),
-          f6_sub(v2, f6_add(v0, v1, M), M)};
-}
-
-// Generic square: 2 Fp6 products, 36 Montgomery products (_f12_sqr).
-static __device__ __noinline__ Fp12 f12_sqr(const Fp12& a, const FpModulus& M) {
-  const Fp6 s = f6_add(a.c0, a.c1, M);
-  const Fp6 t_in = f6_add(a.c0, f6_mul_v(a.c1, M), M);
-  const Fp6 v0 = f6_mul(a.c0, a.c1, M);
-  const Fp6 t = f6_mul(s, t_in, M);
-  return {f6_sub(f6_sub(t, v0, M), f6_mul_v(v0, M), M), f6_add(v0, v0, M)};
-}
 
 // f * (c0 + c1 v + c4 v w): 15 Fp2 products (_f12_mul_014).
 static __device__ __noinline__ Fp12 f12_mul_014(const Fp12& f, const Line& l,

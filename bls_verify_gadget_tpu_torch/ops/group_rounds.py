@@ -30,8 +30,8 @@ with a b < p R (its accumulator then ends below 2p); p R > 9.8 p^2, so the
 generator keeps the two operands' bounds (V <= W p, or V < 3p when
 REDUCED) at a product of at most 9 p^2.
 
-The forms come from tracing csrc/tower.cuh's formulas with symbolic values
-(Lin below): every value is the same polynomial in the inputs as there, and
+The forms come from tracing csrc/tower.cuh's formulas (the Fp6 and Fp12
+products: ops/tower.py's) with symbolic values (Lin below): every value is the same polynomial in the inputs as there, and
 every slot holds a canonical residue, so the kernels' limbs equal the plain
 versions' whatever the grouping of products and sums.  The Miller line and
 T are tower.cuh's miller_dbl_step formula and the Granger-Scott square is
@@ -262,8 +262,9 @@ class Program:
 
 
 # ----------------------------------------------------------------- the tower
-# tower.cuh's formulas on symbolic values: Fp a Lin, Fp2 a pair, Fp6 a
-# triple of Fp2, Fp12 a pair of Fp6.
+# tower.cuh's formulas, and ops/tower.py's Fp6 and Fp12 products, on
+# symbolic values: Fp a Lin, Fp2 a pair, Fp6 a triple of Fp2, Fp12 a pair of
+# Fp6.
 
 def f2_add(a, b):
     return (a[0] + b[0], a[1] + b[1])
@@ -339,16 +340,16 @@ def f6_mul_by_1(P, a, d1):
 
 
 def f12_mul(P, a, b, a_sum, b_sum):
-    """tower.cuh f12_mul, with the Karatsuba sums a.c0 + a.c1 and b.c0 + b.c1
-    given (materialized in slots)."""
+    """ops/tower.py fp12_mul_plain's Karatsuba over Fp6, with the sums
+    a.c0 + a.c1 and b.c0 + b.c1 given (materialized in slots)."""
     v0, v1 = f6_mul(P, a[0], b[0]), f6_mul(P, a[1], b[1])
     v2 = f6_mul(P, a_sum, b_sum)
     return (f6_add(v0, f6_mul_v(v1)), f6_sub(v2, f6_add(v0, v1)))
 
 
 def f12_sqr_products(P, a, s, t_in):
-    """tower.cuh f12_sqr's two Fp6 products, with s = a.c0 + a.c1 and
-    t_in = a.c0 + v a.c1 given: (v0, t)."""
+    """ops/tower.py fp12_sqr_plain's two Fp6 products, with s = a.c0 + a.c1
+    and t_in = a.c0 + v a.c1 given: (v0, t)."""
     return f6_mul(P, a[0], a[1]), f6_mul(P, s, t_in)
 
 
@@ -465,6 +466,44 @@ def fp12_mul_program():
     store_all(P, out, res)
     P.inputs, P.outputs = ["a", "b"], ["out"]
     P.flow = "mul"
+    return P.allocate()
+
+
+def fp6_mul_program():
+    """fp6_mul: a and b from the input (slots 0-11); body mul: [the 18
+    products of f6_mul, the Karatsuba and Toom sums carried in the
+    operands' forms]; [the Toom combination into out: 6 forms]."""
+    P = Program("fp6_mul")
+    a, b = P.named("a", 6), P.named("b", 6)
+    out = P.named("out", 6)
+    P.body("mul")
+    P.phase()
+    res = f6_mul(P, fp6(a), fp6(b))
+    P.phase()
+    store_all(P, out, res)
+    P.inputs, P.outputs = ["a", "b"], ["out"]
+    P.flow = "mul"
+    return P.allocate()
+
+
+def fp12_sqr_program():
+    """fp12_sqr: a from the input (slots 0-11); body sqr: [s = a.c0 + a.c1
+    and t_in = a.c0 + v a.c1: 12 forms, as the Miller programs' pre]; [the
+    36 products of f12_sqr_products]; [the square into out]."""
+    P = Program("fp12_sqr")
+    a = P.named("a", 12)
+    pre = P.named("pre", 12)
+    out = P.named("out", 12)
+    A = fp12(a)
+    P.body("sqr")
+    P.phase()
+    store_all(P, pre, (f6_add(A[0], A[1]), f6_add(A[0], f6_mul_v(A[1]))))
+    P.phase()
+    v0, t = f12_sqr_products(P, A, fp6(pre[:6]), fp6(pre[6:]))
+    P.phase()
+    store_all(P, out, f12_sqr_out(v0, t))
+    P.inputs, P.outputs = ["a"], ["out"]
+    P.flow = "sqr"
     return P.allocate()
 
 
@@ -1257,7 +1296,7 @@ def programs():
     return ([exp_x_program()] + [miller_program(k) for k in MILLER_PAIRS]
             + [ladder_program(FP_COORD), ladder_program(FP2_COORD), cofactor_program()]
             + [miller_add_program(k) for k in MILLER_PAIRS] + [sswu_program()]
-            + [fp12_mul_program()])
+            + [fp12_mul_program(), fp6_mul_program(), fp12_sqr_program()])
 
 
 def elements_per_block(P, g):

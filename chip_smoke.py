@@ -87,7 +87,8 @@ Needs one CUDA card and nvcc.  Phases, each fatal on failure:
      kernel's grid;
   8. group    -- the group kernels (csrc/group.cuh): miller_dbl_run (k =
      1 and 2) and exp_x at 4096 and 4095 elements with mixed valid masks,
-     fp12_mul at 4096, 4095 and 1,
+     fp12_mul at 4096, 4095 and 1, fp6_mul at 8192, 8191, 2 and 1 and
+     fp12_sqr at 4096, 4095 and 1 (edge values in elements 0-4),
      pt_mul_const (G1 and G2 by |x|) and g2_cofactor at 4096, 4095 and 1
      with the ladders' edge points in the first elements (the infinity,
      G1 points of order 3 and 11, which meet the complete addition's
@@ -97,13 +98,15 @@ Needs one CUDA card and nvcc.  Phases, each fatal on failure:
      0 meets the sum's doubling case), and the lane-split pow_win
      (csrc/lanes.cuh) in Fp (e = p - 2) at 4096, 4095 and 1 with edge
      values and in Fp2 (e = (p - 11)/16) at 4096: bit-equal to the plain
-     versions; the sweep's other group sizes (throwaway copies of
-     csrc/pairing_kernels.cu built with -DBLS_GROUP=G for G = 4 and 16
-     beside the library's 8, of csrc/hash_kernels.cu built with
-     -DBLS_HASH_GROUP=G for G = 2, 4 and 8 and with -DBLS_POW_LANES=L for
-     pow_win's L = 2 and 4, into build/, in parallel with the library)
+     versions; the sweep's group sizes (throwaway copies of
+     csrc/pairing_kernels.cu built with -DBLS_GROUP=G for G = 4, 8 and
+     16, which sets every group instance of the unit, of
+     csrc/hash_kernels.cu built with -DBLS_HASH_GROUP=G for G = 2, 4 and
+     8 and with -DBLS_POW_LANES=L for pow_win's L = 2 and 4, into build/,
+     in parallel with the library)
      bit-equal to the wrapper, and device ms per launch of each G or L at
-     4096 (and at 1 for the ladders, sswu_map2, fp12_mul and pow_win); with
+     4096 (fp6_mul 8192; and at 1 for the ladders, sswu_map2, the three
+     tower products and pow_win); with
      --parent DIR, the parent commit's kernels (its pairing_kernels.cu and
      hash_kernels.cu, built from DIR in parallel too) bit-equal as well and
      timed interleaved with this tree's (parent, group, group, parent).
@@ -1642,8 +1645,9 @@ GROUP_DEFINE = {"pairing": "BLS_GROUP", "hash": "BLS_HASH_GROUP", "pow": "BLS_PO
 GROUP_VAR = {"pairing": "G", "hash": "G", "pow": "L"}  # the swept value's name
 # group kernel -> its sweep; a group instance: the kernel, or the ladder's field
 GROUP_KERNELS = {"miller_dbl_run": "pairing", "miller_add": "pairing", "exp_x": "pairing",
-                 "fp12_mul": "pairing", "pt_mul_const": "hash", "g2_cofactor": "hash",
-                 "sswu_map2": "hash", "pow_win": "pow"}
+                 "fp12_mul": "pairing", "fp6_mul": "pairing", "fp12_sqr": "pairing",
+                 "pt_mul_const": "hash", "g2_cofactor": "hash", "sswu_map2": "hash",
+                 "pow_win": "pow"}
 # ptxas's mangled name of each group kernel instance -> (label, program of
 # ops/group_rounds.py, G)
 GROUP_LOG = (
@@ -1659,8 +1663,8 @@ GROUP_LOG = (
      lambda m: (f"g2_cofactor<G={m[1]}>", "g2_cofactor", int(m[1]))),
     (re.compile(r"sswu_map2_kernelILi(\d+)E"),
      lambda m: (f"sswu_map2<G={m[1]}>", "sswu_map2", int(m[1]))),
-    (re.compile(r"fp12_mul_kernelILi(\d+)E"),
-     lambda m: (f"fp12_mul<G={m[1]}>", "fp12_mul", int(m[1]))),
+    (re.compile(r"(fp12_mul|fp6_mul|fp12_sqr)_kernelILi(\d+)E"),
+     lambda m: (f"{m[1]}<G={m[2]}>", m[1], int(m[2]))),
     (re.compile(r"pow_win_kernelILi(\d+)ELi(\d+)E"),
      lambda m: (f"pow_win<C={m[1]}, L={m[2]}>", None, int(m[2]))),
 )
@@ -1668,20 +1672,20 @@ GROUP_LOG = (
 
 def library_groups(K):
     """The library's threads per element of each group instance:
-    pairing_kernels.cu's kGroup and kGroupFp12Mul, hash_kernels.cu's
-    kGroupG1, kGroupG2, kGroupCofactor, kGroupSswu and BLS_POW_LANES
-    (pow_win's L)."""
-    pairing, fp12 = map(int, re.search(
-        r"#else\nconstexpr int kGroup = (\d+), kGroupFp12Mul = (\d+);",
-        (K.CSRC_DIR / GROUP_UNITS["pairing"]).read_text()).groups())
+    pairing_kernels.cu's kGroup, kGroupFp12Mul, kGroupFp6Mul and
+    kGroupFp12Sqr, hash_kernels.cu's kGroupG1, kGroupG2, kGroupCofactor,
+    kGroupSswu and BLS_POW_LANES (pow_win's L)."""
+    pairing, fp12, fp6, sqr = map(int, re.search(
+        r"#else\nconstexpr int kGroup = (\d+), kGroupFp12Mul = (\d+), kGroupFp6Mul = (\d+),"
+        r"\s+kGroupFp12Sqr = (\d+);", (K.CSRC_DIR / GROUP_UNITS["pairing"]).read_text()).groups())
     hash_src = (K.CSRC_DIR / GROUP_UNITS["hash"]).read_text()
     g1, g2, cofactor, sswu = map(int, re.search(
         r"#else\nconstexpr int kGroupG1 = (\d+), kGroupG2 = (\d+), kGroupCofactor = (\d+), "
         r"kGroupSswu = (\d+);", hash_src).groups())
     lanes = int(re.search(r"#define BLS_POW_LANES (\d+)", hash_src)[1])
     return {"miller_dbl_run": pairing, "miller_add": pairing, "exp_x": pairing,
-            "fp12_mul": fp12, "pt_mul_const G1": g1, "pt_mul_const G2": g2,
-            "g2_cofactor": cofactor, "sswu_map2": sswu, "pow_win Fp": lanes,
+            "fp12_mul": fp12, "fp6_mul": fp6, "fp12_sqr": sqr, "pt_mul_const G1": g1,
+            "pt_mul_const G2": g2, "g2_cofactor": cofactor, "sswu_map2": sswu, "pow_win Fp": lanes,
             "pow_win Fp2": lanes}
 
 
@@ -1794,9 +1798,9 @@ def entry_launch(torch, K, name, fn, args):
     from bls_verify_gadget_tpu_torch.ops.fp import FP
 
     p, n0 = K._p_words(FP), FP.n0_word
-    if name == "fp12_mul":
+    if name in ("fp12_mul", "fp6_mul", "fp12_sqr"):
         packed = torch.cat(args)
-        out = packed.new_empty((12, *packed.shape[1:]))
+        out = packed.new_empty((args[0].shape[0], *packed.shape[1:]))
 
         def launch():
             K._check_rc(name, fn(packed.data_ptr(), out.data_ptr(), packed.shape[1], p, n0,
@@ -1900,8 +1904,13 @@ def group_cases(torch, rng):
     outputs for seeded messages, with hash_cases' u = 0 elements (u0 = u1
     = 0: both maps' e1 branch and the sum's doubling case; u1 = 0) in
     elements 0 and 1 of 4096 and 4095; fp12_mul at 4096 (timed), 4095 and
-    1 (pairing_inputs); pow_win in Fp with e = p - 2 at 4096 (timed), 4095
-    and 1 (timed), with 0, 1, p - 1 and values whose low 6 and 11 words
+    1 (timed), fp6_mul at 8192 (timed), 8191, 2 and 1 (timed) and fp12_sqr
+    at 4096 (timed), 4095 and 1 (timed): pairing_inputs, so 0, 1, p - 1,
+    p - 2 and R mod p in elements 0-4 (rolled per coordinate), the counts
+    that the paths launch them with (fp6_mul 8192 verify and steps, 2 keys;
+    fp12_sqr 4096 verify and steps, 1 keys) and a count that is no multiple
+    of any G's elements per block; pow_win in Fp with e = p - 2 at 4096
+    (timed), 4095 and 1 (timed), with 0, 1, p - 1 and values whose low 6 and 11 words
     are all 0xFFFFFFFF in elements 0-4 of 4096 and 4095, and in Fp2 with e
     = (p - 11)/16 at 4096 (timed), the same values in its coordinates."""
     import numpy as np
@@ -1953,9 +1962,14 @@ def group_cases(torch, rng):
             un[2:, 1] = 0
             label += ", u0 = u1 = 0 in element 0, u1 = 0 in element 1"
         cases.append((label, "sswu_map2", "sswu_map2", (un,), n != BATCH - 1))
-    for n in (BATCH, BATCH - 1, 1):
-        cases.append((f"{n}", "fp12_mul", "fp12_mul", pairing_inputs(torch, rng, "fp12_mul", n),
-                      n != BATCH - 1))
+    for name, counts in (("fp12_mul", (BATCH, BATCH - 1, 1)),
+                         ("fp6_mul", (2 * BATCH, 2 * BATCH - 1, 2, 1)),
+                         ("fp12_sqr", (BATCH, BATCH - 1, 1))):
+        for n in counts:
+            label = f"{n}, edge values in " + (f"elements 0-{min(n, 5) - 1}" if n > 1
+                                               else "element 0")
+            cases.append((label, name, name, pairing_inputs(torch, rng, name, n),
+                          n in (counts[0], 1)))
     edges = torch.from_numpy(ints_to_limbs(
         [0, 1, FP.modulus - 1, (1 << 192) - 1, (1 << 352) - 1], 24)).cuda()
     for n in (BATCH, BATCH - 1, 1):
@@ -2272,7 +2286,8 @@ def main():
     ap.add_argument("--parent", metavar="DIR",
                     help="a git archive of the parent commit in a git-ignored directory of "
                          "this checkout: time its miller_dbl_run, miller_add, exp_x, "
-                         "fp12_mul, pt_mul_const, g2_cofactor, sswu_map2 and pow_win "
+                         "fp12_mul, fp6_mul, fp12_sqr, pt_mul_const, g2_cofactor, "
+                         "sswu_map2 and pow_win "
                          "kernels interleaved with this tree's in the group phase, and its "
                          "sub and fp2_mul in the field phase")
     args = ap.parse_args()

@@ -4,8 +4,8 @@ committed header is the generator's output, and each body run on Python
 ints as the kernels run it (run_body: phase by phase, every form and
 product with the kernels' bounds checked) gives the limbs of the plain
 versions of miller_dbl_run, miller_add and exp_x (ops/pairing.py) and
-fp12_mul (ops/tower.py) on
-seeded random operands, off the curve and off the cyclotomic subgroup,
+fp12_mul, fp6_mul and fp12_sqr (ops/tower.py; with 0, 1 and p - 1 among
+their operands) on seeded random operands, off the curve and off the cyclotomic subgroup,
 with mixed valid masks; the point programs' scripts (run_script) give
 those of pt_mul_const (G1, G2) and g2_cofactor (ops/curve.py) on edge
 points, and in affine the JAX package's golden curve and, in G1, its
@@ -71,18 +71,37 @@ def test_exp_x_bodies_match_the_plain_version():
         assert slots[:12] == [want[c][i] for c in range(12)]
 
 
-def test_fp12_mul_body_matches_the_plain_version():
-    rng = np.random.default_rng(75)
-    a, av = packed(rng, 12)
-    b, bv = packed(rng, 12)
-    want = ints(T.fp12_mul_plain(a, b))
-    P = GR.fp12_mul_program()
+# program, body, its plain version, coordinates of each operand, outputs
+TOWER_BODIES = {
+    "fp12_mul": (GR.fp12_mul_program, "mul", T.fp12_mul_plain, (12, 12), 12),
+    "fp6_mul": (GR.fp6_mul_program, "mul", T.fp6_mul_packed_plain, (6, 6), 6),
+    "fp12_sqr": (GR.fp12_sqr_program, "sqr", T.fp12_sqr_plain, (12,), 12),
+}
+
+
+@pytest.mark.parametrize("name", TOWER_BODIES)
+def test_tower_body_matches_the_plain_version(name):
+    """The tower products' bodies on seeded operands with 0, 1 and p - 1 in
+    every coordinate of element 0 and the first three of element 2."""
+    program, body, plain, coords, nout = TOWER_BODIES[name]
+    rng = np.random.default_rng(75 + len(coords) + coords[0])
+    edges = [0, 1, C.P - 1]
+    ops = []
+    for c in coords:
+        _, vals = packed(rng, c)
+        for j in range(c):
+            vals[j][0] = edges[j % 3]
+        for j in range(3):
+            vals[j][2] = edges[j]
+        ops.append((torch.from_numpy(np.stack([ints_to_limbs(v, 24) for v in vals])), vals))
+    want = ints(plain(*(t for t, _ in ops)))
+    P = program()
     out = P.slots["out"][0]
     for i in range(N):
-        slots = [0] * P.nslots  # a, then b: the packed operand's order
-        slots[:24] = [av[c][i] for c in range(12)] + [bv[c][i] for c in range(12)]
-        GR.run_body(P, "mul", slots)
-        assert slots[out:out + 12] == [want[c][i] for c in range(12)]
+        slots = [0] * P.nslots  # the operands in order: the packed operand's
+        slots[:sum(coords)] = [v[j][i] for _, v in ops for j in range(len(v))]
+        GR.run_body(P, body, slots)
+        assert slots[out:out + nout] == [want[c][i] for c in range(nout)]
 
 
 @pytest.mark.parametrize("k", GR.MILLER_PAIRS)
