@@ -18,28 +18,33 @@
 // times launch_floor_kernel, PERF.md): what a launch costs beyond that is
 // its latency, not its rate.
 //
-// mul, add and fp2_sqr map ONE thread to one element, in blocks of 128, and
-// read and write their rows with scalar 4-byte accesses (a warp's load
-// spans 3 KB).  sub and fp2_mul stage a block's rows: the block reads each
+// fp2_sqr maps ONE thread to one element, in blocks of 128, and reads and
+// writes its rows with scalar 4-byte accesses (a warp's load spans 3 KB).
+// mul, add, sub and fp2_mul stage a block's rows: the block reads each
 // operand as one contiguous span with 16-byte loads into shared memory
 // (field.cuh stage_rows, rows padded against bank conflicts) and writes its
-// results back the same way, kSubPerBlock and kFp2MulPerBlock elements per
-// block (chip_smoke.py's sweep, PERF.md), on a grid the entry point
-// computes from n.
-//   - sub runs one thread per element on its staged rows.
-//   - fp2_mul runs each element on 4 lanes of a warp: its three Karatsuba
-//     products in lockstep, each split across the lanes (lanes.cuh
-//     mont_mul_slices, the product of pow_win; ~0.55 us a product against
-//     ~1.35 us for field.cuh's one-thread CIOS, whose serial carry chains
-//     set the old kernel's time), each row step taken for all three before
-//     the next so that one product's shuffles and carries hide behind the
-//     others' work; the differences on the lanes' slices (sub_slice, the
-//     borrows by lookahead), and each lane stores its own words: no
-//     gather.  A tail element's lanes run a copy of a live element and
-//     store nothing: every shuffle and ballot spans the whole warp.
-// chip_smoke.py's throwaway sweep builds set -DBLS_SUB_PER_BLOCK=E and
-// -DBLS_FP2_MUL_PER_BLOCK=E, and -DBLS_FP2_MUL_LANES=1: fp2_mul's
-// one-thread body on the same staged rows, the baseline that splits the
+// results back the same way, kMulPerBlock, kAddPerBlock, kSubPerBlock and
+// kFp2MulPerBlock elements per block (chip_smoke.py's sweep, PERF.md), on a
+// grid the entry point computes from n.
+//   - add and sub, and mul in Fr, run one thread per element on their
+//     staged rows (staged_binary).
+//   - mul in Fp runs each element on kMulLanes = 4 lanes of a warp, its
+//     product split across the lanes (lanes.cuh mont_mul_slice, the
+//     product of pow_win; ~0.55 us a product against ~1.35 us for
+//     field.cuh's one-thread CIOS, whose serial carry chain set the old
+//     kernel's time); each lane stores its own words.
+//   - fp2_mul runs each element on 4 lanes too: its three Karatsuba
+//     products in lockstep (mont_mul_slices, N = 3), each row step taken
+//     for all three before the next so that one product's shuffles and
+//     carries hide behind the others' work; the differences on the lanes'
+//     slices (sub_slice, the borrows by lookahead), and each lane stores
+//     its own words: no gather.
+//   A tail element's lanes run a copy of a live element and store nothing:
+//   every shuffle and ballot spans the whole warp.
+// chip_smoke.py's throwaway sweep builds set -DBLS_MUL_PER_BLOCK=E,
+// -DBLS_ADD_PER_BLOCK=E, -DBLS_SUB_PER_BLOCK=E and -DBLS_FP2_MUL_PER_BLOCK=E,
+// and -DBLS_MUL_LANES=1 -DBLS_FP2_MUL_LANES=1: mul's and fp2_mul's
+// one-thread bodies on the same staged rows, the baseline that splits the
 // gain between the staged I/O and the lanes.
 #include <cuda_runtime.h>
 
@@ -50,10 +55,19 @@
 
 namespace {
 
-constexpr int kThreads = 128;  // mul, add, fp2_sqr
+constexpr int kThreads = 128;  // fp2_sqr
 
-// Elements per block of the staged kernels, and threads per fp2_mul
-// element (the header note).
+// Elements per block of the staged kernels, and threads per Fp mul and
+// fp2_mul element (the header note).
+#ifndef BLS_MUL_PER_BLOCK
+#define BLS_MUL_PER_BLOCK 8
+#endif
+#ifndef BLS_MUL_LANES
+#define BLS_MUL_LANES 4
+#endif
+#ifndef BLS_ADD_PER_BLOCK
+#define BLS_ADD_PER_BLOCK 64
+#endif
 #ifndef BLS_SUB_PER_BLOCK
 #define BLS_SUB_PER_BLOCK 64
 #endif
@@ -63,12 +77,22 @@ constexpr int kThreads = 128;  // mul, add, fp2_sqr
 #ifndef BLS_FP2_MUL_LANES
 #define BLS_FP2_MUL_LANES 4
 #endif
+constexpr int kMulPerBlock = BLS_MUL_PER_BLOCK;
+constexpr int kMulLanes = BLS_MUL_LANES;
+constexpr int kAddPerBlock = BLS_ADD_PER_BLOCK;
 constexpr int kSubPerBlock = BLS_SUB_PER_BLOCK;
 constexpr int kFp2MulPerBlock = BLS_FP2_MUL_PER_BLOCK;
 constexpr int kFp2MulLanes = BLS_FP2_MUL_LANES;
+static_assert(kMulLanes == 4 || kMulLanes == 1, "BLS_MUL_LANES is 4 or 1");
 static_assert(kFp2MulLanes == 4 || kFp2MulLanes == 1, "BLS_FP2_MUL_LANES is 4 or 1");
+static_assert(kMulLanes == 1 || kMulPerBlock * kMulLanes % 32 == 0,
+              "whole warps for the lanes' shuffles");
 static_assert(kFp2MulLanes == 1 || kFp2MulPerBlock * kFp2MulLanes % 32 == 0,
               "whole warps for the lanes' shuffles");
+
+// Threads per element of mul: lanes.cuh is Fp-only, so Fr runs on one.
+template <int NW>
+constexpr int kMulThreads = NW == bls::kFpWords ? kMulLanes : 1;
 
 using bls::make_modulus;
 
@@ -84,50 +108,16 @@ inline bool aligned16(const void* p) { return ((uintptr_t)p & 15u) == 0; }
 // them apart from PyTorch's own kernels.
 namespace bls_kernels {
 
-// Replaces _mul_kernel (bls_verify_gadget_tpu/ops/pallas/kernels.py:227,
-// merged CIOS _conv_reduce_v3 at :167): batched Montgomery a*b*R^-1 mod m
-// for Fp (NW = 12) and Fr (NW = 8).  Bytes-bound (see the header note).
-template <int NW>
-__global__ void mul_kernel(const int32_t* __restrict__ a,
-                           const int32_t* __restrict__ b,
-                           int32_t* __restrict__ out, long long n,
-                           bls::Modulus<NW> M) {
-  long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  uint32_t x[NW], y[NW], r[NW];
-  bls::load_words<NW>(a + i * 2 * NW, x);
-  bls::load_words<NW>(b + i * 2 * NW, y);
-  bls::mont_mul<NW>(x, y, r, M);
-  bls::store_words<NW>(out + i * 2 * NW, r);
-}
-
-// Replaces _add_kernel (kernels.py:234): canonical (a + b) mod m.
-// Pure data movement plus a 2 x NW-word carry chain: bytes-bound.
-template <int NW>
-__global__ void add_kernel(const int32_t* __restrict__ a,
-                           const int32_t* __restrict__ b,
-                           int32_t* __restrict__ out, long long n,
-                           bls::Modulus<NW> M) {
-  long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  uint32_t x[NW], y[NW], r[NW];
-  bls::load_words<NW>(a + i * 2 * NW, x);
-  bls::load_words<NW>(b + i * 2 * NW, y);
-  bls::mod_add<NW>(x, y, r, M);
-  bls::store_words<NW>(out + i * 2 * NW, r);
-}
-
-// Replaces _sub_kernel (kernels.py:241): canonical (a - b) mod m for Fp
-// (NW = 12) and Fr (NW = 8).  Bytes-bound like add, and at the main path's
-// 4096 elements (0.35 us of bytes) below the time of a launch.  E elements
-// per block, one thread each: the block stages its rows of a and b (two
-// spans of E x 8 NW bytes), each thread runs mod_sub on its staged row and
-// puts the result in a's row, and the block writes the span of out back.
-template <int NW>
-__global__ void __launch_bounds__(kSubPerBlock)
-    sub_kernel(const int32_t* __restrict__ a, const int32_t* __restrict__ b,
-               int32_t* __restrict__ out, long long n, bls::Modulus<NW> M) {
-  constexpr int E = kSubPerBlock, W = bls::kStagedStride<NW>;
+// One thread per element on staged rows: the block stages its E rows of a
+// and b (two spans of E x 8 NW bytes), each thread runs op(x, y, r) on its
+// element's staged words and puts r in a's row, and the block writes the
+// span of out back.
+template <int NW, int E, typename Op>
+__device__ __forceinline__ void staged_binary(const int32_t* __restrict__ a,
+                                              const int32_t* __restrict__ b,
+                                              int32_t* __restrict__ out, long long n,
+                                              Op op) {
+  constexpr int W = bls::kStagedStride<NW>;
   __shared__ __align__(16) int32_t s[2][E * W];
   const long long first = (long long)blockIdx.x * E;
   if (first >= n) return;  // the whole block
@@ -143,7 +133,7 @@ __global__ void __launch_bounds__(kSubPerBlock)
     uint32_t x[NW], y[NW], r[NW];
     bls::load_staged<NW>(s[0] + g * W, x);
     bls::load_staged<NW>(s[1] + g * W, y);
-    bls::mod_sub<NW>(x, y, r, M);
+    op(x, y, r);
     bls::store_staged<NW>(s[0] + g * W, r);
   }
   __syncthreads();
@@ -152,6 +142,88 @@ __global__ void __launch_bounds__(kSubPerBlock)
     int32_t* dst[1] = {out};
     bls::unstage_rows<NW, E, E, 1>(src, dst, first, rows);
   }
+}
+
+// Replaces _mul_kernel (bls_verify_gadget_tpu/ops/pallas/kernels.py:227,
+// merged CIOS _conv_reduce_v3 at :167): batched Montgomery a*b*R^-1 mod m
+// for Fp (NW = 12) and Fr (NW = 8), for a, b < 2m or a < R and b < m (the
+// raw 384-bit halves of hash_to_field by R^2 and R^3).  288 bytes and ~600
+// multiply-adds per Fp element: bound by bytes (the header note), 0.70 us
+// at 8192 elements.  E elements per block.  In Fp each element runs on
+// kMulLanes = 4 lanes: the block stages its rows of a and b, each lane
+// reads both operands whole, runs its slice of the product and stores its
+// words into a's staged row, and the block writes the span of out back.
+// In Fr (lanes.cuh is Fp-only), and in a -DBLS_MUL_LANES=1 sweep build,
+// one thread per element runs field.cuh's mont_mul on the same staged
+// rows.
+template <int NW>
+__global__ void __launch_bounds__(kMulPerBlock * kMulThreads<NW>)
+    mul_kernel(const int32_t* __restrict__ a, const int32_t* __restrict__ b,
+               int32_t* __restrict__ out, long long n, bls::Modulus<NW> M) {
+  constexpr int E = kMulPerBlock;
+  if constexpr (kMulThreads<NW> == 1) {
+    staged_binary<NW, E>(a, b, out, n, [&](const uint32_t(&x)[NW], const uint32_t(&y)[NW],
+                                           uint32_t(&r)[NW]) { bls::mont_mul<NW>(x, y, r, M); });
+  } else {
+    constexpr int L = kMulThreads<NW>, T = E * L, W = bls::kStagedStride<NW>;
+    constexpr int S = bls::lanes::Lane<L>::S;
+    __shared__ __align__(16) int32_t s[2][E * W];
+    const long long first = (long long)blockIdx.x * E;
+    if (first >= n) return;  // the whole block
+    const int rows = (int)(n - first < E ? n - first : E);
+    {
+      const int32_t* src[2] = {a, b};
+      int32_t* dst[2] = {s[0], s[1]};
+      bls::stage_rows<NW, E, T, 2>(src, dst, first, rows);
+    }
+    __syncthreads();
+    const int g = threadIdx.x / L;  // the block's element
+    const bool live = g < rows;
+    const int at = live ? g : rows - 1;  // a tail element: a copy of a live one
+    uint32_t x[NW], y[NW], t[S];
+    bls::load_staged<NW>(s[0] + at * W, x);
+    bls::load_staged<NW>(s[1] + at * W, y);
+    __syncthreads();  // every operand in registers: a's rows take the product
+    const bls::lanes::Lane<L> ln = bls::lanes::make_lane<L>(M);
+    bls::lanes::mont_mul_slice<L, true>(x, y, t, ln);
+    if (live) {  // lane j stores words j S .. j S + S - 1
+      int2* row = reinterpret_cast<int2*>(s[0] + g * W + 2 * S * ln.j);
+#pragma unroll
+      for (int k = 0; k < S; ++k) {
+        row[k] = make_int2((int32_t)(t[k] & 0xFFFFu), (int32_t)(t[k] >> 16));
+      }
+    }
+    __syncthreads();
+    const int32_t* src[1] = {s[0]};
+    int32_t* dst[1] = {out};
+    bls::unstage_rows<NW, E, T, 1>(src, dst, first, rows);
+  }
+}
+
+// Replaces _add_kernel (kernels.py:234): canonical (a + b) mod m for Fp
+// (NW = 12) and Fr (NW = 8).  Pure data movement plus a 2 x NW-word carry
+// chain: bytes-bound, and at the main path's 4096 elements (0.35 us of
+// bytes) below the time of a launch.  E elements per block, one thread
+// each, on staged rows (staged_binary).
+template <int NW>
+__global__ void __launch_bounds__(kAddPerBlock)
+    add_kernel(const int32_t* __restrict__ a, const int32_t* __restrict__ b,
+               int32_t* __restrict__ out, long long n, bls::Modulus<NW> M) {
+  staged_binary<NW, kAddPerBlock>(a, b, out, n, [&](const uint32_t(&x)[NW],
+                                                    const uint32_t(&y)[NW], uint32_t(&r)[NW]) {
+    bls::mod_add<NW>(x, y, r, M);
+  });
+}
+
+// Replaces _sub_kernel (kernels.py:241): canonical (a - b) mod m, as add.
+template <int NW>
+__global__ void __launch_bounds__(kSubPerBlock)
+    sub_kernel(const int32_t* __restrict__ a, const int32_t* __restrict__ b,
+               int32_t* __restrict__ out, long long n, bls::Modulus<NW> M) {
+  staged_binary<NW, kSubPerBlock>(a, b, out, n, [&](const uint32_t(&x)[NW],
+                                                    const uint32_t(&y)[NW], uint32_t(&r)[NW]) {
+    bls::mod_sub<NW>(x, y, r, M);
+  });
 }
 
 // (a - b) mod p on this lane's slices of canonical a, b, split across the
@@ -319,15 +391,18 @@ using bls_kernels::sub_kernel;
 
 extern "C" {
 
+// Every operand 16-byte aligned (mul, add, sub).
 int bls_mul(const int32_t* a, const int32_t* b, int32_t* out, long long n,
             int nlimb, const uint32_t* p, unsigned n0, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
+  if (!aligned16(a) || !aligned16(b) || !aligned16(out)) return (int)cudaErrorInvalidValue;
+  const unsigned blocks = grid_for(n, kMulPerBlock);
   if (nlimb == 24) {
-    mul_kernel<12><<<grid_for(n), kThreads, 0, s>>>(a, b, out, n,
-                                                    make_modulus<12>(p, n0));
+    mul_kernel<12><<<blocks, kMulPerBlock * kMulThreads<12>, 0, s>>>(
+        a, b, out, n, make_modulus<12>(p, n0));
   } else if (nlimb == 16) {
-    mul_kernel<8><<<grid_for(n), kThreads, 0, s>>>(a, b, out, n,
-                                                   make_modulus<8>(p, n0));
+    mul_kernel<8><<<blocks, kMulPerBlock * kMulThreads<8>, 0, s>>>(
+        a, b, out, n, make_modulus<8>(p, n0));
   } else {
     return (int)cudaErrorInvalidValue;
   }
@@ -337,19 +412,18 @@ int bls_mul(const int32_t* a, const int32_t* b, int32_t* out, long long n,
 int bls_add(const int32_t* a, const int32_t* b, int32_t* out, long long n,
             int nlimb, const uint32_t* p, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
+  if (!aligned16(a) || !aligned16(b) || !aligned16(out)) return (int)cudaErrorInvalidValue;
+  const unsigned blocks = grid_for(n, kAddPerBlock);
   if (nlimb == 24) {
-    add_kernel<12><<<grid_for(n), kThreads, 0, s>>>(a, b, out, n,
-                                                    make_modulus<12>(p, 0));
+    add_kernel<12><<<blocks, kAddPerBlock, 0, s>>>(a, b, out, n, make_modulus<12>(p, 0));
   } else if (nlimb == 16) {
-    add_kernel<8><<<grid_for(n), kThreads, 0, s>>>(a, b, out, n,
-                                                   make_modulus<8>(p, 0));
+    add_kernel<8><<<blocks, kAddPerBlock, 0, s>>>(a, b, out, n, make_modulus<8>(p, 0));
   } else {
     return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
 }
 
-// Every operand 16-byte aligned.
 int bls_sub(const int32_t* a, const int32_t* b, int32_t* out, long long n,
             int nlimb, const uint32_t* p, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;

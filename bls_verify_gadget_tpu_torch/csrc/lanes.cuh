@@ -130,9 +130,14 @@ __device__ __forceinline__ uint32_t lookahead(bool g, bool p,
 }
 
 // t[q] = this lane's slice of a[q] b[q] R^-1 mod p for N independent
-// products of a, b < 2p whole in every lane, in lockstep: each step is
-// taken for every q before the next, so the N chains hide each other's
-// latency (fp2_mul's three Karatsuba products; pow_win runs N = 1).
+// products, whole in every lane, in lockstep: each step is taken for every
+// q before the next, so the N chains hide each other's latency (fp2_mul's
+// three Karatsuba products; pow_win and mul run N = 1).  The domain: a,
+// b < 2p, or a < R = 2^384 and b < p (mul's raw 384-bit halves of
+// hash_to_field by R^2 and R^3).  Either way a b / R < p, so the sum ends
+// below 2p (the top lane's carries are 0, one subtraction of p makes it
+// canonical); a < R against b up to 2p does not hold (tests/
+// test_torch_pow_lanes.py models both).
 // kCanonical: below p, else below 2p (the conditional subtraction of p
 // left out, for a chain's next product).
 template <int L, int N, bool kCanonical>

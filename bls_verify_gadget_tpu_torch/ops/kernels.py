@@ -21,9 +21,9 @@ CPU goes to the kernel's plain PyTorch version (ops/fp.py, ops/tower.py,
 ops/curve.py, ops/hash_to_g2.py, ops/pairing.py); a CUDA
 tensor launches the kernel on the current stream or raises -- there is no
 fallback from a CUDA tensor to the plain version.  Each launch adds one to
-the kernel's count in COUNTS.  The staged kernels (sub, fp2_mul) read
-and write whole rows as 16-byte vectors: their wrappers refuse an operand
-that does not start on a 16-byte boundary.
+the kernel's count in COUNTS.  The staged kernels (mul, add, sub,
+fp2_mul) read and write whole rows as 16-byte vectors: their wrappers
+refuse an operand that does not start on a 16-byte boundary.
 """
 
 import collections
@@ -265,18 +265,19 @@ def _binary(name, field, a, b, plain):
     a, b = torch.broadcast_tensors(a, b)
     if a.device.type == "cpu":
         return plain(a, b)
+    return _binary_launch(name, field, a, b)
+
+
+def _binary_launch(name, field, a, b):
+    """Launch bls_<name> (mul, add or sub) on broadcast CUDA operands."""
     a, b = _cuda_operands(field, [a, b])
     out = torch.empty_like(a)
     n = a.numel() // field.nlimb
     if n:
+        _check_aligned(name, (a, b, out))
         fn = getattr(library(), f"bls_{name}")
         ptrs = (a.data_ptr(), b.data_ptr(), out.data_ptr(), n, field.nlimb, _p_words(field))
-        if name == "mul":
-            rc = fn(*ptrs, field.n0_word, _stream(a))
-        else:
-            if name == "sub":
-                _check_aligned(name, (a, b, out))
-            rc = fn(*ptrs, _stream(a))
+        rc = fn(*ptrs, *((field.n0_word,) if name == "mul" else ()), _stream(a))
         _check_rc(name, rc)
         COUNTS.record(name, n)
     return out

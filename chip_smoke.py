@@ -75,9 +75,10 @@ Needs one CUDA card and nvcc.  Phases, each fatal on failure:
      elements at every run length at 4096 and 1) and on seeded random ones
      (mul014 with a quarter of the lines neutral, cyclo_sqr at every run
      length at 4096 and 1);
-     sub (Fp and Fr) and fp2_mul also on edge operands (0, 1, m - 1,
-     a = b, borrows across every word and, in fp2_mul, every lane) at 1,
-     4095, 4096, 8191 and 8192 elements;
+     mul, add and sub (Fp and Fr) and fp2_mul also on edge operands (0,
+     1, m - 1, the Montgomery one, a = b, borrows and carries across every
+     word and lane; for mul 2^384 - 1 by R^2 and R^3 and 2p - 1 squared)
+     at 1, 4095, 4096, 8191 and 8192 elements;
      device time per launch from CUDA-graph replay, eager call time and
      plain time from CUDA events (a mean of 3 calls for the field kernels;
      the slow plain versions of the others: their one comparison call at
@@ -112,19 +113,21 @@ Needs one CUDA card and nvcc.  Phases, each fatal on failure:
      timed interleaved with this tree's (parent, group, group, parent).
      ptxas's registers, stack and spills and the shared memory per block of
      each group kernel instance are printed under [build];
-  9. field    -- the staged field kernels (csrc/field_kernels.cu sub and
-     fp2_mul): fp2_mul at 8192, 4096 and 1 elements, sub in Fp at 4096,
+  9. field    -- the staged field kernels (csrc/field_kernels.cu mul, add,
+     sub and fp2_mul): fp2_mul at 8192, 4096 and 1 elements, mul in Fp at
+     8192, 4096 and 1 and in Fr at 8192 and 1, add and sub in Fp at 4096,
      8192 and 1 and in Fr at 4096 and 1, on seeded rows with edge operands:
      the wrapper bit-equal to the plain version, and bit-equal to it the
      sweep builds (throwaway copies of the unit built with
-     -DBLS_SUB_PER_BLOCK=E -DBLS_FP2_MUL_PER_BLOCK=E for E = 8, 16, 32 and
-     64, each with fp2_mul on 4 lanes and with -DBLS_FP2_MUL_LANES=1, the
-     one-thread body on the same staged rows, into build/, in parallel with
-     the library) and with --parent DIR the parent commit's kernels (its
-     field_kernels.cu, built from DIR in parallel too); device ms per launch
-     of each, of the empty kernel on the library's grid, and of the parent's
-     kernel and the library's interleaved (parent, change, change, parent);
-     ptxas's lines of each instance under [build].
+     -DBLS_MUL_PER_BLOCK=E -DBLS_ADD_PER_BLOCK=E -DBLS_SUB_PER_BLOCK=E
+     -DBLS_FP2_MUL_PER_BLOCK=E for E = 8, 16, 32 and 64, each with mul and
+     fp2_mul on 4 lanes and with -DBLS_MUL_LANES=1 -DBLS_FP2_MUL_LANES=1,
+     their one-thread bodies on the same staged rows, into build/, in
+     parallel with the library) and with --parent DIR the parent commit's
+     kernels (its field_kernels.cu, built from DIR in parallel too); device
+     ms per launch of each, of the empty kernel on the library's grid, and
+     of the parent's kernel and the library's interleaved (parent, change,
+     change, parent); ptxas's lines of each instance under [build].
 Prints one JSON line of kernels, the card's name and power limit, and as
 its last line {"ok": true, "device": {...}}.  Imports nothing of JAX.
 
@@ -1609,14 +1612,6 @@ def kernel_phase(torch, K, launches, sizes, verify_s, ctx, keys, steps):
         f"above, kernel / floor / bound ms: " + "; ".join(
             f"{r['name']} {r['ms']:.5f} / {r['floor_ms']:.5f} / {r['bound_ms']:.5f}"
             for r in rows if "floor_ms" in r))
-    from bls_verify_gadget_tpu_torch.ops.fp import FR
-
-    n_fr = rows[0]["elements"]
-    a, b = field_inputs(torch, rng, "mul", n_fr, FR)
-    err = int((K.mul(FR, a, b).long() - FR.mul_plain(a, b).long()).abs().max())
-    if err != 0:
-        raise RuntimeError(f"Fr mul kernel disagrees with its plain version: max |err| {err}")
-    log(f"[kernel] mul (Fr, 16 limbs): bit-equal to plain at {n_fr} elements")
     log(f"[kernel] kernel device time per verify batch (launches x device time "
         f"at each size) {kernel_ms:.3f} ms of {verify_s * 1e3:.3f} ms wall "
         f"({100 * kernel_ms / (verify_s * 1e3):.2f}%)")
@@ -2054,64 +2049,71 @@ def group_phase(torch, K, sweep_started, parent_started=None):
 
 
 # ----------------------------------------------------------------------------
-# field phase: the staged field kernels (sub, fp2_mul) at each elements-per-
-# block count and fp2_mul form, the launch floor, and the parent's kernels
+# field phase: the staged field kernels (mul, add, sub, fp2_mul) at each
+# elements-per-block count and form of mul and fp2_mul, the launch floor, and
+# the parent's kernels
 # ----------------------------------------------------------------------------
 
 FIELD_UNIT = "field_kernels.cu"
 FIELD_E = (8, 16, 32, 64)  # elements per block of the sweep builds
-# threads per fp2_mul element of the sweep builds: the library's lanes and
-# the one-thread body on the same staged rows
+# threads per Fp mul and fp2_mul element of the sweep builds: the library's
+# lanes and the one-thread bodies on the same staged rows
 FIELD_LANES = (4, 1)
+FIELD_KERNELS = ("mul", "add", "sub", "fp2_mul")
 EDGE_COUNTS = (1, 4095, 4096, 8191, 8192)  # element counts of the edge operands
 FIELD_LOG = (
     (re.compile(r"fp2_mul_kernel"), lambda m: "fp2_mul"),
-    (re.compile(r"sub_kernelILi(\d+)E"), lambda m: f"sub<NW={m[1]}>"),
+    (re.compile(r"bls_kernels10(mul|add|sub)_kernelILi(\d+)E"), lambda m: f"{m[1]}<NW={m[2]}>"),
     (re.compile(r"launch_floor_kernel"), lambda m: "launch_floor"),
 )
 
 
 def library_field(K):
-    """The library's elements per block of sub and fp2_mul and fp2_mul's
-    threads per element (BLS_SUB_PER_BLOCK, BLS_FP2_MUL_PER_BLOCK and
-    BLS_FP2_MUL_LANES in csrc/field_kernels.cu)."""
+    """The library's elements per block of mul, add, sub and fp2_mul and
+    the threads per Fp mul and fp2_mul element (BLS_MUL_PER_BLOCK,
+    BLS_ADD_PER_BLOCK, BLS_SUB_PER_BLOCK, BLS_FP2_MUL_PER_BLOCK,
+    BLS_MUL_LANES and BLS_FP2_MUL_LANES in csrc/field_kernels.cu)."""
     src = (K.CSRC_DIR / FIELD_UNIT).read_text()
     return {key: int(re.search(rf"#define BLS_{define} (\d+)", src)[1])
-            for key, define in (("sub", "SUB_PER_BLOCK"), ("fp2_mul", "FP2_MUL_PER_BLOCK"),
-                                ("lanes", "FP2_MUL_LANES"))}
+            for key, define in (("mul", "MUL_PER_BLOCK"), ("add", "ADD_PER_BLOCK"),
+                                ("sub", "SUB_PER_BLOCK"), ("fp2_mul", "FP2_MUL_PER_BLOCK"),
+                                ("mul_lanes", "MUL_LANES"), ("lanes", "FP2_MUL_LANES"))}
 
 
 def field_build_start(K):
     """Start nvcc on this tree's field unit at each elements-per-block
-    count E of FIELD_E (both staged kernels) and each of FIELD_LANES ->
-    {(lanes, E): (process, library, log)}."""
+    count E of FIELD_E (all four staged kernels) and each of FIELD_LANES
+    (mul and fp2_mul) -> {(lanes, E): (process, library, log)}."""
     return {(lanes, e): unit_build_start(
                 K, K.CSRC_DIR / FIELD_UNIT, K.BUILD_DIR / f"sweep_field_l{lanes}_e{e}.so",
-                (f"-DBLS_SUB_PER_BLOCK={e}", f"-DBLS_FP2_MUL_PER_BLOCK={e}",
-                 f"-DBLS_FP2_MUL_LANES={lanes}"))
+                (f"-DBLS_MUL_PER_BLOCK={e}", f"-DBLS_ADD_PER_BLOCK={e}",
+                 f"-DBLS_SUB_PER_BLOCK={e}", f"-DBLS_FP2_MUL_PER_BLOCK={e}",
+                 f"-DBLS_MUL_LANES={lanes}", f"-DBLS_FP2_MUL_LANES={lanes}"))
             for lanes in FIELD_LANES for e in FIELD_E}
 
 
 def field_library(K, started):
-    """Wait for a build of a field unit -> its library, with sub and
-    fp2_mul declared as in ops/kernels.py."""
+    """Wait for a build of a field unit -> its library, with mul, add, sub
+    and fp2_mul declared as in ops/kernels.py."""
     import ctypes
 
     proc, so, log_path = started
     if proc.wait() != 0:
         raise RuntimeError(f"build of {so.name} failed:\n{log_path.read_text()}")
     lib = ctypes.CDLL(str(so))
-    K._declare(lib, ("sub", "fp2_mul"))
+    K._declare(lib, FIELD_KERNELS)
     return lib
 
 
 def field_launch(torch, K, name, fn, field, ops):
-    """A closure that launches `fn` (bls_sub or bls_fp2_mul of some build)
-    on `ops` into preallocated outputs -> (launch, outputs)."""
+    """A closure that launches `fn` (bls_<name> of some build, name one of
+    FIELD_KERNELS) on `ops` into preallocated outputs -> (launch, outputs)."""
     n = ops[0].shape[0]
-    outs = [torch.empty_like(ops[0]) for _ in range(1 if name == "sub" else 2)]
+    outs = [torch.empty_like(ops[0]) for _ in range(2 if name == "fp2_mul" else 1)]
     ptrs = [t.data_ptr() for t in (*ops, *outs)]
-    mid = (field.nlimb, K._p_words(field)) if name == "sub" else (K._p_words(field), field.n0_word)
+    mid = {"fp2_mul": (K._p_words(field), field.n0_word),
+           "mul": (field.nlimb, K._p_words(field), field.n0_word)}.get(
+               name, (field.nlimb, K._p_words(field)))
 
     def launch(_keep=(ops, outs)):  # holds outs: a captured graph writes them
         K._check_rc(name, fn(*ptrs, n, *mid, K._stream(ops[0])))
@@ -2128,29 +2130,43 @@ def floor_launch(torch, K, blocks, threads):
     return launch
 
 
-def field_grid(K, name, n):
+def field_grid(K, name, n, nlimb=24):
     """(blocks, threads) of the library's launch of field kernel `name` at n
-    elements."""
-    if name in ("sub", "fp2_mul"):
+    elements (of nlimb limbs: Fr's mul runs one thread per element)."""
+    if name in FIELD_KERNELS:
         cfg = library_field(K)
-        e = cfg[name]
-        return -(-n // e), e * (cfg["lanes"] if name == "fp2_mul" else 1)
-    return -(-n // 128), 128  # mul, add, fp2_sqr: one thread per element
+        lanes = {"fp2_mul": cfg["lanes"], "mul": cfg["mul_lanes"] if nlimb == 24 else 1}
+        return -(-n // cfg[name]), cfg[name] * lanes.get(name, 1)
+    return -(-n // 128), 128  # fp2_sqr: one thread per element
 
 
 def staged_edge_inputs(torch, rng, name, n, field):
-    """Operands of sub or fp2_mul at n elements: field_inputs' seeded rows
-    with edge operands in the first elements.  sub: 0 - 1 (a borrow across
+    """Operands of a staged field kernel (FIELD_KERNELS) at n elements:
+    field_inputs' seeded rows with edge operands in the first elements.
+    mul: R - 1 (a full-width raw value, hash_to_field's) by R^2 and by R^3,
+    0 by m - 1, 1 by 1, m - 1 squared, m - 1 by the Montgomery one, the one
+    squared; in Fp also 2p - 1 squared (the largest Karatsuba sums) and
+    (p >> 288) - 1 in the top lane's words by the one, whose deferred carry
+    crosses lanes 1 to 3 (tests/test_torch_field_lanes.py ripple_row); add:
+    (m - 1) + (m - 1), (m - 1) + 1 = m -> 0 (a carry across every word), 1
+    + (m - 1), 0 + 0, a + b = m - 1 seeded; sub: 0 - 1 (a borrow across
     every word), a = b = m - 1, 0 - (m - 1), 1 - 0, a = b seeded; fp2_mul:
     (x, x + 1) by the Montgomery one (1, 1) (v0 - v1 = -1: a borrow across
     every word and lane), p - 1 in all four (sums 2p - 2), 0 by p - 1, the
     Montgomery one by itself, (1, 0) by (0, 1)."""
     from bls_verify_gadget_tpu_torch.ops.limbs import ints_to_limbs
 
-    m = field.modulus
-    one = field.mont_r % m
+    m, r = field.modulus, field.mont_r
+    one = r % m
     x = int.from_bytes(rng.bytes(48), "little") % (m - 1)
-    if name == "sub":
+    if name == "mul":
+        rows = [(r - 1, r * r % m), (r - 1, r**3 % m), (0, m - 1), (1, 1), (m - 1, m - 1),
+                (m - 1, one), (one, one)]
+        if field.nlimb == 24:
+            rows += [(2 * m - 1, 2 * m - 1), (((m >> 288) - 1) << 288, one)]
+    elif name == "add":
+        rows = [(m - 1, m - 1), (m - 1, 1), (1, m - 1), (0, 0), (x, m - 1 - x)]
+    elif name == "sub":
         rows = [(0, 1), (m - 1, m - 1), (0, m - 1), (1, 0), (x, x)]
     else:
         rows = [(x, x + 1, one, one), (m - 1,) * 4, (0, 0, m - 1, m - 1), (one,) * 4,
@@ -2162,15 +2178,23 @@ def staged_edge_inputs(torch, rng, name, n, field):
     return ops
 
 
-def staged_edge_checks(torch, K, rng, plain_call):
-    """sub (Fp and Fr) and fp2_mul bit-equal to their plain versions on
-    staged_edge_inputs at EDGE_COUNTS -> {kernel: [field names]}."""
+def field_plain(name, field):
+    """The plain version of staged field kernel `name` in `field`."""
     from bls_verify_gadget_tpu_torch.ops import tower as T
+
+    return T.fp2_mul_plain if name == "fp2_mul" else getattr(field, f"{name}_plain")
+
+
+def staged_edge_checks(torch, K, rng, plain_call):
+    """mul, add and sub (Fp and Fr) and fp2_mul bit-equal to their plain
+    versions on staged_edge_inputs at EDGE_COUNTS -> {kernel: [field
+    names]}."""
     from bls_verify_gadget_tpu_torch.ops.fp import FP, FR
 
-    checked = {"sub": [], "fp2_mul": []}
-    for name, fname, field in (("sub", "Fp", FP), ("sub", "Fr", FR), ("fp2_mul", "Fp", FP)):
-        plain = field.sub_plain if name == "sub" else T.fp2_mul_plain
+    checked = {name: [] for name in FIELD_KERNELS}
+    for name, fname, field in [(k, f, F) for k in FIELD_KERNELS[:3]
+                               for f, F in (("Fp", FP), ("Fr", FR))] + [("fp2_mul", "Fp", FP)]:
+        plain = field_plain(name, field)
         for n in EDGE_COUNTS:
             ops = staged_edge_inputs(torch, rng, name, n, field)
             err = max_err(getattr(K, name)(field, *ops), plain_call(name, plain, ops))
@@ -2185,13 +2209,17 @@ def staged_edge_checks(torch, K, rng, plain_call):
 
 def field_cases(torch, rng):
     """(label, kernel, field, operands) of the field phase, each on
-    staged_edge_inputs: fp2_mul at 8192, 4096 and 1; sub in Fp at 4096,
-    8192 and 1, in Fr at 4096 and 1."""
+    staged_edge_inputs: fp2_mul at 8192, 4096 and 1; mul in Fp at 8192,
+    4096 and 1, in Fr at 8192 and 1; add and sub in Fp at 4096, 8192 and 1,
+    in Fr at 4096 and 1."""
     from bls_verify_gadget_tpu_torch.ops.fp import FP, FR
 
     cases = [(f"{n}", "fp2_mul", FP) for n in (2 * BATCH, BATCH, 1)]
-    cases += [(f"Fp, {n}", "sub", FP) for n in (BATCH, 2 * BATCH, 1)]
-    cases += [(f"Fr, {n}", "sub", FR) for n in (BATCH, 1)]
+    cases += [(f"Fp, {n}", "mul", FP) for n in (2 * BATCH, BATCH, 1)]
+    cases += [(f"Fr, {n}", "mul", FR) for n in (2 * BATCH, 1)]
+    for name in ("add", "sub"):
+        cases += [(f"Fp, {n}", name, FP) for n in (BATCH, 2 * BATCH, 1)]
+        cases += [(f"Fr, {n}", name, FR) for n in (BATCH, 1)]
     return [(label, name, field,
              staged_edge_inputs(torch, rng, name, int(label.split()[-1]), field))
             for label, name, field in cases]
@@ -2200,7 +2228,7 @@ def field_cases(torch, rng):
 def field_phase(torch, K, field_started, parent_started=None):
     """The staged field kernels (module docstring, phase 9): on each case of
     field_cases the wrapper bit-equal to the plain version; the sweep
-    builds (every E of FIELD_E, fp2_mul also on one thread) and the
+    builds (every E of FIELD_E, Fp mul and fp2_mul also on one thread) and the
     parent's kernel bit-equal to the wrapper on the same CUDA tensors;
     device ms per launch of the library's kernel and of each build
     (CUDA-graph replay), of the empty kernel at the library's grid, and of
@@ -2208,31 +2236,32 @@ def field_phase(torch, K, field_started, parent_started=None):
     change, parent).  -> {kernel: {case: timings}} for the kernel rows."""
     import numpy as np
 
-    from bls_verify_gadget_tpu_torch.ops import tower as T
-
     rng = np.random.default_rng(SEED + 4)
     cfg = library_field(K)
     libs = {}
     for (lanes, e), started in sorted(field_started.items(), reverse=True):
         libs[(lanes, e)] = field_library(K, started)
-        field_build_report(started[2], f"sweep build, E = {e}, fp2_mul on {lanes} lane(s)")
+        field_build_report(started[2], f"sweep build, E = {e}, mul and fp2_mul on {lanes} "
+                                       f"lane(s)")
     parent = field_library(K, parent_started) if parent_started else None
     if parent is not None:
         field_build_report(parent_started[2], "parent")
-    out = {"sub": {}, "fp2_mul": {}}
+    out = {name: {} for name in FIELD_KERNELS}
     for label, name, field, ops in field_cases(torch, rng):
-        plain = field.sub_plain if name == "sub" else T.fp2_mul_plain
         got = getattr(K, name)(field, *ops)
-        err = max_err(got, plain(*ops))
+        err = max_err(got, field_plain(name, field)(*ops))
         got = flat_outputs(got)
         if err != 0:
             raise RuntimeError(f"{name} ({label}) disagrees with its plain version: max |err| {err}")
-        lib_label = f"E = {cfg[name]}" + (f", {cfg['lanes']} lanes" if name == "fp2_mul" else "")
+        # the kernels whose threads per element the lanes builds set
+        laned = name == "fp2_mul" or (name == "mul" and field.nlimb == 24)
+        lib_lanes = cfg["lanes" if name == "fp2_mul" else "mul_lanes"]
+        lib_label = f"E = {cfg[name]}" + (f", {lib_lanes} lanes" if laned else "")
         builds = {"library": K.library()}
         for (lanes, e), lib in libs.items():
-            if name == "fp2_mul":
+            if laned:
                 builds[f"E = {e}, {lanes} lane{'s' * (lanes > 1)}"] = lib
-            elif lanes == cfg["lanes"]:  # sub is the same in every lanes build
+            elif lanes == FIELD_LANES[0]:  # the same in every lanes build
                 builds[f"E = {e}"] = lib
         if parent is not None:
             builds["parent"] = parent
@@ -2248,7 +2277,7 @@ def field_phase(torch, K, field_started, parent_started=None):
         row = {"elements": n, "max_abs_err": err, "library_config": lib_label,
                **{v: device_ms(torch, launch, ()) for v, launch in launches.items()
                   if v != "parent"}}
-        blocks, threads = field_grid(K, name, n)
+        blocks, threads = field_grid(K, name, n, field.nlimb)
         row["floor_ms"] = device_ms(torch, floor_launch(torch, K, blocks, threads), ())
         extra = ""
         if parent is not None:
@@ -2282,14 +2311,15 @@ def main():
     only.add_argument("--group", action="store_true",
                       help="run only the device, build and group phases (the group kernels)")
     only.add_argument("--field", action="store_true",
-                      help="run only the device, build and field phases (sub and fp2_mul)")
+                      help="run only the device, build and field phases (mul, add, sub "
+                           "and fp2_mul)")
     ap.add_argument("--parent", metavar="DIR",
                     help="a git archive of the parent commit in a git-ignored directory of "
                          "this checkout: time its miller_dbl_run, miller_add, exp_x, "
                          "fp12_mul, fp6_mul, fp12_sqr, pt_mul_const, g2_cofactor, "
                          "sswu_map2 and pow_win "
                          "kernels interleaved with this tree's in the group phase, and its "
-                         "sub and fp2_mul in the field phase")
+                         "mul, add, sub and fp2_mul in the field phase")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)

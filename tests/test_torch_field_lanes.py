@@ -1,5 +1,17 @@
 """A model on Python ints of the staged field kernels of
-bls_verify_gadget_tpu_torch/csrc/field_kernels.cu, sub and fp2_mul.
+bls_verify_gadget_tpu_torch/csrc/field_kernels.cu, mul, add, sub and
+fp2_mul.
+
+mul: in Fp each element on 4 lanes, the lane-split Montgomery product of
+tests/test_torch_pow_lanes.py (lanes.cuh mont_mul_slice); in Fr and in a
+-DBLS_MUL_LANES=1 sweep build one thread per element, field.cuh's CIOS
+mont_mul on 32-bit words.  add: field.cuh mod_add on whole words, one
+thread per element.  Both held against the JAX package's golden fp_mul and
+fp_add in Fp (Python's modular arithmetic in Fr, which has no golden
+field) on seeded inputs and on edge rows: 2^384 - 1 by R^2 and by R^3, 2p
+- 1 by 2p - 1, 0, 1, p - 1 and the Montgomery one, a product whose
+deferred carry ripples across every lane it can cross; (p - 1) + (p - 1),
+(p - 1) + 1 = p -> 0, 0 + 0.
 
 fp2_mul: each element on 4 lanes, its three Karatsuba products (a0 b0, a1
 b1 and the unreduced sums (a0 + a1)(b0 + b1)) the lane-split Montgomery
@@ -13,14 +25,16 @@ fp2_mul on seeded inputs below p and on edge inputs (0, 1, p - 1, the
 Montgomery one, operand sums just below 2p, and a v0 - v1 whose borrow
 ripples across every lane).
 
-The staged tiling of both kernels (field.cuh stage_rows / unstage_rows, the
-kernels' element and tail logic, the entry points' grid of n / E blocks):
+The staged tiling of the four kernels (field.cuh stage_rows / unstage_rows,
+the kernels' element and tail logic, the entry points' grid of n / E
+blocks):
 at n = 1, 4095, 4096, 8191 and 8193 and every elements-per-block count E
 of chip_smoke.py's sweep builds (the library's among them), every int4 of
 a block's span is staged once, every element's
 output rows are written exactly once and computed from its own input rows,
 and a tail element's threads read a live element's row; for Fp and Fr rows
-(sub) and Fp rows on 4 lanes (fp2_mul).  The padded shared-memory stride
+on one thread (add, sub, mul in Fr) and Fp rows on 4 lanes (mul,
+fp2_mul).  The padded shared-memory stride
 gives the per-row reads no bank conflicts.  Tolerance 0."""
 
 import pathlib
@@ -33,15 +47,18 @@ import torch
 from bls_verify_gadget_tpu.golden import field as GF
 from bls_verify_gadget_tpu_torch import constants as C
 from bls_verify_gadget_tpu_torch.ops import kernels as K
-from test_torch_pow_lanes import NW, RINV, lookahead, mont_mul_lanes, value, words
+from test_torch_pow_lanes import (
+    NW, R, RINV, carry_pass, lane_rows, lookahead, mont_mul_lanes, value, words)
 
-LANES = 4  # lanes per fp2_mul element (field_kernels.cu BLS_FP2_MUL_LANES)
+LANES = 4  # lanes per Fp mul and fp2_mul element (BLS_MUL_LANES, BLS_FP2_MUL_LANES)
 PER_BLOCK = (8, 16, 32, 64)  # E of chip_smoke.py's sweep builds (FIELD_E)
 S = NW // LANES
 ONE = C.MONT_R_MOD_P  # 1 in Montgomery form
 TOP = 1 << (32 * NW)
 COUNTS = (1, 4095, 4096, 8191, 8193)
-STAGED = {"sub Fp": (12, 1), "sub Fr": (8, 1), "fp2_mul": (12, LANES)}  # (NW, lanes)
+STAGED = {"mul Fp": (12, LANES), "mul Fr": (8, 1), "add Fp": (12, 1), "add Fr": (8, 1),
+          "sub Fp": (12, 1), "sub Fr": (8, 1), "fp2_mul": (12, LANES)}  # (NW, lanes)
+FIELDS = {"Fp": (C.P, 12), "Fr": (C.R, 8)}  # modulus, 32-bit words
 CSRC = pathlib.Path(K.CSRC_DIR)
 
 
@@ -117,6 +134,134 @@ def test_fp2_mul_borrow_ripples_across_every_lane(lanes):
     assert borrows == [0] + [1] * (LANES - 1) and under == 1
     c = fp2_mul_model(a, b, lanes)
     assert c[0] == C.P - 1 and c == golden(a, b)
+
+
+def mont_mul_words(a, b, m, nw):
+    """field.cuh mont_mul<NW>: CIOS on 32-bit words with 64-bit partial
+    sums, t in NW + 2 words, one conditional subtraction of the low NW
+    words (t[NW] must end 0)."""
+    mask, n0 = (1 << 32) - 1, -pow(m, -1, 1 << 32) % (1 << 32)
+    aw, bw, pw = words(a, nw), words(b, nw), words(m, nw)
+    t = [0] * (nw + 2)
+    for i in range(nw):
+        c = 0
+        for j in range(nw):
+            c += aw[j] * bw[i] + t[j]
+            assert c < 1 << 64
+            t[j], c = c & mask, c >> 32
+        c += t[nw]
+        t[nw], t[nw + 1] = c & mask, c >> 32
+        mq = t[0] * n0 & mask
+        c = (mq * pw[0] + t[0]) >> 32
+        for j in range(1, nw):
+            c += mq * pw[j] + t[j]
+            assert c < 1 << 64
+            t[j - 1], c = c & mask, c >> 32
+        c += t[nw]
+        t[nw - 1], t[nw] = c & mask, t[nw + 1] + (c >> 32)
+        assert t[nw] <= mask
+    assert t[nw] == 0
+    lo = value(t[:nw])
+    return lo if lo < m else lo - m
+
+
+def mod_add_words(a, b, m, nw):
+    """field.cuh mod_add<NW>: s = a + b with its carry out, d = s - m; s
+    where there is no carry and d borrows."""
+    top = 1 << (32 * nw)
+    s = a + b
+    carry, s = s >= top, s % top
+    return s if not carry and s < m else (s - m) % top
+
+
+def mul_model(a, b, field, lanes):
+    """mul_kernel's arithmetic: Fp on 4 lanes, else one thread."""
+    m, nw = FIELDS[field]
+    return mont_mul_lanes(a, b, LANES) if lanes == LANES else mont_mul_words(a, b, m, nw)
+
+
+def ripple_row():
+    """An Fp product whose deferred carry crosses every lane it can: the
+    value (p >> 288) - 1 in lane 3, zeros below, by the Montgomery one.  Lane
+    0 never generates a carry (no carry word below it); here lane 1 does and
+    lane 2 passes it into lane 3 (chip_smoke.py's edge rows build the same)."""
+    return ((C.P >> 288) - 1) << 288, ONE
+
+
+def mul_edges(field):
+    """mul's edge rows: raw full-width values by R^2 and R^3 (hash_to_field's
+    folding), 0, 1, m - 1, the Montgomery one; in Fp also 2p - 1 squared
+    (the largest Karatsuba sums) and the ripple row.  Fr has 4r > 2^256, so
+    its sums below 2r are no operands of mul."""
+    m, nw = FIELDS[field]
+    top, one = 1 << (32 * nw), (1 << (32 * nw)) % m
+    rows = [(top - 1, top * top % m), (top - 1, top**3 % m), (0, m - 1), (1, 1),
+            (m - 1, m - 1), (m - 1, one), (one, one)]
+    if field == "Fp":
+        rows += [(2 * m - 1, 2 * m - 1), ripple_row()]
+    return rows
+
+
+def add_edges(field):
+    """add's edge rows: (m - 1) + (m - 1); (m - 1) + 1 = m -> 0, a carry
+    across every word; 0 + 0."""
+    m = FIELDS[field][0]
+    return [(m - 1, m - 1), (m - 1, 1), (1, m - 1), (0, 0)]
+
+
+def seeded_rows(field, seed):
+    """Canonical pairs, sums below 2m by canonical values (the Karatsuba
+    operands; Fp only), full-width values by R^2."""
+    m, nw = FIELDS[field]
+    rng = np.random.default_rng(seed)
+    rand = [int.from_bytes(rng.bytes(4 * nw), "little") for _ in range(48)]
+    rows = [(x % m, y % m) for x, y in zip(rand[:16], rand[16:32])]
+    rows += [(x, (1 << (32 * nw)) ** 2 % m) for x in rand[32:]]
+    if field == "Fp":
+        rows += [(x % m + y % m, y % m) for x, y in zip(rand[:16], rand[32:])]
+    return rows
+
+
+def fp_golden(a, b, op):
+    """The golden Fp product or sum of Montgomery-form operands (any
+    representative), in Montgomery form."""
+    x, y = a % C.P * RINV % C.P, b % C.P * RINV % C.P
+    return op(x, y) * C.MONT_R % C.P
+
+
+@pytest.mark.parametrize("field, lanes", (("Fp", LANES), ("Fp", 1), ("Fr", 1)))
+def test_mul_matches_golden(field, lanes):
+    """Fp on the lanes and on one thread; Fr on one thread (lanes.cuh is
+    Fp-only)."""
+    m, nw = FIELDS[field]
+    rinv = pow(1 << (32 * nw), -1, m)
+    for a, b in seeded_rows(field, 120 + lanes) + mul_edges(field):
+        want = fp_golden(a, b, GF.fp_mul) if field == "Fp" else a * b * rinv % m
+        assert mul_model(a, b, field, lanes) == want, (a, b)
+
+
+@pytest.mark.parametrize("field", FIELDS)
+def test_add_matches_golden(field):
+    m, nw = FIELDS[field]
+    for a, b in seeded_rows(field, 123)[:16] + add_edges(field):
+        want = fp_golden(a, b, GF.fp_add) if field == "Fp" else (a + b) % m
+        assert mod_add_words(a, b, m, nw) == want, (a, b)
+    assert mod_add_words(m - 1, 1, m, nw) == 0
+
+
+def test_mul_carry_ripples_across_every_lane():
+    """The ripple row's deferred carries: lane 1 generates (its slice plus
+    lane 0's carry word reaches 2^96), lane 2 passes it on (all ones), and
+    the product is still the value."""
+    a, b = ripple_row()
+    t, h = lane_rows(a, b, LANES)
+    top = 1 << (32 * S)
+    v = [value(t[j]) + (h[j - 1] if j else 0) for j in range(LANES)]
+    cin, _ = lookahead([x >= top for x in v], [x % top == top - 1 for x in v])
+    assert cin == [0, 0, 1, 1]
+    assert value([w for s in carry_pass(t, h)[0] for w in s]) == a
+    assert mul_model(a, b, "Fp", LANES) == mul_model(a, b, "Fp", 1) == a
+    assert a * b * RINV % C.P == a and R > a
 
 
 def staged_run(n, per_block, nw, lanes):
@@ -197,15 +342,34 @@ def test_model_constants_match_the_sources():
     field_cuh = (CSRC / "field.cuh").read_text()
     unit = (CSRC / "field_kernels.cu").read_text()
     assert "constexpr int kStagedStride = 2 * NW + 4;" in field_cuh
-    assert re.search(r"#define BLS_FP2_MUL_LANES %d\n" % LANES, unit)
-    for define in ("BLS_SUB_PER_BLOCK", "BLS_FP2_MUL_PER_BLOCK"):
+    for define in ("BLS_MUL_LANES", "BLS_FP2_MUL_LANES"):
+        assert re.search(r"#define %s %d\n" % (define, LANES), unit), define
+    for define in ("BLS_MUL_PER_BLOCK", "BLS_ADD_PER_BLOCK", "BLS_SUB_PER_BLOCK",
+                   "BLS_FP2_MUL_PER_BLOCK"):
         assert int(re.search(r"#define %s (\d+)\n" % define, unit)[1]) in PER_BLOCK, define
 
 
-def test_staged_wrappers_refuse_what_the_kernels_do_not_take():
+def test_staged_wrappers_refuse_what_the_kernels_do_not_take(monkeypatch):
     """An operand off a 16-byte boundary is refused (the CUDA path checks
-    every operand and output with _check_aligned before the launch)."""
+    every operand and output with _check_aligned before the launch): the
+    mul, add and sub wrappers' launch refuses it before the library is
+    loaded, and never falls back to the plain version."""
     rows = torch.zeros(4, 24, dtype=torch.int32)
     K._check_aligned("sub", [rows, rows[1:]])  # a 96-byte row keeps the alignment
     with pytest.raises(ValueError, match="16-byte"):
         K._check_aligned("fp2_mul", [rows.view(-1)[1:]])
+
+    def loaded():
+        raise LookupError("library loaded")
+
+    monkeypatch.setattr(K, "_cuda_operands", lambda field, ts: [t.contiguous() for t in ts])
+    monkeypatch.setattr(K, "library", loaded)
+    from bls_verify_gadget_tpu_torch.ops.fp import FP
+
+    off = torch.zeros(4 * 24 + 1, dtype=torch.int32)[1:].view(4, 24)
+    for name in ("mul", "add", "sub"):
+        for a, b in ((off, rows), (rows, off)):
+            with pytest.raises(ValueError, match="16-byte"):
+                K._binary_launch(name, FP, a, b)
+        with pytest.raises(LookupError):  # aligned rows go on to the launch
+            K._binary_launch(name, FP, rows, rows.clone())

@@ -9,7 +9,9 @@ across lanes by carry-lookahead; left out where a chain's product may stay
 below 2p).  Held at L = 2 and 4 against the JAX package's golden field
 multiplication on
 seeded inputs below 2p and on edge inputs (0, 1, p - 1, p, inputs near 2p,
-low words all 0xFFFFFFFF), with a carry that ripples across every lane, and
+low words all 0xFFFFFFFF), on the other domain of the mul kernel (a below
+2^384, 2^384 - 1 among them, by R^2, R^3 and p - 1), with a carry that
+ripples across every lane, and
 the chain (the window table, 4-bit windows from the top digit, no product
 for a zero digit) against pow() for both exponents of the port, e = p - 2
 and (p - 11)/16, on two elements in Fp and in Fp2.  Tolerance 0."""
@@ -75,9 +77,25 @@ def cond_sub(t):
 
 
 def mont_mul_lanes(a, b, L, canonical=True):
-    """lanes.cuh mont_mul<L, canonical>: a b R^-1 mod p for a, b < 2p;
-    below p, or below 2p without the conditional subtraction."""
-    assert 0 <= a < 2 * C.P and 0 <= b < 2 * C.P
+    """lanes.cuh mont_mul<L, canonical>: a b R^-1 mod p for a, b < 2p, or
+    for a < R and b < p (mul's raw halves by R^2 and R^3); below p, or
+    below 2p without the conditional subtraction."""
+    t, h = lane_rows(a, b, L)
+    t, over = carry_pass(t, h)
+    assert over == 0
+    whole = value([w for s in t for w in s])
+    assert whole < 2 * C.P and whole % C.P == a * b * RINV % C.P
+    if not canonical:
+        return whole
+    r = value([w for s in cond_sub(t) for w in s])
+    assert r == (whole - C.P if whole >= C.P else whole)
+    return r
+
+
+def lane_rows(a, b, L):
+    """mont_mul_slices' 12 rows: -> each lane's slice and carry word before
+    the deferred carries."""
+    assert (0 <= a < 2 * C.P and 0 <= b < 2 * C.P) or (0 <= a < R and 0 <= b < C.P)
     S = NW // L
     aw, bw, pw = words(a), words(b), words(C.P)
     t, h = [[0] * S for _ in range(L)], [0] * L
@@ -102,15 +120,7 @@ def mont_mul_lanes(a, b, L, canonical=True):
             topw = (w0[j + 1] if j + 1 < L else 0) + h[j] + out[j]
             t[j][S - 1], h[j] = topw & MASK, topw >> 32
             assert h[j] <= 3
-    t, over = carry_pass(t, h)
-    assert over == 0
-    whole = value([w for s in t for w in s])
-    assert whole < 2 * C.P and whole % C.P == a * b * RINV % C.P
-    if not canonical:
-        return whole
-    r = value([w for s in cond_sub(t) for w in s])
-    assert r == (whole - C.P if whole >= C.P else whole)
-    return r
+    return t, h
 
 
 def val_mul(a, b, L):
@@ -164,6 +174,23 @@ def test_lane_product_matches_golden(L):
         want = GF.fp_mul(a % C.P, b % C.P) * RINV % C.P
         assert mont_mul_lanes(a, b, L) == want
         lazy = mont_mul_lanes(a, b, L, canonical=False)
+        assert lazy < 2 * C.P and lazy % C.P == want
+
+
+@pytest.mark.parametrize("L", LANES)
+@pytest.mark.parametrize("b", ("R^2", "R^3", "p - 1"))
+def test_lane_product_takes_full_width_by_canonical(L, b):
+    """The mul kernel's second domain: a < 2^384 (the raw 384-bit halves of
+    hash_to_field) by a canonical b (R^2 and R^3 mod p, which put them in
+    Montgomery form; p - 1, the largest)."""
+    y = {"R^2": R * R % C.P, "R^3": R**3 % C.P, "p - 1": C.P - 1}[b]
+    rng = np.random.default_rng(97 + L)
+    xs = [int.from_bytes(rng.bytes(48), "little") for _ in range(16)]
+    xs += [R - 1, R - 2, 2 * C.P, (R - 1) - ((1 << 96) - 1), 1 << 383]
+    for x in xs:
+        want = x * y * RINV % C.P
+        assert mont_mul_lanes(x, y, L) == want
+        lazy = mont_mul_lanes(x, y, L, canonical=False)
         assert lazy < 2 * C.P and lazy % C.P == want
 
 
