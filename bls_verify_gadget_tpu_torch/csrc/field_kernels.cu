@@ -18,14 +18,12 @@
 // times launch_floor_kernel, PERF.md): what a launch costs beyond that is
 // its latency, not its rate.
 //
-// fp2_sqr maps ONE thread to one element, in blocks of 128, and reads and
-// writes its rows with scalar 4-byte accesses (a warp's load spans 3 KB).
-// mul, add, sub and fp2_mul stage a block's rows: the block reads each
-// operand as one contiguous span with 16-byte loads into shared memory
-// (field.cuh stage_rows, rows padded against bank conflicts) and writes its
-// results back the same way, kMulPerBlock, kAddPerBlock, kSubPerBlock and
-// kFp2MulPerBlock elements per block (chip_smoke.py's sweep, PERF.md), on a
-// grid the entry point computes from n.
+// The kernels stage a block's rows: the block reads each operand as one
+// contiguous span with 16-byte loads into shared memory (field.cuh
+// stage_rows, rows padded against bank conflicts) and writes its results
+// back the same way, kMulPerBlock, kAddPerBlock, kSubPerBlock,
+// kFp2MulPerBlock and kFp2SqrPerBlock elements per block (chip_smoke.py's
+// sweep, PERF.md), on a grid the entry point computes from n.
 //   - add and sub, and mul in Fr, run one thread per element on their
 //     staged rows (staged_binary).
 //   - mul in Fp runs each element on kMulLanes = 4 lanes of a warp, its
@@ -39,13 +37,16 @@
 //     carries hide behind the others' work; the differences on the lanes'
 //     slices (sub_slice, the borrows by lookahead), and each lane stores
 //     its own words: no gather.
+//   - fp2_sqr runs each element on 4 lanes: its two products in lockstep
+//     (mont_mul_slices, N = 2), with no sum or difference after them.
 //   A tail element's lanes run a copy of a live element and store nothing:
 //   every shuffle and ballot spans the whole warp.
 // chip_smoke.py's throwaway sweep builds set -DBLS_MUL_PER_BLOCK=E,
-// -DBLS_ADD_PER_BLOCK=E, -DBLS_SUB_PER_BLOCK=E and -DBLS_FP2_MUL_PER_BLOCK=E,
-// and -DBLS_MUL_LANES=1 -DBLS_FP2_MUL_LANES=1: mul's and fp2_mul's
-// one-thread bodies on the same staged rows, the baseline that splits the
-// gain between the staged I/O and the lanes.
+// -DBLS_ADD_PER_BLOCK=E, -DBLS_SUB_PER_BLOCK=E, -DBLS_FP2_MUL_PER_BLOCK=E
+// and -DBLS_FP2_SQR_PER_BLOCK=E, and -DBLS_MUL_LANES=1
+// -DBLS_FP2_MUL_LANES=1 -DBLS_FP2_SQR_LANES=1: the one-thread bodies of
+// mul, fp2_mul and fp2_sqr on the same staged rows, the baseline that
+// splits the gain between the staged I/O and the lanes.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -55,10 +56,8 @@
 
 namespace {
 
-constexpr int kThreads = 128;  // fp2_sqr
-
-// Elements per block of the staged kernels, and threads per Fp mul and
-// fp2_mul element (the header note).
+// Elements per block of the staged kernels, and threads per Fp mul,
+// fp2_mul and fp2_sqr element (the header note).
 #ifndef BLS_MUL_PER_BLOCK
 #define BLS_MUL_PER_BLOCK 8
 #endif
@@ -77,17 +76,28 @@ constexpr int kThreads = 128;  // fp2_sqr
 #ifndef BLS_FP2_MUL_LANES
 #define BLS_FP2_MUL_LANES 4
 #endif
+#ifndef BLS_FP2_SQR_PER_BLOCK
+#define BLS_FP2_SQR_PER_BLOCK 8
+#endif
+#ifndef BLS_FP2_SQR_LANES
+#define BLS_FP2_SQR_LANES 4
+#endif
 constexpr int kMulPerBlock = BLS_MUL_PER_BLOCK;
 constexpr int kMulLanes = BLS_MUL_LANES;
 constexpr int kAddPerBlock = BLS_ADD_PER_BLOCK;
 constexpr int kSubPerBlock = BLS_SUB_PER_BLOCK;
 constexpr int kFp2MulPerBlock = BLS_FP2_MUL_PER_BLOCK;
 constexpr int kFp2MulLanes = BLS_FP2_MUL_LANES;
+constexpr int kFp2SqrPerBlock = BLS_FP2_SQR_PER_BLOCK;
+constexpr int kFp2SqrLanes = BLS_FP2_SQR_LANES;
 static_assert(kMulLanes == 4 || kMulLanes == 1, "BLS_MUL_LANES is 4 or 1");
 static_assert(kFp2MulLanes == 4 || kFp2MulLanes == 1, "BLS_FP2_MUL_LANES is 4 or 1");
+static_assert(kFp2SqrLanes == 4 || kFp2SqrLanes == 1, "BLS_FP2_SQR_LANES is 4 or 1");
 static_assert(kMulLanes == 1 || kMulPerBlock * kMulLanes % 32 == 0,
               "whole warps for the lanes' shuffles");
 static_assert(kFp2MulLanes == 1 || kFp2MulPerBlock * kFp2MulLanes % 32 == 0,
+              "whole warps for the lanes' shuffles");
+static_assert(kFp2SqrLanes == 1 || kFp2SqrPerBlock * kFp2SqrLanes % 32 == 0,
               "whole warps for the lanes' shuffles");
 
 // Threads per element of mul: lanes.cuh is Fp-only, so Fr runs on one.
@@ -96,7 +106,7 @@ constexpr int kMulThreads = NW == bls::kFpWords ? kMulLanes : 1;
 
 using bls::make_modulus;
 
-inline unsigned grid_for(long long n, int per_block = kThreads) {
+inline unsigned grid_for(long long n, int per_block) {
   return (unsigned)((n + per_block - 1) / per_block);
 }
 
@@ -351,29 +361,76 @@ __global__ void __launch_bounds__(kFp2MulPerBlock * kFp2MulLanes)
   }
 }
 
-// Replaces _fp2sqr_kernel (kernels.py:276): (a0 + a1 u)^2 =
-// (a0 + a1)(a0 - a1) + 2 a0 a1 u with 2 Montgomery products; the sum
-// a0 + a1 stays unreduced (< 2p).  384 bytes, ~1,200 multiply-adds per
-// element: bytes-bound (~115 ps vs ~72 ps).
-__global__ void fp2_sqr_kernel(const int32_t* __restrict__ a0,
-                               const int32_t* __restrict__ a1,
-                               int32_t* __restrict__ c0,
-                               int32_t* __restrict__ c1, long long n,
-                               bls::Modulus<12> M) {
-  constexpr int NW = 12;
-  long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const long long off = i * 2 * NW;
-  uint32_t x0[NW], x1[NW], s[NW], d[NW], r[NW];
-  bls::load_words<NW>(a0 + off, x0);
-  bls::load_words<NW>(a1 + off, x1);
-  bls::add_words<NW>(x0, x1, s);
-  bls::mod_sub<NW>(x0, x1, d, M);
-  bls::mont_mul<NW>(s, d, r, M);
-  bls::store_words<NW>(c0 + off, r);
-  bls::mont_mul<NW>(x0, x1, s, M);
-  bls::mod_add<NW>(s, s, r, M);
-  bls::store_words<NW>(c1 + off, r);
+// Replaces _fp2sqr_kernel (kernels.py:276): (a0 + a1 u)^2 with 2
+// Montgomery products, c0 = (a0 + a1)(a0 + p - a1) and c1 = a0 (2 a1).
+// Every factor lies below 2p, the lanes' domain: the sum a0 + a1 and the
+// double 2 a1 below 2p, and the difference a0 + p - a1 unreduced in (0,
+// 2p), so no mod_sub before the products and no mod_add after them.  Each
+// product is canonical and congruent to the JAX body's (kernels.py:276-289:
+// mont(s, d) with d = a0 - a1 mod p, and add(m, m) with m = mont(a0, a1)),
+// so the limbs are its limbs and fp2_sqr_plain's.  384 bytes, ~1,200
+// multiply-adds per element: bytes-bound (~115 ps against ~72 ps), 0.47 us
+// at 4096 elements.  E elements per block on kFp2SqrLanes threads each:
+// the block stages its rows of a0 and a1, each element's threads read
+// both whole, and the block writes the spans of c0 and c1 back.  On 4
+// lanes the two products run in lockstep (mont_mul_slices, N = 2) and each
+// lane stores its own words of c0 and c1.
+__global__ void __launch_bounds__(kFp2SqrPerBlock * kFp2SqrLanes)
+    fp2_sqr_kernel(const int32_t* __restrict__ a0,
+                   const int32_t* __restrict__ a1, int32_t* __restrict__ c0,
+                   int32_t* __restrict__ c1, long long n, bls::FpModulus M) {
+  constexpr int NW = bls::kFpWords, W = bls::kStagedStride<NW>;
+  constexpr int E = kFp2SqrPerBlock, T = E * kFp2SqrLanes;
+  __shared__ __align__(16) int32_t s[2][E * W];
+  const long long first = (long long)blockIdx.x * E;
+  if (first >= n) return;  // the whole block
+  const int rows = (int)(n - first < E ? n - first : E);
+  {
+    const int32_t* src[2] = {a0, a1};
+    int32_t* dst[2] = {s[0], s[1]};
+    bls::stage_rows<NW, E, T, 2>(src, dst, first, rows);
+  }
+  __syncthreads();
+  const int g = threadIdx.x / kFp2SqrLanes;  // the block's element
+  const bool live = g < rows;
+  const int at = live ? g : rows - 1;  // a tail element: a copy of a live one
+  // u[0] = a0 + a1, v[0] = a0 + p - a1; u[1] = 2 a1, v[1] = a0
+  uint32_t u[2][NW], v[2][NW];
+  bls::load_staged<NW>(s[0] + at * W, v[1]);
+  bls::load_staged<NW>(s[1] + at * W, u[1]);
+  __syncthreads();  // every operand in registers: the rows take c0, c1
+  bls::add_words<NW>(v[1], u[1], u[0]);
+  bls::add_words<NW>(v[1], M.p, v[0]);
+  bls::sub_words<NW>(v[0], u[1], v[0]);
+  bls::add_words<NW>(u[1], u[1], u[1]);
+  if constexpr (kFp2SqrLanes == 4) {
+    constexpr int S = bls::lanes::Lane<4>::S;
+    const bls::lanes::Lane<4> ln = bls::lanes::make_lane<4>(M);
+    uint32_t t[2][S];
+    bls::lanes::mont_mul_slices<4, 2, true>(u, v, t, ln);
+    if (live) {  // lane j stores words j S .. j S + S - 1 of c0 and c1
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        int2* row = reinterpret_cast<int2*>(s[c] + g * W + 2 * S * ln.j);
+#pragma unroll
+        for (int k = 0; k < S; ++k) {
+          row[k] = make_int2((int32_t)(t[c][k] & 0xFFFFu), (int32_t)(t[c][k] >> 16));
+        }
+      }
+    }
+  } else {  // the one-thread body of a sweep build
+    uint32_t r[NW];
+    bls::mont_mul<NW>(u[0], v[0], r, M);
+    if (live) bls::store_staged<NW>(s[0] + g * W, r);
+    bls::mont_mul<NW>(u[1], v[1], r, M);
+    if (live) bls::store_staged<NW>(s[1] + g * W, r);
+  }
+  __syncthreads();
+  {
+    const int32_t* src[2] = {s[0], s[1]};
+    int32_t* dst[2] = {c0, c1};
+    bls::unstage_rows<NW, E, T, 2>(src, dst, first, rows);
+  }
 }
 
 // Replaces no TPU kernel: it returns at once, so chip_smoke.py's time of
@@ -452,11 +509,15 @@ int bls_fp2_mul(const int32_t* a0, const int32_t* a1, const int32_t* b0,
   return (int)cudaGetLastError();
 }
 
+// Every operand 16-byte aligned.
 int bls_fp2_sqr(const int32_t* a0, const int32_t* a1, int32_t* c0,
                 int32_t* c1, long long n, const uint32_t* p, unsigned n0,
                 void* stream) {
-  fp2_sqr_kernel<<<grid_for(n), kThreads, 0, (cudaStream_t)stream>>>(
-      a0, a1, c0, c1, n, make_modulus<12>(p, n0));
+  if (!aligned16(a0) || !aligned16(a1) || !aligned16(c0) || !aligned16(c1)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  fp2_sqr_kernel<<<grid_for(n, kFp2SqrPerBlock), kFp2SqrPerBlock * kFp2SqrLanes, 0,
+                   (cudaStream_t)stream>>>(a0, a1, c0, c1, n, make_modulus<12>(p, n0));
   return (int)cudaGetLastError();
 }
 

@@ -1,6 +1,7 @@
 // The cooperative layer of the group kernels (pairing_kernels.cu's
 // miller_dbl_run, miller_add, exp_x, fp12_mul, fp6_mul and fp12_sqr,
-// hash_kernels.cu's pt_mul_const, g2_cofactor and sswu_map2): one batch
+// hash_kernels.cu's pt_mul_const, g2_cofactor and sswu_map2,
+// point_kernels.cu's pt_mul_var): one batch
 // element on a group of G threads (G a divisor of 32, so a group lies in
 // one warp), its state in shared memory, its bodies run as the rounds of
 // group_rounds.cuh.
@@ -27,13 +28,14 @@
 // group read different ops, and __constant__ would serialize them.
 //
 // Point programs (the ladders, g2_cofactor, sswu_map2) run a script
-// (run_script): bodies, complete additions, constant-scalar ladders, cases,
-// table loads and exponent chains in lockstep, all through one run<G>, so
-// that a kernel inlines one copy of the op loop.  The complete addition's
-// exceptional cases and the other cases are branches on flags that every
-// thread of the group reads from the element's slots (add_case,
-// pick_case), so a group never diverges; only groups of a warp may, and
-// only on data-dependent choices.  No op reads a slot by a runtime index:
+// (run_script): bodies, complete additions, constant-scalar ladders,
+// variable-scalar ladders, cases, table loads and exponent chains in
+// lockstep, all through one run<G>, so that a kernel inlines one copy of
+// the op loop.  The complete addition's exceptional cases, a variable
+// ladder's bit and the other cases are branches on flags that every thread
+// of the group reads from the element's slots (add_case, pick_case), so a
+// group never diverges; only groups of a warp may, and only on
+// data-dependent choices.  No op reads a slot by a runtime index:
 // a chain's window copies its table entry into a fixed slot (pow_step).
 #pragma once
 
@@ -288,22 +290,48 @@ __device__ __forceinline__ bool slots_zero(const uint32_t* S, int s, int c) {
   return acc == 0;
 }
 
+// The kinds of a script step (kGroupScript; group_rounds.py BODY, ADD,
+// LADDER, POW, CASE, LOAD, VLADDER).
+enum : uint32_t {
+  kStepBody = 0,
+  kStepAdd = 1,
+  kStepLadder = 2,
+  kStepPow = 3,
+  kStepCase = 4,
+  kStepLoad = 5,
+  kStepVarLadder = 6
+};
+
+// Bit `bit` of the element's scalar (the slot scalar: 8 words, little-endian).
+template <class Prog>
+__device__ __forceinline__ bool scalar_bit(const uint32_t* S, int bit) {
+  return (S[kFpWords * Prog::kSlot_scalar + (bit >> 5)] >> (bit & 31)) & 1u;
+}
+
 // After the body add of a point program: the phase range [p0, p1) of the
 // body that the complete addition's case picks (curve.cuh pt_add, in
 // _pt_add_body's order): P (acc) at infinity -> take_base; Q (base) at
 // infinity -> none, acc is P; h = r = 0 -> dbl, the doubling of acc; h = 0
-// -> set_inf, (one, one, 0); else take_sum.  Every lane reads the same
-// flags, then waits for the others before the case body writes acc.
+// -> set_inf, (one, one, 0); else take_sum.  In a variable ladder (bit >=
+// 0) a clear bit of the scalar comes first: none, acc stays.  Every lane
+// reads the same flags, then waits for the others before the case body
+// writes acc.
 template <class Prog>
 __device__ __forceinline__ void add_case(const uint32_t* S, unsigned mask,
-                                         int& p0, int& p1) {
+                                         int bit, int& p0, int& p1) {
   constexpr int c = Prog::kCoord;
+  bool clear = false;
+  if constexpr ((Prog::kStepKinds >> kStepVarLadder) & 1) {
+    clear = bit >= 0 && !scalar_bit<Prog>(S, bit);
+  }
   const bool p_inf = slots_zero(S, Prog::kSlot_acc + 2 * c, c);
   const bool q_inf = slots_zero(S, Prog::kSlot_base + 2 * c, c);
   const bool h0 = slots_zero(S, Prog::kSlot_h, c);
   const bool r0 = slots_zero(S, Prog::kSlot_r, c);
   __syncwarp(mask);
-  if (p_inf) {
+  if (clear) {
+    p0 = p1 = 0;
+  } else if (p_inf) {
     p0 = Prog::kBody_take_base, p1 = Prog::kEnd_take_base;
   } else if (q_inf) {
     p0 = p1 = 0;
@@ -315,17 +343,6 @@ __device__ __forceinline__ void add_case(const uint32_t* S, unsigned mask,
     p0 = Prog::kBody_take_sum, p1 = Prog::kEnd_take_sum;
   }
 }
-
-// The kinds of a script step (kGroupScript; group_rounds.py BODY, ADD,
-// LADDER, POW, CASE, LOAD).
-enum : uint32_t {
-  kStepBody = 0,
-  kStepAdd = 1,
-  kStepLadder = 2,
-  kStepPow = 3,
-  kStepCase = 4,
-  kStepLoad = 5
-};
 
 // A CASE step (group_rounds.py pick_case): the phase range [p0, p1) of the
 // body that case c picks.  Every lane reads the case's flags from the
@@ -455,7 +472,10 @@ __device__ __forceinline__ void pow_step(const ChainInputs& in, uint32_t* S,
 // its body; an addition step the body add, then the body that add_case
 // picks; a ladder step take_base (acc = base), then per segment of `env`
 // (the kernel's Segments) len doublings and, where it ends on a set bit, an
-// addition (the constant-scalar ladder, _ladder_rows); a case step the
+// addition (the constant-scalar ladder, _ladder_rows); a variable ladder
+// step set_inf (acc = (one, one, 0)), then for bit nbits - 1 .. 0 (env, the
+// kernel's bit count) a doubling and an addition whose case add_case picks
+// with the bit's flag first (none where the bit is clear); a case step the
 // body that pick_case picks; a load step rows of env.table; a pow step its
 // windows (pow_step, env's ChainInputs).  One run<G> for all of them; the
 // steps that Prog's script lacks (kStepKinds) are not compiled.
@@ -467,12 +487,14 @@ __device__ __forceinline__ void run_script(const Env& env, uint32_t* S,
   int k = Prog::kScript;
   int seg = -1, step = 0;  // in a ladder step: its segment and doublings done
   int win = -1, nwin = 0;  // in a pow step: its window and window count
+  int vstep = -1;          // in a variable ladder: 2 x its bits to run, less its steps
+  int bit = -1;            // in a variable ladder: the bit of the add just run
   bool pick = false;       // the body just run was add
   for (;;) {
     int p0 = 0, p1 = 0;
     if (pick) {
       pick = false;
-      add_case<Prog>(S, mask, p0, p1);
+      add_case<Prog>(S, mask, bit, p0, p1);
     } else if (k == Prog::kEndScript) {
       break;
     } else {
@@ -506,6 +528,33 @@ __device__ __forceinline__ void run_script(const Env& env, uint32_t* S,
               ++k;
               continue;
             }
+          }
+        }
+      } else if (e.x == kStepVarLadder) {
+        if constexpr ((kinds >> kStepVarLadder) & 1) {
+          const int nbits = env;
+          if (vstep < 0) {  // the ladder's start
+            vstep = 2 * nbits;
+            p0 = Prog::kBody_set_inf, p1 = Prog::kEnd_set_inf;
+          } else if (vstep == 0) {  // the ladder's end
+            vstep = -1;
+            ++k;
+            continue;
+          } else if (--vstep & 1) {  // bit vstep / 2: its doubling
+            p0 = Prog::kBody_dbl, p1 = Prog::kEnd_dbl;
+          } else {
+            // its addition, and add_case picks none where the bit is clear
+            // (the JAX body's double-and-cmov-add); skipped where the bit
+            // is clear in every element of the warp, by a vote over its
+            // live threads, so that the groups of a warp stay together (a
+            // branch per group let them drift apart: 1.8-2.2x slower at
+            // 4096 elements, PERF.md).  At 4096 elements a warp holds 4-8
+            // elements and almost never skips; one element skips the
+            // additions of its clear bits.
+            bit = vstep >> 1;
+            if (__all_sync(__activemask(), !scalar_bit<Prog>(S, bit))) continue;
+            p0 = Prog::kBody_add, p1 = Prog::kEnd_add;
+            pick = true;
           }
         }
       } else if (e.x == kStepCase) {

@@ -2,7 +2,8 @@
 // loaded through ctypes by ops/kernels.py: Jacobian doubling repeated
 // `count` times, the complete Jacobian addition, and the variable-scalar
 // double-and-add ladder of keygen and signing, for G1 (coordinates in Fp)
-// and G2 (Fp2) as template instances over curve.cuh.
+// and G2 (Fp2) as template instances: the first two over curve.cuh, the
+// ladder over group.cuh.
 //
 // Layout.  As in hash_kernels.cu: one packed operand buffer in and one
 // packed output buffer out, (c, n, 24) int32 16-bit Montgomery limbs, a
@@ -11,29 +12,46 @@
 // 16-bit limbs, little-endian.  The Montgomery one and the bit count ride
 // by value in the parameter bank.
 //
-// What bounds them, and the design.  One thread runs one batch element, so
-// device memory sees the operands and the results only: 96 bytes per Fp
-// coordinate in or out, and 64 per scalar, against 8 / 17 Montgomery
-// products per G1 / G2 doubling and 16 / 44 per addition (~600 32-bit
-// multiply-adds each).  The ladder is bound by operations (6,120 / 15,555
-// products per element for 255 bits); a single addition or doubling at the
-// 2,048 elements of a 4096-element aggregation tree's widest level is
-// bound by operations too, at 1-3 microseconds, about what a launch costs.
-// The ladder's bits differ per thread, so a warp runs the addition
-// whenever one of its threads has a set bit (divergence): the simple
-// design accepts that; a fixed-window or warp-uniform schedule is later
-// work.
+// What bounds them, and the design.  Device memory sees the operands and
+// the results only: 96 bytes per Fp coordinate in or out, and 64 per
+// scalar, against 7-8 / 17 Montgomery products per G1 / G2 doubling and 16
+// / 44 per addition (~600 32-bit multiply-adds each).  The ladder is bound
+// by operations (up to 5,865 / 15,555 products per element for 255 bits);
+// a single addition or doubling at the 2,048 elements of a 4096-element
+// aggregation tree's widest level is bound by operations too, at 1-3
+// microseconds, about what a launch costs.
+// pt_dbl and pt_add run one thread per element (curve.cuh).  pt_mul_var
+// (the TPU's _ptmulvar_kernel) runs on group.cuh: a group of G threads per
+// element, its state in shared memory, the doubling and the complete
+// addition as rounds of independent Montgomery products (group_rounds.cuh,
+// the bodies of pt_mul_const's ladders, group_rounds.py ladder_bodies), and
+// the element's scalar bit as one more flag of the addition's case, which
+// every thread of the group reads from the element's slots: a group never
+// diverges on its bit.  The one-thread ladder it replaces ran 255 x (17 +
+// 44) G2 products in series per thread, 32 threads per block (one warp per
+// SM at 4096 elements), and branched per thread on its bit.
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
 #include "curve.cuh"
+#include "group.cuh"
 
 namespace {
 
-// One warp per block, as in pairing_kernels.cu.
+// One warp per block for pt_dbl and pt_add, as in pairing_kernels.cu.
 constexpr int kThreads = 32;
 constexpr int kScalarLimbs = 16;  // raw Fr scalar: 16 x 16-bit limbs
+
+// pt_mul_var's threads per element (a divisor of 32) over Fp (G1) and Fp2
+// (G2), from the sweep at 4096 elements (PERF.md).  chip_smoke.py builds
+// the sweep's other values as throwaway copies of this unit with
+// -DBLS_POINT_GROUP=G, which sets both.
+#ifdef BLS_POINT_GROUP
+constexpr int kGroupVarG1 = BLS_POINT_GROUP, kGroupVarG2 = BLS_POINT_GROUP;
+#else
+constexpr int kGroupVarG1 = 4, kGroupVarG2 = 8;
+#endif
 
 inline unsigned grid_for(long long n) {
   return (unsigned)((n + kThreads - 1) / kThreads);
@@ -89,37 +107,52 @@ __global__ void __launch_bounds__(kThreads)
 
 // Replaces _ptmulvar_kernel (kernels.py:1329): [s]P for a per-element
 // scalar s, MSB first over `nbits` bits from acc = (1, 1, 0): per bit
-// acc = pt_dbl(acc), then acc = pt_add(acc, P) where the bit is set.  The
-// JAX body computes both and selects per lane; the values are exact, so
-// branching per thread keeps the same limbs (the doubling of (1, 1, 0) is
-// (1, 1, 0), and its addition to P returns P).  A thread reads bit b of
-// its own scalar row directly (limb b / 16, bit b % 16); the JAX wrapper's
-// pre-aligned scalar rows are a TPU row layout and do not carry over.
-// in and out (3c, n), scalars (n, 16).  Montgomery products per element:
-// 255 x (8 + 16) = 6,120 for G1, 255 x (17 + 44) = 15,555 for G2 where
-// every bit is set; a clear bit skips its addition (~219 / ~557 ns of
-// operations against ~0.2 / ~0.4 ns of bytes at 255 bits).
-template <class F>
-__global__ void __launch_bounds__(kThreads)
+// acc = pt_dbl(acc), then acc = pt_add(acc, P) where the bit is set (the
+// JAX body computes both and selects; the values are exact, so the limbs
+// are the plain version's).  in and out (3c, n), scalars (n, 16) raw
+// 16-bit limbs (the JAX wrapper's pre-aligned scalar rows are a TPU row
+// layout and do not carry over).  Montgomery products per element: 255 x
+// (7 + 16) = 5,865 for G1, 255 x (17 + 44) = 15,555 for G2, less the
+// additions of the bits that are clear in every element of the warp
+// (group.cuh run_script: at 4096 elements nearly none, for one element
+// those of its clear bits).
+// On a group of G threads with VarLadderG1Program / VarLadderG2Program:
+// P into base, the Montgomery one and the element's scalar (8 words) into
+// their slots, the script (one variable ladder step: set_inf, then per bit
+// a doubling and the addition, whose case is none where the bit is clear),
+// acc out.  A doubling is 3 product rounds (G1: 3, 3, 1 products; G2: 7,
+// 7, 3), an addition 5 (G1 16 products, G2 44).  G = 4 in G1 and 8 in G2
+// (G = 2, 4, 8 at 4096 elements: G1 9.10 / 5.42 / 7.28 ms, G2 22.32 /
+// 12.16 / 10.37 on an H100 at 700 W; PERF.md).
+template <class Prog, int G>
+__global__ void __launch_bounds__(bls::group::kThreads)
     pt_mul_var_kernel(const int32_t* __restrict__ in,
                       const int32_t* __restrict__ scalars,
                       int32_t* __restrict__ out, long long n, int nbits,
                       FpModulus M, Fp one) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const Jac<F> base = bls::load_jac<F>(in, 0, n, i);
-  const int32_t* s = scalars + i * kScalarLimbs;
-  Jac<F> acc;
-  bls::c_set_one(acc.X, one);
-  bls::c_set_one(acc.Y, one);
-  acc.Z = F{};
-  for (int b = nbits - 1; b >= 0; --b) {
-    acc = bls::pt_dbl(acc, M);
-    if ((__ldg(s + (b >> 4)) >> (b & 15)) & 1) {
-      acc = bls::pt_add(acc, base, one, M);
-    }
+  extern __shared__ uint4 smem[];
+  const int g = threadIdx.x / G, lane = threadIdx.x % G;
+  const long long i =
+      (long long)blockIdx.x * bls::group::elements_per_block<Prog, G>() + g;
+  if (i >= n) return;  // the whole group: no barrier spans groups
+  uint32_t* S = reinterpret_cast<uint32_t*>(smem) +
+                (long long)g * Prog::kSlots * bls::kFpWords;
+  const unsigned mask = bls::group::lane_mask<G>();
+  constexpr int nc = 3 * Prog::kCoord;
+  bls::group::load_coords<G>(
+      in, n, i, nc, [](int c) { return Prog::kSlot_base + c; }, S, lane);
+  bls::group::store_const<G>(S, Prog::kSlot_one, one, lane);
+  const int32_t* s = scalars + i * kScalarLimbs;  // 8 words, then 4 of 0
+  for (int k = lane; k < bls::kFpWords; k += G) {
+    S[bls::kFpWords * Prog::kSlot_scalar + k] =
+        2 * k < kScalarLimbs
+            ? (uint32_t)__ldg(s + 2 * k) | ((uint32_t)__ldg(s + 2 * k + 1) << 16)
+            : 0u;
   }
-  bls::store_jac(out, 0, n, i, acc);
+  __syncwarp(mask);
+  bls::group::run_script<Prog, G>(nbits, S, lane, mask, M);
+  bls::group::store_coords<G>(
+      out, n, i, nc, [](int c) { return Prog::kSlot_acc + c; }, S, lane);
 }
 
 }  // namespace bls_kernels
@@ -168,14 +201,16 @@ int bls_pt_mul_var(const int32_t* in, const int32_t* scalars, int32_t* out,
   const auto M = bls::make_modulus<bls::kFpWords>(p, n0);
   const bls::Fp o = bls::make_fp(one);
   const cudaStream_t s = (cudaStream_t)stream;
+  using G1 = bls::group::VarLadderG1Program;
+  using G2 = bls::group::VarLadderG2Program;
   if (nc == 1) {
-    bls_kernels::pt_mul_var_kernel<bls::Fp>
-        <<<grid_for(n), kThreads, 0, s>>>(in, scalars, out, n, nbits, M, o);
-  } else {
-    bls_kernels::pt_mul_var_kernel<bls::Fp2>
-        <<<grid_for(n), kThreads, 0, s>>>(in, scalars, out, n, nbits, M, o);
+    return bls::group::launch<G1, kGroupVarG1>(
+        bls_kernels::pt_mul_var_kernel<G1, kGroupVarG1>, n, s, in, scalars, out, n,
+        nbits, M, o);
   }
-  return (int)cudaGetLastError();
+  return bls::group::launch<G2, kGroupVarG2>(
+      bls_kernels::pt_mul_var_kernel<G2, kGroupVarG2>, n, s, in, scalars, out, n, nbits,
+      M, o);
 }
 
 }  // extern "C"

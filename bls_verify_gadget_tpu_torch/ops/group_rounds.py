@@ -640,8 +640,14 @@ def miller_add_program(k):
 #   POW     the program's chains in lockstep (run_pow);
 #   CASE    the body that the first matching rule of a case picks from the
 #           flags of named slots (pick_case);
-#   LOAD    rows of the kernel's constant table into a named range.
-BODY, ADD, LADDER, POW, CASE, LOAD = range(6)
+#   LOAD    rows of the kernel's constant table into a named range;
+#   VLADDER a ladder over the element's own scalar, MSB first over the
+#           kernel's nbits bits: set_inf, then per bit dbl and an addition
+#           whose case is none where the bit is clear (add_case's bit flag,
+#           read from the slot scalar; group.cuh skips the addition where
+#           the bit is clear in every element of its warp: the same
+#           values).
+BODY, ADD, LADDER, POW, CASE, LOAD, VLADDER = range(7)
 ZERO, PARITY = range(2)  # a CASE flag: the slots all zero, the slot's value odd
 ADD_CASES = ("take_base", "dbl", "set_inf", "take_sum")  # the bodies add_case picks
 # curve.cuh's Jacobian formulas on symbolic coordinates: Fp (G1) a Lin,
@@ -779,6 +785,22 @@ def ladder_program(F):
     ladder_bodies(P, F)
     P.inputs, P.presets, P.outputs = ["base"], ["one"], ["acc"]
     P.script = [(LADDER, None)]
+    return P.allocate()
+
+
+def var_ladder_program(F):
+    """pt_mul_var over F: the point in base, the Montgomery one in one and
+    the element's scalar in scalar (its 16 raw 16-bit limbs as 8 words);
+    the script a variable ladder (VLADDER), the result in acc.  From acc =
+    (one, one, 0) per bit a doubling, then the complete addition of base
+    where the bit is set: the plain version's double-and-add, in its order,
+    so the Jacobian representative is its."""
+    P = Program("var_ladder_g1" if F.width == 1 else "var_ladder_g2")
+    point_slots(P, F)
+    P.named("scalar", 1)
+    ladder_bodies(P, F)
+    P.inputs, P.presets, P.outputs = ["base"], ["one", "scalar"], ["acc"]
+    P.script = [(VLADDER, None)]
     return P.allocate()
 
 
@@ -1155,8 +1177,9 @@ def _flow(P):
     writes), slots that the kernel reads and writes outside the bodies.
     First the kernel's loads, then its script's steps (a CASE's or an
     addition's flags before the bodies they pick, a ladder's doublings and
-    additions in any order, a POW's copies before each window's bodies) or
-    P.flow, last its stores."""
+    additions in any order, a variable ladder's scalar read at every bit
+    and its addition run or not, a POW's copies before each window's
+    bodies) or P.flow, last its stores."""
 
     def ranges(names):
         return set().union(*(_range(P, n) for n in names))
@@ -1173,6 +1196,9 @@ def _flow(P):
             flow += add()
         elif kind == LADDER:
             flow += ["take_base", ("loop", ("alt", "dbl", add()))]
+        elif kind == VLADDER:
+            flow += ["set_inf", ("loop", ["dbl", ("touch", _range(P, "scalar"), set()),
+                                          ("alt", None, add())])]
         elif kind == LOAD:
             flow.append(("touch", set(), _range(P, arg[2])))
         elif kind == CASE:
@@ -1296,7 +1322,8 @@ def programs():
     return ([exp_x_program()] + [miller_program(k) for k in MILLER_PAIRS]
             + [ladder_program(FP_COORD), ladder_program(FP2_COORD), cofactor_program()]
             + [miller_add_program(k) for k in MILLER_PAIRS] + [sswu_program()]
-            + [fp12_mul_program(), fp6_mul_program(), fp12_sqr_program()])
+            + [fp12_mul_program(), fp6_mul_program(), fp12_sqr_program()]
+            + [var_ladder_program(FP_COORD), var_ladder_program(FP2_COORD)])
 
 
 def elements_per_block(P, g):
@@ -1393,17 +1420,21 @@ def run_body(P, body, slots):
     return slots
 
 
-def add_case(P, slots):
+def add_case(P, slots, bit=None):
     """The body that the complete addition's case picks after the body add,
     or None (group.cuh add_case; curve.cuh pt_add, in _pt_add_body's order):
     P at infinity -> take_base; Q at infinity -> none (acc is P); h = r =
-    0 -> dbl; h = 0 -> set_inf; else take_sum."""
+    0 -> dbl; h = 0 -> set_inf; else take_sum.  In a variable ladder
+    (`bit` the scalar's bit) a clear bit comes first: none, acc stays (the
+    plain version's cmov)."""
     c = P.consts["kCoord"]
 
     def zero(name, off=0):
         first = P.slots[name][0] + off
         return not any(slots[first:first + c])
 
+    if bit is not None and not slots[P.slots["scalar"][0]] >> bit & 1:
+        return None
     if zero("acc", 2 * c):
         return "take_base"
     if zero("base", 2 * c):
@@ -1461,14 +1492,16 @@ def run_pow(P, exps, slots):
         run_body(P, "win_mul", slots)
 
 
-def run_script(P, segments, slots, exps=(), table=()):
+def run_script(P, segments, slots, exps=(), table=(), nbits=0):
     """Run a point program's script on a list of canonical ints, as
     group.cuh run_script does: `segments` the ladder's (len, set bit) runs,
-    `exps` the POW chains' exponents, `table` the LOAD rows (ints)."""
+    `exps` the POW chains' exponents, `table` the LOAD rows (ints), `nbits`
+    the variable ladder's bit count (its scalar an int in the slot
+    scalar)."""
 
-    def add():
+    def add(*bit):
         run_body(P, "add", slots)
-        case = add_case(P, slots)
+        case = add_case(P, slots, *bit)
         if case:
             run_body(P, case, slots)
 
@@ -1487,6 +1520,11 @@ def run_script(P, segments, slots, exps=(), table=()):
             slots[first:first + count] = table[row:row + count]
         elif kind == POW:
             run_pow(P, exps, slots)
+        elif kind == VLADDER:
+            run_body(P, "set_inf", slots)
+            for bit in reversed(range(nbits)):
+                run_body(P, "dbl", slots)
+                add(bit)
         else:
             run_body(P, "take_base", slots)
             for length, mul in segments:
@@ -1569,7 +1607,7 @@ def _tables(progs):
                 elif kind == LOAD:
                     row, count, name = arg
                     y = row | count << 8 | P.slots[name][0] << 16
-                else:  # LADDER, POW: their bodies are the program's
+                else:  # LADDER, POW, VLADDER: their bodies are the program's
                     y = 0
                 steps.append((kind, y))
             scripts[P.name] = (first, len(steps))
@@ -1602,7 +1640,8 @@ def render():
         "//                for a combination}",
         "//   kGroupPhases the first op of each phase (and the end of the last)",
         "//   kGroupScript a point program's step: {kind (0 a body, 1 an addition,",
-        "//                2 a ladder, 3 a pow, 4 a case, 5 a load), its body's",
+        "//                2 a ladder, 3 a pow, 4 a case, 5 a load, 6 a variable",
+        "//                ladder), its body's",
         "//                first | last phase << 16, the case, or the load's",
         "//                first row | rows << 8 | first slot << 16}",
         "//   kGroupCases  a case: {first flag | flags << 16, first rule | rules",

@@ -22,8 +22,8 @@ ops/curve.py, ops/hash_to_g2.py, ops/pairing.py); a CUDA
 tensor launches the kernel on the current stream or raises -- there is no
 fallback from a CUDA tensor to the plain version.  Each launch adds one to
 the kernel's count in COUNTS.  The staged kernels (mul, add, sub,
-fp2_mul) read and write whole rows as 16-byte vectors: their wrappers
-refuse an operand that does not start on a 16-byte boundary.
+fp2_mul, fp2_sqr) read and write whole rows as 16-byte vectors: their
+wrappers refuse an operand that does not start on a 16-byte boundary.
 """
 
 import collections
@@ -327,10 +327,16 @@ def fp2_sqr(field, a0, a1):
         from . import tower
 
         return tower.fp2_sqr_plain(a0, a1)
+    return _fp2_sqr_launch(field, a0, a1)
+
+
+def _fp2_sqr_launch(field, a0, a1):
+    """Launch bls_fp2_sqr on broadcast CUDA operands."""
     a0, a1 = _cuda_operands(field, [a0, a1])
     c0, c1 = torch.empty_like(a0), torch.empty_like(a0)
     n = a0.numel() // field.nlimb
     if n:
+        _check_aligned("fp2_sqr", (a0, a1, c0, c1))
         rc = library().bls_fp2_sqr(
             a0.data_ptr(), a1.data_ptr(), c0.data_ptr(), c1.data_ptr(), n,
             _p_words(field), field.n0_word, _stream(a0),

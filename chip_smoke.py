@@ -75,9 +75,10 @@ Needs one CUDA card and nvcc.  Phases, each fatal on failure:
      elements at every run length at 4096 and 1) and on seeded random ones
      (mul014 with a quarter of the lines neutral, cyclo_sqr at every run
      length at 4096 and 1);
-     mul, add and sub (Fp and Fr) and fp2_mul also on edge operands (0,
-     1, m - 1, the Montgomery one, a = b, borrows and carries across every
-     word and lane; for mul 2^384 - 1 by R^2 and R^3 and 2p - 1 squared)
+     mul, add and sub (Fp and Fr), fp2_mul and fp2_sqr also on edge
+     operands (0, 1, m - 1, the Montgomery one, a = b, borrows and carries
+     across every word and lane; for mul 2^384 - 1 by R^2 and R^3 and 2p -
+     1 squared; for fp2_sqr a sum of 2p - 2 and a doubling that crosses p)
      at 1, 4095, 4096, 8191 and 8192 elements;
      device time per launch from CUDA-graph replay, eager call time and
      plain time from CUDA events (a mean of 3 calls for the field kernels;
@@ -98,31 +99,37 @@ Needs one CUDA card and nvcc.  Phases, each fatal on failure:
      4095 and 1 on hash_to_field's outputs with u = 0 elements (u0 = u1 =
      0 meets the sum's doubling case), and the lane-split pow_win
      (csrc/lanes.cuh) in Fp (e = p - 2) at 4096, 4095 and 1 with edge
-     values and in Fp2 (e = (p - 11)/16) at 4096: bit-equal to the plain
-     versions; the sweep's group sizes (throwaway copies of
-     csrc/pairing_kernels.cu built with -DBLS_GROUP=G for G = 4, 8 and
-     16, which sets every group instance of the unit, of
-     csrc/hash_kernels.cu built with -DBLS_HASH_GROUP=G for G = 2, 4 and
-     8 and with -DBLS_POW_LANES=L for pow_win's L = 2 and 4, into build/,
-     in parallel with the library)
-     bit-equal to the wrapper, and device ms per launch of each G or L at
-     4096 (fp6_mul 8192; and at 1 for the ladders, sswu_map2, the three
-     tower products and pow_win); with
-     --parent DIR, the parent commit's kernels (its pairing_kernels.cu and
-     hash_kernels.cu, built from DIR in parallel too) bit-equal as well and
-     timed interleaved with this tree's (parent, group, group, parent).
+     values and in Fp2 (e = (p - 11)/16) at 4096, and pt_mul_var (G1 on
+     the generator, G2 on H(m), 255 bits) at 4096, 4095 and 1 with the
+     scalars 0, 1, 2, r - 1, r, r + 2 and 2^255 - 1 and a base at infinity
+     in the first elements: bit-equal to the plain versions; the sweep's
+     group sizes (throwaway copies of csrc/pairing_kernels.cu built with
+     -DBLS_GROUP=G for G = 4, 8 and 16, which sets every group instance of
+     the unit, of csrc/hash_kernels.cu built with -DBLS_HASH_GROUP=G for
+     G = 2, 4 and 8 and with -DBLS_POW_LANES=L for pow_win's L = 2 and 4,
+     of csrc/point_kernels.cu built with -DBLS_POINT_GROUP=G for G = 2, 4
+     and 8, into build/, in parallel with the library) bit-equal to the
+     wrapper, and device ms per launch of each G or L at 4096 (fp6_mul
+     8192; and at 1 for the ladders, sswu_map2, the three tower products,
+     pow_win and pt_mul_var); with --parent DIR, the parent commit's
+     kernels (its pairing_kernels.cu, hash_kernels.cu and
+     point_kernels.cu, built from DIR in parallel too) bit-equal as well
+     and timed interleaved with this tree's (parent, group, group,
+     parent).
      ptxas's registers, stack and spills and the shared memory per block of
      each group kernel instance are printed under [build];
   9. field    -- the staged field kernels (csrc/field_kernels.cu mul, add,
-     sub and fp2_mul): fp2_mul at 8192, 4096 and 1 elements, mul in Fp at
-     8192, 4096 and 1 and in Fr at 8192 and 1, add and sub in Fp at 4096,
-     8192 and 1 and in Fr at 4096 and 1, on seeded rows with edge operands:
-     the wrapper bit-equal to the plain version, and bit-equal to it the
-     sweep builds (throwaway copies of the unit built with
-     -DBLS_MUL_PER_BLOCK=E -DBLS_ADD_PER_BLOCK=E -DBLS_SUB_PER_BLOCK=E
-     -DBLS_FP2_MUL_PER_BLOCK=E for E = 8, 16, 32 and 64, each with mul and
-     fp2_mul on 4 lanes and with -DBLS_MUL_LANES=1 -DBLS_FP2_MUL_LANES=1,
-     their one-thread bodies on the same staged rows, into build/, in
+     sub, fp2_mul and fp2_sqr): fp2_mul at 8192, 4096 and 1 elements,
+     fp2_sqr at 4096, 8192 and 1, mul in Fp at 8192, 4096 and 1 and in Fr
+     at 8192 and 1, add and sub in Fp at 4096, 8192 and 1 and in Fr at
+     4096 and 1, on seeded rows with edge operands: the wrapper bit-equal
+     to the plain version, and bit-equal to it the sweep builds (throwaway
+     copies of the unit built with -DBLS_MUL_PER_BLOCK=E
+     -DBLS_ADD_PER_BLOCK=E -DBLS_SUB_PER_BLOCK=E -DBLS_FP2_MUL_PER_BLOCK=E
+     -DBLS_FP2_SQR_PER_BLOCK=E for E = 8, 16, 32 and 64, each with mul,
+     fp2_mul and fp2_sqr on 4 lanes and with -DBLS_MUL_LANES=1
+     -DBLS_FP2_MUL_LANES=1 -DBLS_FP2_SQR_LANES=1, their one-thread bodies
+     on the same staged rows, into build/, in
      parallel with the library) and with --parent DIR the parent commit's
      kernels (its field_kernels.cu, built from DIR in parallel too); device
      ms per launch of each, of the empty kernel on the library's grid, and
@@ -1068,10 +1075,12 @@ def _ladder_var_products(c, p, scalars):
     """Montgomery products that [s]P needs per element by double-and-add
     from s's top bit: (bit length - 1) doublings and (set bits - 1)
     additions, for finite P and s > 0 (this call's scalars; the kernel runs
-    all nbits doublings and the additions of every set bit)."""
+    all nbits doublings and an addition for every bit that is set in some
+    element of its warp).  A G1 doubling is 7 products (ops/group_rounds.py
+    pt_dbl_rounds), the group kernel's."""
     import numpy as np
 
-    dbl, add = (8, 16) if c == 1 else (17, 44)
+    dbl, add = (7, 16) if c == 1 else (17, 44)
     finite = (p[2 * c:] != 0).any(-1).any(0).cpu().numpy()
     limbs = scalars.cpu().numpy().astype(np.int64)
     total = 0
@@ -1632,17 +1641,19 @@ def kernel_phase(torch, K, launches, sizes, verify_s, ctx, keys, steps):
 
 # threads per element swept: the pairing unit's group kernels (the library's
 # is BLS_GROUP), the hash unit's (kGroupG1, kGroupG2, kGroupCofactor,
-# kGroupSswu) and pow_win's lanes (kPowLanes, in the hash unit's source)
-GROUP_SWEEP = {"pairing": (4, 8, 16), "hash": (2, 4, 8), "pow": (2, 4)}
+# kGroupSswu), pow_win's lanes (kPowLanes, in the hash unit's source) and the
+# point unit's pt_mul_var (kGroupVarG1, kGroupVarG2)
+GROUP_SWEEP = {"pairing": (4, 8, 16), "hash": (2, 4, 8), "pow": (2, 4), "point": (2, 4, 8)}
 GROUP_UNITS = {"pairing": "pairing_kernels.cu", "hash": "hash_kernels.cu",
-               "pow": "hash_kernels.cu"}
-GROUP_DEFINE = {"pairing": "BLS_GROUP", "hash": "BLS_HASH_GROUP", "pow": "BLS_POW_LANES"}
-GROUP_VAR = {"pairing": "G", "hash": "G", "pow": "L"}  # the swept value's name
+               "pow": "hash_kernels.cu", "point": "point_kernels.cu"}
+GROUP_DEFINE = {"pairing": "BLS_GROUP", "hash": "BLS_HASH_GROUP", "pow": "BLS_POW_LANES",
+                "point": "BLS_POINT_GROUP"}
+GROUP_VAR = {"pairing": "G", "hash": "G", "pow": "L", "point": "G"}  # the swept value's name
 # group kernel -> its sweep; a group instance: the kernel, or the ladder's field
 GROUP_KERNELS = {"miller_dbl_run": "pairing", "miller_add": "pairing", "exp_x": "pairing",
                  "fp12_mul": "pairing", "fp6_mul": "pairing", "fp12_sqr": "pairing",
                  "pt_mul_const": "hash", "g2_cofactor": "hash", "sswu_map2": "hash",
-                 "pow_win": "pow"}
+                 "pow_win": "pow", "pt_mul_var": "point"}
 # ptxas's mangled name of each group kernel instance -> (label, program of
 # ops/group_rounds.py, G)
 GROUP_LOG = (
@@ -1662,6 +1673,8 @@ GROUP_LOG = (
      lambda m: (f"{m[1]}<G={m[2]}>", m[1], int(m[2]))),
     (re.compile(r"pow_win_kernelILi(\d+)ELi(\d+)E"),
      lambda m: (f"pow_win<C={m[1]}, L={m[2]}>", None, int(m[2]))),
+    (re.compile(r"pt_mul_var_kernelIN3bls5group\d+VarLadder(G[12])ProgramELi(\d+)E"),
+     lambda m: (f"pt_mul_var<{m[1]}, G={m[2]}>", f"var_ladder_{m[1].lower()}", int(m[2]))),
 )
 
 
@@ -1669,7 +1682,8 @@ def library_groups(K):
     """The library's threads per element of each group instance:
     pairing_kernels.cu's kGroup, kGroupFp12Mul, kGroupFp6Mul and
     kGroupFp12Sqr, hash_kernels.cu's kGroupG1, kGroupG2, kGroupCofactor,
-    kGroupSswu and BLS_POW_LANES (pow_win's L)."""
+    kGroupSswu and BLS_POW_LANES (pow_win's L), point_kernels.cu's
+    kGroupVarG1 and kGroupVarG2."""
     pairing, fp12, fp6, sqr = map(int, re.search(
         r"#else\nconstexpr int kGroup = (\d+), kGroupFp12Mul = (\d+), kGroupFp6Mul = (\d+),"
         r"\s+kGroupFp12Sqr = (\d+);", (K.CSRC_DIR / GROUP_UNITS["pairing"]).read_text()).groups())
@@ -1678,10 +1692,13 @@ def library_groups(K):
         r"#else\nconstexpr int kGroupG1 = (\d+), kGroupG2 = (\d+), kGroupCofactor = (\d+), "
         r"kGroupSswu = (\d+);", hash_src).groups())
     lanes = int(re.search(r"#define BLS_POW_LANES (\d+)", hash_src)[1])
+    var1, var2 = map(int, re.search(
+        r"#else\nconstexpr int kGroupVarG1 = (\d+), kGroupVarG2 = (\d+);",
+        (K.CSRC_DIR / GROUP_UNITS["point"]).read_text()).groups())
     return {"miller_dbl_run": pairing, "miller_add": pairing, "exp_x": pairing,
             "fp12_mul": fp12, "fp6_mul": fp6, "fp12_sqr": sqr, "pt_mul_const G1": g1,
             "pt_mul_const G2": g2, "g2_cofactor": cofactor, "sswu_map2": sswu, "pow_win Fp": lanes,
-            "pow_win Fp2": lanes}
+            "pow_win Fp2": lanes, "pt_mul_var G1": var1, "pt_mul_var G2": var2}
 
 
 def ptxas_report(log_path, patterns):
@@ -1810,6 +1827,15 @@ def entry_launch(torch, K, name, fn, args):
             K._check_rc(name, fn(a.data_ptr(), out.data_ptr(), a.shape[1], a.shape[0], digits,
                                  ndig, p, n0, K._stream(a)))
         return launch, out
+    if name == "pt_mul_var":
+        pts, scalars, nbits = args
+        out, one = torch.empty_like(pts), K._mont_words(FP, [1])
+
+        def launch():
+            K._check_rc(name, fn(pts.data_ptr(), scalars.data_ptr(), out.data_ptr(),
+                                 pts.shape[1], pts.shape[0] // 3, nbits, one, p, n0,
+                                 K._stream(pts)))
+        return launch, out
     if name in ("miller_dbl_run", "miller_add"):  # miller_dbl_run's run length last
         count = args[-1:] if name == "miller_dbl_run" else ()
         f, t, *per_pair, valid = args[:len(args) - len(count)]
@@ -1907,9 +1933,20 @@ def group_cases(torch, rng):
     of any G's elements per block; pow_win in Fp with e = p - 2 at 4096
     (timed), 4095 and 1 (timed), with 0, 1, p - 1 and values whose low 6 and 11 words
     are all 0xFFFFFFFF in elements 0-4 of 4096 and 4095, and in Fp2 with e
-    = (p - 11)/16 at 4096 (timed), the same values in its coordinates."""
+    = (p - 11)/16 at 4096 (timed), the same values in its coordinates;
+    pt_mul_var over 255 bits on the keys path's points (G1 the generator,
+    derive_pubkeys'; G2 H(m) of seeded messages, sign's) at 4096 (timed),
+    4095 and 1 (timed): the scalars 0, 1, 2, r - 1, r (its last addition
+    meets acc = -P: set_inf), r + 2 (acc = P: the doubling case) and
+    2^255 - 1 in elements 0-6, the base at infinity (Z = 0) in element 7,
+    seeded 255-bit scalars in the rest; 4095 and 1 are the first 4095
+    elements and the last one.  The plain ladder costs the same at any
+    count on the card (~30-45 s, launch-bound), and each element's result
+    depends on its own operands only, so it runs once, at 4096, and its
+    columns are the reference of 4095 and 1 (a case's sixth item)."""
     import numpy as np
 
+    from bls_verify_gadget_tpu_torch import constants as C
     from bls_verify_gadget_tpu_torch.ops import curve as CV
     from bls_verify_gadget_tpu_torch.ops import hash_to_g2 as H
     from bls_verify_gadget_tpu_torch.ops.fp import FP
@@ -1977,6 +2014,28 @@ def group_cases(torch, rng):
     a[0, :len(edges)], a[1, :len(edges)] = edges, edges.roll(1, 0)
     cases.append((f"Fp2, e = (p - 11)/16, {BATCH}, edge values in elements 0-4", "pow_win",
                   "pow_win Fp2", (a, H.SQRT_K), True))
+    r = C.R
+    edge_keys = [0, 1, 2, r - 1, r, r + 2, (1 << 255) - 1]
+    keys = edge_keys + [int.from_bytes(rng.bytes(32), "little") >> 1
+                        for _ in range(BATCH - len(edge_keys))]
+    scalars = torch.from_numpy(ints_to_limbs(keys, 16)).cuda()
+    bases = (("G1 on the generator", "pt_mul_var G1", 3,
+              CV.pack_point(CV.FP_OPS, CV.g1_generator((BATCH, 24), "cuda"))),
+             ("G2 on H(m)", "pt_mul_var G2", 6,
+              CV.pack_point(CV.FP2_OPS, H.hash_to_g2(msg, MSG_LEN))))
+    for what, key, c, pts in bases:
+        pts = pts.contiguous()
+        pts[2 * c:, len(edge_keys)] = 0  # the base at infinity
+        ref = CV.pt_mul_var_plain(pts, scalars, 255)
+        cases.append((f"{what}, {BATCH}, scalars 0, 1, 2, r - 1, r, r + 2, 2^255 - 1 in "
+                      f"elements 0-6, the base at infinity in element 7", "pt_mul_var", key,
+                      (pts, scalars, 255), True, ref))
+        cases.append((f"{what}, {BATCH - 1}, the first {BATCH - 1} of {BATCH}", "pt_mul_var",
+                      key, (pts[:, :-1].contiguous(), scalars[:-1].contiguous(), 255), False,
+                      ref[:, :-1]))
+        cases.append((f"{what}, 1, the last of {BATCH}", "pt_mul_var", key,
+                      (pts[:, -1:].contiguous(), scalars[-1:].contiguous(), 255), True,
+                      ref[:, -1:]))
     return cases
 
 
@@ -2000,11 +2059,11 @@ def group_phase(torch, K, sweep_started, parent_started=None):
     parent = {unit: unit_library(K, unit, s) for unit, s in (parent_started or {}).items()
               if unit in GROUP_SWEEP}
     out = {name: {} for name in GROUP_KERNELS}
-    for label, name, key, args, timed in group_cases(torch, rng):
+    for label, name, key, args, timed, *ref in group_cases(torch, rng):
         unit = GROUP_KERNELS[name]
         kern, plain = kernel_call(name)
         got = kern(*args)
-        err = max_err(got, plain(*args))
+        err = max_err(got, ref[0] if ref else plain(*args))
         if err != 0:
             raise RuntimeError(f"group kernel {name} ({label}) disagrees with its plain version: "
                                f"max |err| {err}")
@@ -2049,52 +2108,64 @@ def group_phase(torch, K, sweep_started, parent_started=None):
 
 
 # ----------------------------------------------------------------------------
-# field phase: the staged field kernels (mul, add, sub, fp2_mul) at each
-# elements-per-block count and form of mul and fp2_mul, the launch floor, and
-# the parent's kernels
+# field phase: the staged field kernels (mul, add, sub, fp2_mul, fp2_sqr) at
+# each elements-per-block count and form of mul, fp2_mul and fp2_sqr, the
+# launch floor, and the parent's kernels
 # ----------------------------------------------------------------------------
 
 FIELD_UNIT = "field_kernels.cu"
 FIELD_E = (8, 16, 32, 64)  # elements per block of the sweep builds
-# threads per Fp mul and fp2_mul element of the sweep builds: the library's
-# lanes and the one-thread bodies on the same staged rows
+# threads per Fp mul, fp2_mul and fp2_sqr element of the sweep builds: the
+# library's lanes and the one-thread bodies on the same staged rows
 FIELD_LANES = (4, 1)
-FIELD_KERNELS = ("mul", "add", "sub", "fp2_mul")
+FIELD_KERNELS = ("mul", "add", "sub", "fp2_mul", "fp2_sqr")
 EDGE_COUNTS = (1, 4095, 4096, 8191, 8192)  # element counts of the edge operands
 FIELD_LOG = (
-    (re.compile(r"fp2_mul_kernel"), lambda m: "fp2_mul"),
+    (re.compile(r"(fp2_mul|fp2_sqr)_kernel"), lambda m: m[1]),
     (re.compile(r"bls_kernels10(mul|add|sub)_kernelILi(\d+)E"), lambda m: f"{m[1]}<NW={m[2]}>"),
     (re.compile(r"launch_floor_kernel"), lambda m: "launch_floor"),
 )
 
 
 def library_field(K):
-    """The library's elements per block of mul, add, sub and fp2_mul and
-    the threads per Fp mul and fp2_mul element (BLS_MUL_PER_BLOCK,
-    BLS_ADD_PER_BLOCK, BLS_SUB_PER_BLOCK, BLS_FP2_MUL_PER_BLOCK,
-    BLS_MUL_LANES and BLS_FP2_MUL_LANES in csrc/field_kernels.cu)."""
+    """The library's elements per block of mul, add, sub, fp2_mul and
+    fp2_sqr and the threads per Fp mul, fp2_mul and fp2_sqr element
+    (BLS_MUL_PER_BLOCK, BLS_ADD_PER_BLOCK, BLS_SUB_PER_BLOCK,
+    BLS_FP2_MUL_PER_BLOCK, BLS_FP2_SQR_PER_BLOCK, BLS_MUL_LANES,
+    BLS_FP2_MUL_LANES and BLS_FP2_SQR_LANES in csrc/field_kernels.cu)."""
     src = (K.CSRC_DIR / FIELD_UNIT).read_text()
     return {key: int(re.search(rf"#define BLS_{define} (\d+)", src)[1])
             for key, define in (("mul", "MUL_PER_BLOCK"), ("add", "ADD_PER_BLOCK"),
                                 ("sub", "SUB_PER_BLOCK"), ("fp2_mul", "FP2_MUL_PER_BLOCK"),
-                                ("mul_lanes", "MUL_LANES"), ("lanes", "FP2_MUL_LANES"))}
+                                ("fp2_sqr", "FP2_SQR_PER_BLOCK"), ("mul_lanes", "MUL_LANES"),
+                                ("fp2_mul_lanes", "FP2_MUL_LANES"),
+                                ("fp2_sqr_lanes", "FP2_SQR_LANES"))}
+
+
+def field_lanes(cfg, name, nlimb=24):
+    """Threads per element of the library's field kernel `name` (Fr's mul
+    runs one thread per element)."""
+    if name == "mul":
+        return cfg["mul_lanes"] if nlimb == 24 else 1
+    return cfg.get(f"{name}_lanes", 1)
 
 
 def field_build_start(K):
     """Start nvcc on this tree's field unit at each elements-per-block
-    count E of FIELD_E (all four staged kernels) and each of FIELD_LANES
-    (mul and fp2_mul) -> {(lanes, E): (process, library, log)}."""
+    count E of FIELD_E (all five staged kernels) and each of FIELD_LANES
+    (mul, fp2_mul and fp2_sqr) -> {(lanes, E): (process, library, log)}."""
     return {(lanes, e): unit_build_start(
                 K, K.CSRC_DIR / FIELD_UNIT, K.BUILD_DIR / f"sweep_field_l{lanes}_e{e}.so",
                 (f"-DBLS_MUL_PER_BLOCK={e}", f"-DBLS_ADD_PER_BLOCK={e}",
                  f"-DBLS_SUB_PER_BLOCK={e}", f"-DBLS_FP2_MUL_PER_BLOCK={e}",
-                 f"-DBLS_MUL_LANES={lanes}", f"-DBLS_FP2_MUL_LANES={lanes}"))
+                 f"-DBLS_FP2_SQR_PER_BLOCK={e}", f"-DBLS_MUL_LANES={lanes}",
+                 f"-DBLS_FP2_MUL_LANES={lanes}", f"-DBLS_FP2_SQR_LANES={lanes}"))
             for lanes in FIELD_LANES for e in FIELD_E}
 
 
 def field_library(K, started):
-    """Wait for a build of a field unit -> its library, with mul, add, sub
-    and fp2_mul declared as in ops/kernels.py."""
+    """Wait for a build of a field unit -> its library, with mul, add, sub,
+    fp2_mul and fp2_sqr declared as in ops/kernels.py."""
     import ctypes
 
     proc, so, log_path = started
@@ -2109,9 +2180,10 @@ def field_launch(torch, K, name, fn, field, ops):
     """A closure that launches `fn` (bls_<name> of some build, name one of
     FIELD_KERNELS) on `ops` into preallocated outputs -> (launch, outputs)."""
     n = ops[0].shape[0]
-    outs = [torch.empty_like(ops[0]) for _ in range(2 if name == "fp2_mul" else 1)]
+    outs = [torch.empty_like(ops[0]) for _ in range(2 if name.startswith("fp2") else 1)]
     ptrs = [t.data_ptr() for t in (*ops, *outs)]
     mid = {"fp2_mul": (K._p_words(field), field.n0_word),
+           "fp2_sqr": (K._p_words(field), field.n0_word),
            "mul": (field.nlimb, K._p_words(field), field.n0_word)}.get(
                name, (field.nlimb, K._p_words(field)))
 
@@ -2133,11 +2205,8 @@ def floor_launch(torch, K, blocks, threads):
 def field_grid(K, name, n, nlimb=24):
     """(blocks, threads) of the library's launch of field kernel `name` at n
     elements (of nlimb limbs: Fr's mul runs one thread per element)."""
-    if name in FIELD_KERNELS:
-        cfg = library_field(K)
-        lanes = {"fp2_mul": cfg["lanes"], "mul": cfg["mul_lanes"] if nlimb == 24 else 1}
-        return -(-n // cfg[name]), cfg[name] * lanes.get(name, 1)
-    return -(-n // 128), 128  # fp2_sqr: one thread per element
+    cfg = library_field(K)
+    return -(-n // cfg[name]), cfg[name] * field_lanes(cfg, name, nlimb)
 
 
 def staged_edge_inputs(torch, rng, name, n, field):
@@ -2153,7 +2222,12 @@ def staged_edge_inputs(torch, rng, name, n, field):
     every word), a = b = m - 1, 0 - (m - 1), 1 - 0, a = b seeded; fp2_mul:
     (x, x + 1) by the Montgomery one (1, 1) (v0 - v1 = -1: a borrow across
     every word and lane), p - 1 in all four (sums 2p - 2), 0 by p - 1, the
-    Montgomery one by itself, (1, 0) by (0, 1)."""
+    Montgomery one by itself, (1, 0) by (0, 1); fp2_sqr: a0 = a1 seeded, (0,
+    p - 1), (p - 1, p - 1) (the sum 2p - 2), the Montgomery one, (one, (p +
+    1) / 2) (the JAX body's doubling 2 mont(a0, a1) = p + 1 crosses p), (one,
+    ((p >> 288) - 1) << 287) (c1's product the ripple row of mul, whose
+    deferred carry crosses lanes 1 to 3; tests/test_torch_field_lanes.py
+    fp2_sqr_edges)."""
     from bls_verify_gadget_tpu_torch.ops.limbs import ints_to_limbs
 
     m, r = field.modulus, field.mont_r
@@ -2168,6 +2242,9 @@ def staged_edge_inputs(torch, rng, name, n, field):
         rows = [(m - 1, m - 1), (m - 1, 1), (1, m - 1), (0, 0), (x, m - 1 - x)]
     elif name == "sub":
         rows = [(0, 1), (m - 1, m - 1), (0, m - 1), (1, 0), (x, x)]
+    elif name == "fp2_sqr":
+        rows = [(x, x), (0, m - 1), (m - 1, m - 1), (one, 0), ((m + 1) // 2, 0),
+                (one, (m + 1) // 2), (one, ((m >> 288) - 1) << 287)]
     else:
         rows = [(x, x + 1, one, one), (m - 1,) * 4, (0, 0, m - 1, m - 1), (one,) * 4,
                 (one, 0, 0, one)]
@@ -2182,18 +2259,21 @@ def field_plain(name, field):
     """The plain version of staged field kernel `name` in `field`."""
     from bls_verify_gadget_tpu_torch.ops import tower as T
 
-    return T.fp2_mul_plain if name == "fp2_mul" else getattr(field, f"{name}_plain")
+    if name.startswith("fp2"):
+        return getattr(T, f"{name}_plain")
+    return getattr(field, f"{name}_plain")
 
 
 def staged_edge_checks(torch, K, rng, plain_call):
-    """mul, add and sub (Fp and Fr) and fp2_mul bit-equal to their plain
-    versions on staged_edge_inputs at EDGE_COUNTS -> {kernel: [field
+    """mul, add and sub (Fp and Fr), fp2_mul and fp2_sqr bit-equal to their
+    plain versions on staged_edge_inputs at EDGE_COUNTS -> {kernel: [field
     names]}."""
     from bls_verify_gadget_tpu_torch.ops.fp import FP, FR
 
     checked = {name: [] for name in FIELD_KERNELS}
     for name, fname, field in [(k, f, F) for k in FIELD_KERNELS[:3]
-                               for f, F in (("Fp", FP), ("Fr", FR))] + [("fp2_mul", "Fp", FP)]:
+                               for f, F in (("Fp", FP), ("Fr", FR))] + [
+                                   ("fp2_mul", "Fp", FP), ("fp2_sqr", "Fp", FP)]:
         plain = field_plain(name, field)
         for n in EDGE_COUNTS:
             ops = staged_edge_inputs(torch, rng, name, n, field)
@@ -2209,12 +2289,13 @@ def staged_edge_checks(torch, K, rng, plain_call):
 
 def field_cases(torch, rng):
     """(label, kernel, field, operands) of the field phase, each on
-    staged_edge_inputs: fp2_mul at 8192, 4096 and 1; mul in Fp at 8192,
-    4096 and 1, in Fr at 8192 and 1; add and sub in Fp at 4096, 8192 and 1,
-    in Fr at 4096 and 1."""
+    staged_edge_inputs: fp2_mul at 8192, 4096 and 1; fp2_sqr at 4096, 8192
+    and 1; mul in Fp at 8192, 4096 and 1, in Fr at 8192 and 1; add and sub
+    in Fp at 4096, 8192 and 1, in Fr at 4096 and 1."""
     from bls_verify_gadget_tpu_torch.ops.fp import FP, FR
 
     cases = [(f"{n}", "fp2_mul", FP) for n in (2 * BATCH, BATCH, 1)]
+    cases += [(f"{n}", "fp2_sqr", FP) for n in (BATCH, 2 * BATCH, 1)]
     cases += [(f"Fp, {n}", "mul", FP) for n in (2 * BATCH, BATCH, 1)]
     cases += [(f"Fr, {n}", "mul", FR) for n in (2 * BATCH, 1)]
     for name in ("add", "sub"):
@@ -2228,7 +2309,8 @@ def field_cases(torch, rng):
 def field_phase(torch, K, field_started, parent_started=None):
     """The staged field kernels (module docstring, phase 9): on each case of
     field_cases the wrapper bit-equal to the plain version; the sweep
-    builds (every E of FIELD_E, Fp mul and fp2_mul also on one thread) and the
+    builds (every E of FIELD_E, Fp mul, fp2_mul and fp2_sqr also on one
+    thread) and the
     parent's kernel bit-equal to the wrapper on the same CUDA tensors;
     device ms per launch of the library's kernel and of each build
     (CUDA-graph replay), of the empty kernel at the library's grid, and of
@@ -2241,8 +2323,8 @@ def field_phase(torch, K, field_started, parent_started=None):
     libs = {}
     for (lanes, e), started in sorted(field_started.items(), reverse=True):
         libs[(lanes, e)] = field_library(K, started)
-        field_build_report(started[2], f"sweep build, E = {e}, mul and fp2_mul on {lanes} "
-                                       f"lane(s)")
+        field_build_report(started[2], f"sweep build, E = {e}, mul, fp2_mul and fp2_sqr on "
+                                       f"{lanes} lane(s)")
     parent = field_library(K, parent_started) if parent_started else None
     if parent is not None:
         field_build_report(parent_started[2], "parent")
@@ -2254,8 +2336,8 @@ def field_phase(torch, K, field_started, parent_started=None):
         if err != 0:
             raise RuntimeError(f"{name} ({label}) disagrees with its plain version: max |err| {err}")
         # the kernels whose threads per element the lanes builds set
-        laned = name == "fp2_mul" or (name == "mul" and field.nlimb == 24)
-        lib_lanes = cfg["lanes" if name == "fp2_mul" else "mul_lanes"]
+        laned = name.startswith("fp2") or (name == "mul" and field.nlimb == 24)
+        lib_lanes = field_lanes(cfg, name, field.nlimb)
         lib_label = f"E = {cfg[name]}" + (f", {lib_lanes} lanes" if laned else "")
         builds = {"library": K.library()}
         for (lanes, e), lib in libs.items():
@@ -2309,17 +2391,18 @@ def main():
     ap = argparse.ArgumentParser(description="On-card smoke run of the PyTorch/CUDA port.")
     only = ap.add_mutually_exclusive_group()
     only.add_argument("--group", action="store_true",
-                      help="run only the device, build and group phases (the group kernels)")
+                      help="run only the device, build and group phases (the group kernels, "
+                           "pow_win and pt_mul_var)")
     only.add_argument("--field", action="store_true",
-                      help="run only the device, build and field phases (mul, add, sub "
-                           "and fp2_mul)")
+                      help="run only the device, build and field phases (mul, add, sub, "
+                           "fp2_mul and fp2_sqr)")
     ap.add_argument("--parent", metavar="DIR",
                     help="a git archive of the parent commit in a git-ignored directory of "
                          "this checkout: time its miller_dbl_run, miller_add, exp_x, "
                          "fp12_mul, fp6_mul, fp12_sqr, pt_mul_const, g2_cofactor, "
-                         "sswu_map2 and pow_win "
+                         "sswu_map2, pow_win and pt_mul_var "
                          "kernels interleaved with this tree's in the group phase, and its "
-                         "mul, add, sub and fp2_mul in the field phase")
+                         "mul, add, sub, fp2_mul and fp2_sqr in the field phase")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)

@@ -1,6 +1,6 @@
 """A model on Python ints of the staged field kernels of
-bls_verify_gadget_tpu_torch/csrc/field_kernels.cu, mul, add, sub and
-fp2_mul.
+bls_verify_gadget_tpu_torch/csrc/field_kernels.cu, mul, add, sub, fp2_mul
+and fp2_sqr.
 
 mul: in Fp each element on 4 lanes, the lane-split Montgomery product of
 tests/test_torch_pow_lanes.py (lanes.cuh mont_mul_slice); in Fr and in a
@@ -25,7 +25,16 @@ fp2_mul on seeded inputs below p and on edge inputs (0, 1, p - 1, the
 Montgomery one, operand sums just below 2p, and a v0 - v1 whose borrow
 ripples across every lane).
 
-The staged tiling of the four kernels (field.cuh stage_rows / unstage_rows,
+fp2_sqr: each element on 4 lanes, its two products c0 = (a0 + a1)(a0 + p
+- a1) and c1 = (2 a1) a0, every factor below 2p, the lane-split product in
+lockstep (mont_mul_slices, N = 2); the one-thread body of a
+-DBLS_FP2_SQR_LANES=1 sweep build the same products on whole words.  Both
+held against the JAX package's golden fp2_sqr on seeded inputs and on
+edge rows: a0 = a1, a0 = 0 with a1 = p - 1, a0 = a1 = p - 1 (the sum 2p -
+2), the Montgomery one, a row whose JAX doubling 2 mont(a0, a1) crosses p,
+a row whose c1 product carries across every lane it can.
+
+The staged tiling of the five kernels (field.cuh stage_rows / unstage_rows,
 the kernels' element and tail logic, the entry points' grid of n / E
 blocks):
 at n = 1, 4095, 4096, 8191 and 8193 and every elements-per-block count E
@@ -57,7 +66,8 @@ ONE = C.MONT_R_MOD_P  # 1 in Montgomery form
 TOP = 1 << (32 * NW)
 COUNTS = (1, 4095, 4096, 8191, 8193)
 STAGED = {"mul Fp": (12, LANES), "mul Fr": (8, 1), "add Fp": (12, 1), "add Fr": (8, 1),
-          "sub Fp": (12, 1), "sub Fr": (8, 1), "fp2_mul": (12, LANES)}  # (NW, lanes)
+          "sub Fp": (12, 1), "sub Fr": (8, 1), "fp2_mul": (12, LANES),
+          "fp2_sqr": (12, LANES)}  # (NW, lanes)
 FIELDS = {"Fp": (C.P, 12), "Fr": (C.R, 8)}  # modulus, 32-bit words
 CSRC = pathlib.Path(K.CSRC_DIR)
 
@@ -134,6 +144,55 @@ def test_fp2_mul_borrow_ripples_across_every_lane(lanes):
     assert borrows == [0] + [1] * (LANES - 1) and under == 1
     c = fp2_mul_model(a, b, lanes)
     assert c[0] == C.P - 1 and c == golden(a, b)
+
+
+def fp2_sqr_model(a, lanes):
+    """field_kernels.cu fp2_sqr_kernel's arithmetic: c0 = (a0 + a1)(a0 + p
+    - a1) and c1 = (2 a1) a0, the sum, the unreduced difference and the
+    double on whole words, every factor below 2p; two canonical Montgomery
+    products, on 4 lanes the lane product, on 1 lane field.cuh's CIOS."""
+    a0, a1 = a
+    u, v = (a0 + a1, 2 * a1), (a0 + C.P - a1, a0)
+    assert all(0 <= x < 2 * C.P for x in (*u, *v))
+    if lanes == LANES:
+        return tuple(mont_mul_lanes(x, y, LANES) for x, y in zip(u, v))
+    return tuple(mont_mul_words(x, y, C.P, NW) for x, y in zip(u, v))
+
+
+def fp2_sqr_golden(a):
+    """The golden Fp2 square of a Montgomery-form pair, in Montgomery form."""
+    c = GF.fp2_sqr((a[0] * RINV % C.P, a[1] * RINV % C.P))
+    return c[0] * C.MONT_R % C.P, c[1] * C.MONT_R % C.P
+
+
+def fp2_sqr_edges():
+    """fp2_sqr's edge rows: a0 = a1 (c0 = 0), a0 = 0 with a1 = p - 1, a0 =
+    a1 = p - 1 (the sum 2p - 2), 0, the Montgomery one, (one, one), (1, 0),
+    (one, h) with mont(one, h) = (p + 1) / 2 (the JAX body's doubling of it
+    crosses p: p + 1 -> 1), (one, ripple / 2): c1's product is the ripple
+    row's (2 a1 = ((p >> 288) - 1) << 288 by the one), whose deferred carry
+    crosses lanes 1 to 3 (ripple_row)."""
+    x = int.from_bytes(np.random.default_rng(116).bytes(48), "little") % C.P
+    h = (C.P + 1) // 2
+    return [(x, x), (0, C.P - 1), (C.P - 1, C.P - 1), (0, 0), (ONE, 0), (ONE, ONE), (1, 0),
+            (ONE, h), (ONE, ripple_row()[0] // 2)]
+
+
+@pytest.mark.parametrize("lanes", (LANES, 1))
+def test_fp2_sqr_matches_golden(lanes):
+    rng = np.random.default_rng(117 + lanes)
+    rows = [tuple(int.from_bytes(rng.bytes(48), "little") % C.P for _ in range(2))
+            for _ in range(32)]
+    for a in rows + fp2_sqr_edges():
+        assert fp2_sqr_model(a, lanes) == fp2_sqr_golden(a), a
+    _, h = fp2_sqr_edges()[-2]
+    assert 2 * (ONE * h * RINV % C.P) == C.P + 1  # the JAX doubling crosses p
+    a, b = ripple_row()
+    t, hw = lane_rows(a, b, LANES)
+    top = 1 << (32 * S)
+    v = [value(t[j]) + (hw[j - 1] if j else 0) for j in range(LANES)]
+    cin, _ = lookahead([x >= top for x in v], [x % top == top - 1 for x in v])
+    assert cin == [0, 0, 1, 1] and fp2_sqr_model((ONE, a // 2), LANES)[1] == a
 
 
 def mont_mul_words(a, b, m, nw):
@@ -342,18 +401,18 @@ def test_model_constants_match_the_sources():
     field_cuh = (CSRC / "field.cuh").read_text()
     unit = (CSRC / "field_kernels.cu").read_text()
     assert "constexpr int kStagedStride = 2 * NW + 4;" in field_cuh
-    for define in ("BLS_MUL_LANES", "BLS_FP2_MUL_LANES"):
+    for define in ("BLS_MUL_LANES", "BLS_FP2_MUL_LANES", "BLS_FP2_SQR_LANES"):
         assert re.search(r"#define %s %d\n" % (define, LANES), unit), define
     for define in ("BLS_MUL_PER_BLOCK", "BLS_ADD_PER_BLOCK", "BLS_SUB_PER_BLOCK",
-                   "BLS_FP2_MUL_PER_BLOCK"):
+                   "BLS_FP2_MUL_PER_BLOCK", "BLS_FP2_SQR_PER_BLOCK"):
         assert int(re.search(r"#define %s (\d+)\n" % define, unit)[1]) in PER_BLOCK, define
 
 
 def test_staged_wrappers_refuse_what_the_kernels_do_not_take(monkeypatch):
     """An operand off a 16-byte boundary is refused (the CUDA path checks
     every operand and output with _check_aligned before the launch): the
-    mul, add and sub wrappers' launch refuses it before the library is
-    loaded, and never falls back to the plain version."""
+    mul, add, sub and fp2_sqr wrappers' launch refuses it before the
+    library is loaded, and never falls back to the plain version."""
     rows = torch.zeros(4, 24, dtype=torch.int32)
     K._check_aligned("sub", [rows, rows[1:]])  # a 96-byte row keeps the alignment
     with pytest.raises(ValueError, match="16-byte"):
@@ -373,3 +432,8 @@ def test_staged_wrappers_refuse_what_the_kernels_do_not_take(monkeypatch):
                 K._binary_launch(name, FP, a, b)
         with pytest.raises(LookupError):  # aligned rows go on to the launch
             K._binary_launch(name, FP, rows, rows.clone())
+    for a0, a1 in ((off, rows), (rows, off)):
+        with pytest.raises(ValueError, match="16-byte"):
+            K._fp2_sqr_launch(FP, a0, a1)
+    with pytest.raises(LookupError):
+        K._fp2_sqr_launch(FP, rows, rows.clone())

@@ -10,8 +10,12 @@ with mixed valid masks; the point programs' scripts (run_script) give
 those of pt_mul_const (G1, G2) and g2_cofactor (ops/curve.py) on edge
 points, and in affine the JAX package's golden curve and, in G1, its
 jitted pt_mul_const, and those of sswu_map2 (ops/hash_to_g2.py) on u
-values that meet each of its branches; the cases' flags, forced, pick
-their bodies in the JAX order.  Tolerance 0."""
+values that meet each of its branches; the variable ladder's script
+(pt_mul_var, G1 and G2, 255 bits) gives those of pt_mul_var_plain on the
+edge scalars 0, 1, 2, r - 1, r, r + 2 and 2^255 - 1 and a base at
+infinity, and in affine the golden curve's; the cases' flags, forced,
+pick their bodies in the JAX order, a variable ladder's clear bit first.
+Tolerance 0."""
 
 import functools
 
@@ -273,8 +277,11 @@ def test_point_programs_match_the_plain_versions(kernel, monkeypatch):
 ])
 def test_add_case_follows_the_jax_order(flags, case):
     """add_case picks the complete addition's case in _pt_add_body's order
-    from the zero flags of (P's Z, Q's Z, h, r)."""
-    for P in (GR.ladder_program(GR.FP_COORD), GR.cofactor_program()):
+    from the zero flags of (P's Z, Q's Z, h, r); in a variable ladder the
+    scalar's bit comes first: set, the same case; clear, none (acc stays,
+    the plain version's cmov), whatever the other flags."""
+    for P in (GR.ladder_program(GR.FP_COORD), GR.cofactor_program(),
+              GR.var_ladder_program(GR.FP_COORD), GR.var_ladder_program(GR.FP2_COORD)):
         c = P.consts["kCoord"]
         slots = [7] * P.nslots
         for flag, (name, off) in zip(flags, [("acc", 2 * c), ("base", 2 * c), ("h", 0),
@@ -282,6 +289,80 @@ def test_add_case_follows_the_jax_order(flags, case):
             first = P.slots[name][0] + off
             slots[first:first + c] = [0] * c if flag else [5] * c
         assert GR.add_case(P, slots) == case
+        if "scalar" in P.slots:
+            slots[P.slots["scalar"][0]] = 1 << 254 | 1 << 37 | 2
+            for bit, want in ((254, case), (37, case), (1, case), (0, None), (36, None),
+                              (253, None)):
+                assert GR.add_case(P, slots, bit) == want, bit
+
+
+def _var_ladder_inputs(F):
+    """(affine bases or None, packed (3c, 8, 24) operand, scalars) of the
+    variable ladder: the generator (order r) by 0, 1, 2, r - 1, r (whose
+    last addition meets acc = -P: set_inf), r + 2 (acc = P: the doubling
+    case) and 2^255 - 1, in elements 1, 3 and 5 as a Jacobian point with Z
+    != 1, and the infinity by a seeded 255-bit scalar."""
+    rng = np.random.default_rng(79 + F.width)
+    gen = JC.G1_GEN if F.width == 1 else JC.G2_GEN
+    r = JC.R
+    scalars = [0, 1, 2, r - 1, r, r + 2, (1 << 255) - 1,
+               int.from_bytes(rng.bytes(32), "little") >> 1 | 1 << 254]
+    pts = [gen] * 7 + [None]
+    if F.width == 1:
+        packed = CV.pack_point(CV.FP_OPS, CV.g1_encode_batch(pts, "cpu"))
+        z = 0x5EED
+        jac = [_mont(v) for v in (gen[0] * z * z % JC.P, gen[1] * z**3 % JC.P, z)]
+    else:
+        packed = CV.pack_point(CV.FP2_OPS, CV.g2_encode_batch(pts, "cpu"))
+        jac = _g2_jacobian(gen, (3, 7))
+    for i in (1, 3, 5):
+        packed[:, i] = torch.from_numpy(np.stack(ints_to_limbs(jac, 24)))
+    return pts, packed, scalars
+
+
+@pytest.mark.parametrize("F", [GR.FP_COORD, GR.FP2_COORD], ids=["G1", "G2"])
+def test_var_ladder_matches_pt_mul_var_plain(F, monkeypatch):
+    """The variable ladder's script (run_script's VLADDER: set_inf, then per
+    bit MSB first a doubling and the addition whose case add_case picks
+    with the bit's flag first) on Python ints at 255 bits, limb-equal to
+    pt_mul_var_plain (the JAX package's ladder limb for limb) and in affine
+    to the golden curve.  The data meets every case the ladder can: the
+    clear bit's none, take_base (acc at infinity at the first set bit),
+    take_sum, dbl (r + 2), set_inf (r) and, with the base at infinity,
+    take_base at every set bit: acc stays at the infinity, so the case of Q
+    at infinity never comes (add_case checks P first)."""
+    pts, packed, scalars = _var_ladder_inputs(F)
+    limbs = torch.from_numpy(ints_to_limbs(scalars, 16)).to(torch.int32)
+    want = ints(CV.pt_mul_var_plain(packed, limbs, 255))
+    mul = GC.g1_mul if F.width == 1 else GC.g2_mul
+    golden = [None if p is None or k % JC.R == 0 else mul(p, k) for p, k in zip(pts, scalars)]
+    decode = CV.g1_decode if F.width == 1 else CV.g2_decode
+    ops = CV.FP_OPS if F.width == 1 else CV.FP2_OPS
+    assert decode(CV.unpack_point(ops, torch.from_numpy(np.array(
+        [[ints_to_limbs([v], 24)[0] for v in c] for c in want])))) == golden
+    P = GR.var_ladder_program(F)
+    cases, add_case = [], GR.add_case
+
+    def counted(P, slots, bit=None):
+        clear = bit is not None and not slots[P.slots["scalar"][0]] >> bit & 1
+        cases.append((len(got), "clear" if clear else add_case(P, slots)))
+        return add_case(P, slots, bit)
+
+    monkeypatch.setattr(GR, "add_case", counted)
+    nc, got = packed.shape[0], []
+    acc, base = P.slots["acc"][0], P.slots["base"][0]
+    for vals, k in zip(zip(*ints(packed)), scalars):
+        slots = [0] * P.nslots
+        slots[base:base + nc] = vals
+        slots[P.slots["one"][0]], slots[P.slots["scalar"][0]] = _mont(1), k
+        got.append(GR.run_script(P, None, slots, nbits=255)[acc:acc + nc])
+    assert [list(c) for c in zip(*got)] == want
+    assert len(cases) == 255 * len(scalars)
+    met = {c for _, c in cases}
+    assert met == {"clear", "take_base", "take_sum", "dbl", "set_inf"}
+    last = {i: c for i, c in cases}  # each element's last case
+    assert last[4] == "set_inf" and last[5] == "dbl"
+    assert {c for i, c in cases if i == 7} == {"clear", "take_base"}
 
 
 def _sswu_program_matches_plain(monkeypatch):
