@@ -2,7 +2,7 @@
 // loaded through ctypes by ops/kernels.py: the Fp6 product (of the Fp12
 // inverse), the Fp12 product and square,
 // the Miller loop's doubling runs and addition blocks, and the final
-// exponentiation's whole exp-by-|x| chain; and the thin launches of the
+// exponentiation's whole exp-by-|x| chain; and the launches of the
 // step-wise configuration (config.fuse_miller / fuse_expx off): the sparse
 // line product, one doubling or addition step, and a run of Granger-Scott
 // squares.
@@ -24,9 +24,10 @@
 // element at 3.35 TB/s and 16.75 T int32 multiply-adds/s).  Fusing buys
 // launches: the Miller loop is 11 launches and an x-chain one.
 //
-// miller_dbl_run, miller_add, exp_x, fp12_mul, fp6_mul and fp12_sqr (the TPU's
-// _millerdbl_kernel, _milleradd_kernel, _expx_kernel, _fp12mul_kernel,
-// _fp6mul_kernel and _fp12sqr_kernel) run on group.cuh: a group of G threads
+// miller_dbl_run, miller_add, exp_x, fp12_mul, fp6_mul, fp12_sqr, mul014 and
+// cyclo_sqr (the TPU's _millerdbl_kernel, _milleradd_kernel, _expx_kernel,
+// _fp12mul_kernel, _fp6mul_kernel, _fp12sqr_kernel, _mul014_kernel and
+// _cyclo_sqr_kernel) run on group.cuh: a group of G threads
 // per batch element, the element's state in shared memory, each body as rounds
 // of independent Montgomery products dealt out over the group
 // (group_rounds.cuh).  The design they replace ran one thread per element
@@ -37,13 +38,12 @@
 // rounds' depth (a Miller iteration: 176 products in 4 rounds; a Granger-Scott
 // square: 18 in one), runs each product inlined in registers, and puts G times
 // the warps on each SM.  G and the block are compile-time constants chosen on
-// the card (kGroup, kGroupFp12Mul, kGroupFp6Mul, kGroupFp12Sqr; PERF.md has the
-// sweep).  What bounds the group kernels now is not one thread's latency: two
-// products at once per thread ran slower.  By instruction count most of a body
-// is mont_mul's CIOS.
-// The four step kernels of this unit (mul014, dbl_step, add_step,
-// cyclo_sqr) keep tower.cuh and one thread per element: their redesign is
-// later work.
+// the card (kGroup, kGroupFp12Mul, kGroupFp6Mul, kGroupFp12Sqr, kGroupMul014,
+// kGroupCycloSqr; PERF.md has the sweep).  What bounds the group kernels now
+// is not one thread's latency: two products at once per thread ran slower.
+// By instruction count most of a body is mont_mul's CIOS.
+// The two other step kernels of this unit (dbl_step, add_step) keep
+// tower.cuh and one thread per element: their redesign is later work.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -62,16 +62,20 @@ constexpr int kThreads = 32;
 // sweep at the main path's counts (PERF.md): the Miller kernels and exp_x;
 // fp12_mul, whose one phase of 54 products takes 4 rounds at 16 threads;
 // fp6_mul, 18 products in 5 rounds at 4 threads (a little ahead of 8 at
-// verify's 8192 elements; 8 and 16 are faster at a few elements); and
-// fp12_sqr, 36 products in 3 rounds at 16.  chip_smoke.py builds the
-// sweep's other values as throwaway copies of this unit with
-// -DBLS_GROUP=G, which sets all four.
+// verify's 8192 elements; 8 and 16 are faster at a few elements);
+// fp12_sqr, 36 products in 3 rounds at 16; mul014, 45 products in 3 rounds
+// at 16 (ahead of 8 and 4 at 4096 elements and at 1); and cyclo_sqr, 18 in
+// 3 rounds at 8, as exp_x's square (ahead of 4 and 16 on a run of 32 at
+// 4096, the step-wise verify's count; 16 is faster at a few elements).
+// chip_smoke.py builds the sweep's other values as throwaway copies of this
+// unit with -DBLS_GROUP=G, which sets all six.
 #ifdef BLS_GROUP
 constexpr int kGroup = BLS_GROUP, kGroupFp12Mul = BLS_GROUP,
-              kGroupFp6Mul = BLS_GROUP, kGroupFp12Sqr = BLS_GROUP;
+              kGroupFp6Mul = BLS_GROUP, kGroupFp12Sqr = BLS_GROUP,
+              kGroupMul014 = BLS_GROUP, kGroupCycloSqr = BLS_GROUP;
 #else
 constexpr int kGroup = 8, kGroupFp12Mul = 16, kGroupFp6Mul = 4,
-              kGroupFp12Sqr = 16;
+              kGroupFp12Sqr = 16, kGroupMul014 = 16, kGroupCycloSqr = 8;
 #endif
 
 inline unsigned grid_for(long long n) {
@@ -83,9 +87,7 @@ inline unsigned grid_for(long long n) {
 namespace bls_kernels {
 
 using bls::Fp;
-using bls::Fp12;
 using bls::Fp2;
-using bls::Fp6;
 using bls::FpModulus;
 using bls::G2Proj;
 using bls::Line;
@@ -93,30 +95,6 @@ using bls::load_fp;
 using bls::load_fp2;
 using bls::store_fp;
 using bls::store_fp2;
-
-__device__ __forceinline__ Fp6 load_fp6(const int32_t* buf, int j,
-                                        long long n, long long i) {
-  return {load_fp2(buf, j, n, i), load_fp2(buf, j + 2, n, i),
-          load_fp2(buf, j + 4, n, i)};
-}
-
-__device__ __forceinline__ void store_fp6(int32_t* buf, int j, long long n,
-                                          long long i, const Fp6& a) {
-  store_fp2(buf, j, n, i, a.c0);
-  store_fp2(buf, j + 2, n, i, a.c1);
-  store_fp2(buf, j + 4, n, i, a.c2);
-}
-
-__device__ __forceinline__ Fp12 load_fp12(const int32_t* buf, int j,
-                                          long long n, long long i) {
-  return {load_fp6(buf, j, n, i), load_fp6(buf, j + 6, n, i)};
-}
-
-__device__ __forceinline__ void store_fp12(int32_t* buf, int j, long long n,
-                                           long long i, const Fp12& a) {
-  store_fp6(buf, j, n, i, a.c0);
-  store_fp6(buf, j + 6, n, i, a.c1);
-}
 
 __device__ __forceinline__ G2Proj load_point(const int32_t* buf, int j,
                                              long long n, long long i) {
@@ -368,29 +346,49 @@ __global__ void __launch_bounds__(bls::group::kThreads)
 }
 
 // ------------------------------------------- the step-wise configuration
-// One launch per Miller step or line product, each a thin body over one
-// tower.cuh function (the formulas that group_rounds.cuh traces for the
-// group kernels).  Like the others they
-// are bound by operations (per-kernel bounds below, per element at 16.75 T
-// int32 multiply-adds/s against 3.35 TB/s), and they do not reach it: a
-// thread's Montgomery products run one after another.  What they cost over
-// the run kernels is launches and device-memory round trips of f and T,
-// which is why the default configuration fuses them.
+// One launch per Miller step or line product.  Like the others they are
+// bound by operations (per-kernel bounds below, per element at 16.75 T
+// int32 multiply-adds/s against 3.35 TB/s).  mul014 and cyclo_sqr run on
+// the group layer, as the run kernels' line and square bodies;
+// dbl_step and add_step are thin one-thread bodies over tower.cuh's
+// miller_dbl_step and miller_add_step (the formulas that group_rounds.cuh
+// traces for the run kernels), and do not reach their bound: a thread's
+// Montgomery products run one after another.  What the step-wise form
+// costs over the run kernels is launches and device-memory round trips of
+// f and T, which is why the default configuration fuses them.
 
 // Replaces _mul014_kernel (kernels.py:606): f * (c0 + c1 v + c4 v w).  f
-// (12, n) and the line (6, n) = c0, c1, c4 in, f' (12, n) out.  No valid
-// mask: the caller passes the neutral line (1, 0, 0) for an invalid pair,
-// as the JAX package does.  45 Montgomery products: ~1.6 ns of operations
-// against ~0.9 ns of bytes (30 Fp) per element.
-__global__ void __launch_bounds__(kThreads)
+// (12, n) and the line (6, n) = c0, c1, c4 in, through a pointer each (the
+// step-wise Miller loop passes T's line as a view of dbl_step's output), f'
+// (12, n) out.  No valid mask: the caller passes the neutral line (1, 0, 0)
+// for an invalid pair, as the JAX package does, and every element runs its
+// products.  45 Montgomery products: ~1.6 ns of operations against ~0.9 ns
+// of bytes (30 Fp) per element.
+// With Mul014Program (group_rounds.py mul014_program): f into slots 0-11 and
+// the line into kSlot_line0 from their own buffers, then the body line0 --
+// the Miller programs' f <- f * line (line_bodies): 45 products in one
+// phase, then f -- and f out: 45 / G rounds.
+template <int G>
+__global__ void __launch_bounds__(bls::group::kThreads)
     mul014_kernel(const int32_t* __restrict__ f,
                   const int32_t* __restrict__ line, int32_t* __restrict__ out,
                   long long n, FpModulus M) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const Line l = {load_fp2(line, 0, n, i), load_fp2(line, 2, n, i),
-                  load_fp2(line, 4, n, i)};
-  store_fp12(out, 0, n, i, bls::f12_mul_014(load_fp12(f, 0, n, i), l, M));
+  using Prog = bls::group::Mul014Program;
+  extern __shared__ uint4 smem[];
+  const int g = threadIdx.x / G, lane = threadIdx.x % G;
+  const long long i =
+      (long long)blockIdx.x * bls::group::elements_per_block<Prog, G>() + g;
+  if (i >= n) return;  // the whole group: no barrier spans groups
+  uint32_t* S = reinterpret_cast<uint32_t*>(smem) +
+                (long long)g * Prog::kSlots * bls::kFpWords;
+  const unsigned mask = bls::group::lane_mask<G>();
+  bls::group::load_coords<G>(f, n, i, 12, [](int c) { return c; }, S, lane);
+  bls::group::load_coords<G>(
+      line, n, i, 6, [](int c) { return Prog::kSlot_line0 + c; }, S, lane);
+  __syncwarp(mask);
+  bls::group::run<G>(Prog::kBody_line0, Prog::kEnd_line0, S, lane, mask, M);
+  bls::group::store_coords<G>(out, n, i, 12, [](int c) { return c; }, S,
+                              lane);
 }
 
 // Replaces _dblstep_kernel (kernels.py:646): T (6, n) = X, Y, Z and the G1
@@ -431,19 +429,35 @@ __global__ void __launch_bounds__(kThreads)
 
 // Replaces _cyclo_sqr_kernel (kernels.py:1412): `count` Granger-Scott
 // squares of f (12, n) in one launch, f' (12, n) out.  The Fp12 is
-// coefficient-major as everywhere in the port; f12_cyclotomic_sqr reads the
+// coefficient-major as everywhere in the port; the traced square reads the
 // Granger-Scott z-ordering from it, so the TPU operand shuffle has no
 // counterpart.  A square only for cyclotomic f (the same formula
 // otherwise).  18 Montgomery products per square: ~0.64 ns of operations
 // per element and square against ~0.7 ns of bytes per launch.
-__global__ void __launch_bounds__(kThreads)
+// With CycloSqrProgram (group_rounds.py cyclo_sqr_program): f into slots
+// 0-11, then `count` times the body square, exp_x's (18 products in one
+// phase, then f in place), and f out: 18 / G rounds per square.
+template <int G>
+__global__ void __launch_bounds__(bls::group::kThreads)
     cyclo_sqr_kernel(const int32_t* __restrict__ in, int32_t* __restrict__ out,
                      long long n, int count, FpModulus M) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  Fp12 f = load_fp12(in, 0, n, i);
-  for (int r = 0; r < count; ++r) f = bls::f12_cyclotomic_sqr(f, M);
-  store_fp12(out, 0, n, i, f);
+  using Prog = bls::group::CycloSqrProgram;
+  extern __shared__ uint4 smem[];
+  const int g = threadIdx.x / G, lane = threadIdx.x % G;
+  const long long i =
+      (long long)blockIdx.x * bls::group::elements_per_block<Prog, G>() + g;
+  if (i >= n) return;  // the whole group: no barrier spans groups
+  uint32_t* S = reinterpret_cast<uint32_t*>(smem) +
+                (long long)g * Prog::kSlots * bls::kFpWords;
+  const unsigned mask = bls::group::lane_mask<G>();
+  bls::group::load_coords<G>(in, n, i, 12, [](int c) { return c; }, S, lane);
+  __syncwarp(mask);
+  for (int r = 0; r < count; ++r) {
+    bls::group::run<G>(Prog::kBody_square, Prog::kEnd_square, S, lane, mask,
+                       M);
+  }
+  bls::group::store_coords<G>(out, n, i, 12, [](int c) { return c; }, S,
+                              lane);
 }
 
 }  // namespace bls_kernels
@@ -529,10 +543,9 @@ int bls_exp_x(const int32_t* in, int32_t* out, long long n, const int* lens,
 
 int bls_mul014(const int32_t* f, const int32_t* line, int32_t* out,
                long long n, const uint32_t* p, unsigned n0, void* stream) {
-  bls_kernels::mul014_kernel<<<grid_for(n), kThreads, 0,
-                               (cudaStream_t)stream>>>(
-      f, line, out, n, bls::make_modulus<bls::kFpWords>(p, n0));
-  return (int)cudaGetLastError();
+  return bls::group::launch<bls::group::Mul014Program, kGroupMul014>(
+      bls_kernels::mul014_kernel<kGroupMul014>, n, (cudaStream_t)stream, f,
+      line, out, n, bls::make_modulus<bls::kFpWords>(p, n0));
 }
 
 int bls_dbl_step(const int32_t* t, const int32_t* pts, int32_t* out,
@@ -555,10 +568,9 @@ int bls_add_step(const int32_t* t, const int32_t* q, const int32_t* pts,
 int bls_cyclo_sqr(const int32_t* in, int32_t* out, long long n, int count,
                   const uint32_t* p, unsigned n0, void* stream) {
   if (count < 1) return (int)cudaErrorInvalidValue;
-  bls_kernels::cyclo_sqr_kernel<<<grid_for(n), kThreads, 0,
-                                  (cudaStream_t)stream>>>(
+  return bls::group::launch<bls::group::CycloSqrProgram, kGroupCycloSqr>(
+      bls_kernels::cyclo_sqr_kernel<kGroupCycloSqr>, n, (cudaStream_t)stream,
       in, out, n, count, bls::make_modulus<bls::kFpWords>(p, n0));
-  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

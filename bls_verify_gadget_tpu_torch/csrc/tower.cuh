@@ -1,20 +1,20 @@
-// Device layer of the port's pairing kernels (pairing_kernels.cu): Fp2, Fp6
-// and Fp12 arithmetic, the CLN Miller steps and the Granger-Scott square,
-// for one batch element per thread, over field.cuh's 32-bit words.
+// Device layer of the port's one-thread pairing and point kernels
+// (pairing_kernels.cu's dbl_step and add_step, curve.cuh): Fp and Fp2
+// arithmetic and the CLN Miller steps, for one batch element per thread,
+// over field.cuh's 32-bit words; and the packed operands' loads and stores
+// and the parameter-bank structs that every unit shares.
 //
 // Each function is the counterpart of a JAX kernel body in
 // bls_verify_gadget_tpu/ops/pallas/kernels.py (named beside it) and returns
 // canonical values (< p).  The arithmetic is exact, so the formulas must be
 // the JAX bodies' own only where a different formula gives a different
-// value: a Miller line is fixed only up to an Fp2 factor, and the
-// Granger-Scott square equals a square only on cyclotomic elements.
+// value: a Miller line is fixed only up to an Fp2 factor.
 //
 // mont_mul takes operands below 2p: the only unreduced values here are the
 // Karatsuba sums of two canonical values (fp_lazy_add), which stay below 2p.
 //
 // Code size: the products are __noinline__ (fp_mul, the Fp2 product and
-// square, the sparse Fp12 line product, the Miller steps, the Granger-Scott
-// square).  A doubling iteration has 176 Montgomery products; inlined they
+// square, the Miller steps).  Inlined, a step's 25-41 Montgomery products
 // would take nvcc minutes and overflow the instruction cache.  Additions
 // and subtractions (two 12-word carry chains each) are inlined.  The
 // __noinline__ functions are static: nvcc emits a host definition of each,
@@ -33,12 +33,6 @@ struct Fp {
 };
 struct Fp2 {
   Fp c0, c1;
-};
-struct Fp6 {
-  Fp2 c0, c1, c2;
-};
-struct Fp12 {
-  Fp6 c0, c1;
 };
 struct G2Proj {  // homogeneous projective point on the twist
   Fp2 X, Y, Z;
@@ -204,92 +198,6 @@ __device__ __forceinline__ Fp2 f2_muls(const Fp2& a, const Fp& s,
 
 __device__ __forceinline__ Fp2 f2_half(const Fp2& a, const FpModulus& M) {
   return {fp_half(a.c0, M), fp_half(a.c1, M)};
-}
-
-// ---------------------------------------------------------------- Fp6
-// Fp6 = Fp2[v]/(v^3 - xi) (kernels.py:466-532).
-
-__device__ __forceinline__ Fp6 f6_add(const Fp6& a, const Fp6& b,
-                                      const FpModulus& M) {
-  return {f2_add(a.c0, b.c0, M), f2_add(a.c1, b.c1, M),
-          f2_add(a.c2, b.c2, M)};
-}
-
-__device__ __forceinline__ Fp6 f6_sub(const Fp6& a, const Fp6& b,
-                                      const FpModulus& M) {
-  return {f2_sub(a.c0, b.c0, M), f2_sub(a.c1, b.c1, M),
-          f2_sub(a.c2, b.c2, M)};
-}
-
-// * v (_f6_mul_v_rows)
-__device__ __forceinline__ Fp6 f6_mul_v(const Fp6& a, const FpModulus& M) {
-  return {f2_xi(a.c2, M), a.c0, a.c1};
-}
-
-// (a0, a1, a2)(d0 + d1 v) (_f6_mul_by_01)
-__device__ __forceinline__ Fp6 f6_mul_by_01(const Fp6& a, const Fp2& d0,
-                                            const Fp2& d1,
-                                            const FpModulus& M) {
-  const Fp2 p0 = f2_mul(a.c0, d0, M);
-  const Fp2 p1 = f2_mul(a.c2, d1, M);
-  const Fp2 p2 = f2_mul(a.c0, d1, M);
-  const Fp2 p3 = f2_mul(a.c1, d0, M);
-  const Fp2 p4 = f2_mul(a.c1, d1, M);
-  const Fp2 p5 = f2_mul(a.c2, d0, M);
-  return {f2_add(p0, f2_xi(p1, M), M), f2_add(p2, p3, M), f2_add(p4, p5, M)};
-}
-
-// (a0, a1, a2)(d1 v) (_f6_mul_by_1)
-__device__ __forceinline__ Fp6 f6_mul_by_1(const Fp6& a, const Fp2& d1,
-                                           const FpModulus& M) {
-  return {f2_xi(f2_mul(a.c2, d1, M), M), f2_mul(a.c0, d1, M),
-          f2_mul(a.c1, d1, M)};
-}
-
-// ---------------------------------------------------------------- Fp12
-// Fp12 = Fp6[w]/(w^2 - v) (kernels.py:492-544).
-
-// f * (c0 + c1 v + c4 v w): 15 Fp2 products (_f12_mul_014).
-static __device__ __noinline__ Fp12 f12_mul_014(const Fp12& f, const Line& l,
-                                         const FpModulus& M) {
-  const Fp6 v0 = f6_mul_by_01(f.c0, l.c0, l.c1, M);
-  const Fp6 v1 = f6_mul_by_1(f.c1, l.c4, M);
-  const Fp6 t =
-      f6_mul_by_01(f6_add(f.c0, f.c1, M), l.c0, f2_add(l.c1, l.c4, M), M);
-  return {f6_add(v0, f6_mul_v(v1, M), M), f6_sub(t, f6_add(v0, v1, M), M)};
-}
-
-// Granger-Scott square of a cyclotomic element: 9 Fp2 squares, 18
-// Montgomery products (_gs_body, kernels.py:1377, in the z-ordering
-// z = (a0, b1, b0, a2, a1, b2) of f = ((a0, a1, a2), (b0, b1, b2))).
-static __device__ __noinline__ Fp12 f12_cyclotomic_sqr(const Fp12& f,
-                                                const FpModulus& M) {
-  const Fp2 z0 = f.c0.c0, z1 = f.c1.c1, z2 = f.c1.c0;
-  const Fp2 z3 = f.c0.c2, z4 = f.c0.c1, z5 = f.c1.c2;
-  const Fp2 s0 = f2_sqr(z0, M), s1 = f2_sqr(z1, M), s2 = f2_sqr(z2, M);
-  const Fp2 s3 = f2_sqr(z3, M), s4 = f2_sqr(z4, M), s5 = f2_sqr(z5, M);
-  const Fp2 s01 = f2_sqr(f2_add(z0, z1, M), M);
-  const Fp2 s23 = f2_sqr(f2_add(z2, z3, M), M);
-  const Fp2 s45 = f2_sqr(f2_add(z4, z5, M), M);
-  const Fp2 t00 = f2_add(s0, f2_xi(s1, M), M);
-  const Fp2 t20 = f2_add(s2, f2_xi(s3, M), M);
-  const Fp2 t40 = f2_add(s4, f2_xi(s5, M), M);
-  const Fp2 t01 = f2_sub(s01, f2_add(s0, s1, M), M);
-  const Fp2 t21 = f2_sub(s23, f2_add(s2, s3, M), M);
-  const Fp2 t41 = f2_sub(s45, f2_add(s4, s5, M), M);
-  // 3t - 2z and 3t + 2z
-  auto m3m2 = [&M](const Fp2& t, const Fp2& z) {
-    const Fp2 r = f2_sub(t, z, M);
-    return f2_add(f2_add(r, r, M), t, M);
-  };
-  auto p3p2 = [&M](const Fp2& t, const Fp2& z) {
-    const Fp2 r = f2_add(t, z, M);
-    return f2_add(f2_add(r, r, M), t, M);
-  };
-  const Fp2 n0 = m3m2(t00, z0), n1 = p3p2(t01, z1);
-  const Fp2 n2 = p3p2(f2_xi(t41, M), z2), n3 = m3m2(t40, z3);
-  const Fp2 n4 = m3m2(t20, z4), n5 = p3p2(t21, z5);
-  return {{n0, n4, n3}, {n2, n1, n5}};
 }
 
 // ---------------------------------------------------------------- Miller

@@ -31,12 +31,14 @@ generator keeps the two operands' bounds (V <= W p, or V < 3p when
 REDUCED) at a product of at most 9 p^2.
 
 The forms come from tracing csrc/tower.cuh's formulas (the Fp6 and Fp12
-products: ops/tower.py's) with symbolic values (Lin below): every value is the same polynomial in the inputs as there, and
+products, the line product and the Granger-Scott square: ops/tower.py's and
+ops/pairing.py's) with symbolic values (Lin below): every value is the same polynomial in the inputs as there, and
 every slot holds a canonical residue, so the kernels' limbs equal the plain
 versions' whatever the grouping of products and sums.  The Miller line and
 T are tower.cuh's miller_dbl_step formula and the Granger-Scott square is
-its f12_cyclotomic_sqr formula (both matter off the curve and off the
-cyclotomic subgroup); the Fp12 square and products are exact products.
+ops/tower.py's fp12_cyclotomic_sqr_plain formula (both matter off the curve
+and off the cyclotomic subgroup); the Fp12 square and products are exact
+products.
 The point programs (pt_mul_const, g2_cofactor, sswu_map2) trace
 csrc/curve.cuh's Jacobian doubling and complete addition: the Jacobian
 representative is the formulas' polynomial, so the doubling may regroup
@@ -365,7 +367,8 @@ def f12_mul_014(P, f, c0, c1, c4):
 
 
 def f12_cyclotomic_sqr(P, f):
-    """tower.cuh f12_cyclotomic_sqr: -> the new f."""
+    """ops/tower.py fp12_cyclotomic_sqr_plain's Granger-Scott square (the
+    JAX _gs_body) in its z-ordering: -> the new f."""
     z0, z1, z2, z3, z4, z5 = f[0][0], f[1][1], f[1][0], f[0][2], f[0][1], f[1][2]
     s0, s1, s2 = f2_sqr(P, z0), f2_sqr(P, z1), f2_sqr(P, z2)
     s3, s4, s5 = f2_sqr(P, z3), f2_sqr(P, z4), f2_sqr(P, z5)
@@ -429,11 +432,7 @@ def exp_x_program():
     P.phase()
     store_all(P, m, fp12(f))
     store_all(P, ms, f6_add(fp12(f)[0], fp12(f)[1]))
-    P.body("square")
-    P.phase()
-    out = f12_cyclotomic_sqr(P, fp12(f))
-    P.phase()
-    store_all(P, f, out)
+    square_body(P, f)
     P.body("mul")
     P.phase()
     store_all(P, fs, f6_add(fp12(f)[0], fp12(f)[1]))
@@ -443,6 +442,39 @@ def exp_x_program():
     store_all(P, f, out)
     P.inputs = P.outputs = ["f"]
     P.flow = ["setup", ("loop", ("alt", "square", "mul"))]
+    return P.allocate()
+
+
+def square_body(P, f):
+    """The body square of exp_x and cyclo_sqr: a Granger-Scott square of f
+    (f12_cyclotomic_sqr): [18 products]; [f in place]."""
+    P.body("square")
+    P.phase()
+    out = f12_cyclotomic_sqr(P, fp12(f))
+    P.phase()
+    store_all(P, f, out)
+
+
+def cyclo_sqr_program():
+    """cyclo_sqr: f from the input (slots 0-11); body square, exp_x's (its
+    kernel runs it `count` times)."""
+    P = Program("cyclo_sqr")
+    f = P.named("f", 12)
+    square_body(P, f)
+    P.inputs = P.outputs = ["f"]
+    P.flow = ("loop", "square")
+    return P.allocate()
+
+
+def mul014_program():
+    """mul014: f and the line c0, c1, c4 from the input (slots 0-17); body
+    line0, the Miller programs' (line_bodies): f <- f * line, [45
+    products]; [f]."""
+    P = Program("mul014")
+    f, line = P.named("f", 12), P.named("line0", 6)
+    line_bodies(P, f, [line])
+    P.inputs, P.outputs = ["f", "line0"], ["f"]
+    P.flow = "line0"
     return P.allocate()
 
 
@@ -1323,7 +1355,8 @@ def programs():
             + [ladder_program(FP_COORD), ladder_program(FP2_COORD), cofactor_program()]
             + [miller_add_program(k) for k in MILLER_PAIRS] + [sswu_program()]
             + [fp12_mul_program(), fp6_mul_program(), fp12_sqr_program()]
-            + [var_ladder_program(FP_COORD), var_ladder_program(FP2_COORD)])
+            + [var_ladder_program(FP_COORD), var_ladder_program(FP2_COORD)]
+            + [cyclo_sqr_program(), mul014_program()])
 
 
 def elements_per_block(P, g):

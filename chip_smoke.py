@@ -99,10 +99,15 @@ Needs one CUDA card and nvcc.  Phases, each fatal on failure:
      4095 and 1 on hash_to_field's outputs with u = 0 elements (u0 = u1 =
      0 meets the sum's doubling case), and the lane-split pow_win
      (csrc/lanes.cuh) in Fp (e = p - 2) at 4096, 4095 and 1 with edge
-     values and in Fp2 (e = (p - 11)/16) at 4096, and pt_mul_var (G1 on
+     values and in Fp2 (e = (p - 11)/16) at 4096, pt_mul_var (G1 on
      the generator, G2 on H(m), 255 bits) at 4096, 4095 and 1 with the
      scalars 0, 1, 2, r - 1, r, r + 2 and 2^255 - 1 and a base at infinity
-     in the first elements: bit-equal to the plain versions; the sweep's
+     in the first elements, cyclo_sqr at 4096, 4095 and 1, runs of 1 and
+     32, on cyclotomic elements (the easy part of seeded values; the one
+     in element 0) and on seeded random Fp12 with edge values in elements
+     0-4, and mul014 at 4096, 4095 and 1 with a quarter of the lines
+     neutral and edge values in elements 0-4 of f: bit-equal to the plain
+     versions; the sweep's
      group sizes (throwaway copies of csrc/pairing_kernels.cu built with
      -DBLS_GROUP=G for G = 4, 8 and 16, which sets every group instance of
      the unit, of csrc/hash_kernels.cu built with -DBLS_HASH_GROUP=G for
@@ -111,7 +116,8 @@ Needs one CUDA card and nvcc.  Phases, each fatal on failure:
      and 8, into build/, in parallel with the library) bit-equal to the
      wrapper, and device ms per launch of each G or L at 4096 (fp6_mul
      8192; and at 1 for the ladders, sswu_map2, the three tower products,
-     pow_win and pt_mul_var); with --parent DIR, the parent commit's
+     pow_win, pt_mul_var, cyclo_sqr and mul014); with --parent DIR, the
+     parent commit's
      kernels (its pairing_kernels.cu, hash_kernels.cu and
      point_kernels.cu, built from DIR in parallel too) bit-equal as well
      and timed interleaved with this tree's (parent, group, group,
@@ -1114,8 +1120,8 @@ def _lines(line):
 
 
 # (bytes, Montgomery products) of one point or step kernel call at n
-# elements (step kernels: csrc/tower.cuh f12_mul_014 45, miller_dbl_step 25,
-# miller_add_step 41, f12_cyclotomic_sqr 18 per square)
+# elements (step kernels: the line product 45, csrc/tower.cuh
+# miller_dbl_step 25 and miller_add_step 41, the Granger-Scott square 18)
 HASH_WORK.update({
     "mul014": lambda n, f, line: (n * 30 * 96, _lines(line) * 45),
     "dbl_step": lambda n, t, p: (n * 20 * 96, n * 25),
@@ -1652,6 +1658,7 @@ GROUP_VAR = {"pairing": "G", "hash": "G", "pow": "L", "point": "G"}  # the swept
 # group kernel -> its sweep; a group instance: the kernel, or the ladder's field
 GROUP_KERNELS = {"miller_dbl_run": "pairing", "miller_add": "pairing", "exp_x": "pairing",
                  "fp12_mul": "pairing", "fp6_mul": "pairing", "fp12_sqr": "pairing",
+                 "mul014": "pairing", "cyclo_sqr": "pairing",
                  "pt_mul_const": "hash", "g2_cofactor": "hash", "sswu_map2": "hash",
                  "pow_win": "pow", "pt_mul_var": "point"}
 # ptxas's mangled name of each group kernel instance -> (label, program of
@@ -1669,7 +1676,7 @@ GROUP_LOG = (
      lambda m: (f"g2_cofactor<G={m[1]}>", "g2_cofactor", int(m[1]))),
     (re.compile(r"sswu_map2_kernelILi(\d+)E"),
      lambda m: (f"sswu_map2<G={m[1]}>", "sswu_map2", int(m[1]))),
-    (re.compile(r"(fp12_mul|fp6_mul|fp12_sqr)_kernelILi(\d+)E"),
+    (re.compile(r"(fp12_mul|fp6_mul|fp12_sqr|mul014|cyclo_sqr)_kernelILi(\d+)E"),
      lambda m: (f"{m[1]}<G={m[2]}>", m[1], int(m[2]))),
     (re.compile(r"pow_win_kernelILi(\d+)ELi(\d+)E"),
      lambda m: (f"pow_win<C={m[1]}, L={m[2]}>", None, int(m[2]))),
@@ -1680,13 +1687,14 @@ GROUP_LOG = (
 
 def library_groups(K):
     """The library's threads per element of each group instance:
-    pairing_kernels.cu's kGroup, kGroupFp12Mul, kGroupFp6Mul and
-    kGroupFp12Sqr, hash_kernels.cu's kGroupG1, kGroupG2, kGroupCofactor,
-    kGroupSswu and BLS_POW_LANES (pow_win's L), point_kernels.cu's
-    kGroupVarG1 and kGroupVarG2."""
-    pairing, fp12, fp6, sqr = map(int, re.search(
+    pairing_kernels.cu's kGroup, kGroupFp12Mul, kGroupFp6Mul,
+    kGroupFp12Sqr, kGroupMul014 and kGroupCycloSqr, hash_kernels.cu's
+    kGroupG1, kGroupG2, kGroupCofactor, kGroupSswu and BLS_POW_LANES
+    (pow_win's L), point_kernels.cu's kGroupVarG1 and kGroupVarG2."""
+    pairing, fp12, fp6, sqr, mul014, cyclo = map(int, re.search(
         r"#else\nconstexpr int kGroup = (\d+), kGroupFp12Mul = (\d+), kGroupFp6Mul = (\d+),"
-        r"\s+kGroupFp12Sqr = (\d+);", (K.CSRC_DIR / GROUP_UNITS["pairing"]).read_text()).groups())
+        r"\s+kGroupFp12Sqr = (\d+), kGroupMul014 = (\d+), kGroupCycloSqr = (\d+);",
+        (K.CSRC_DIR / GROUP_UNITS["pairing"]).read_text()).groups())
     hash_src = (K.CSRC_DIR / GROUP_UNITS["hash"]).read_text()
     g1, g2, cofactor, sswu = map(int, re.search(
         r"#else\nconstexpr int kGroupG1 = (\d+), kGroupG2 = (\d+), kGroupCofactor = (\d+), "
@@ -1696,7 +1704,8 @@ def library_groups(K):
         r"#else\nconstexpr int kGroupVarG1 = (\d+), kGroupVarG2 = (\d+);",
         (K.CSRC_DIR / GROUP_UNITS["point"]).read_text()).groups())
     return {"miller_dbl_run": pairing, "miller_add": pairing, "exp_x": pairing,
-            "fp12_mul": fp12, "fp6_mul": fp6, "fp12_sqr": sqr, "pt_mul_const G1": g1,
+            "fp12_mul": fp12, "fp6_mul": fp6, "fp12_sqr": sqr, "mul014": mul014,
+            "cyclo_sqr": cyclo, "pt_mul_const G1": g1,
             "pt_mul_const G2": g2, "g2_cofactor": cofactor, "sswu_map2": sswu, "pow_win Fp": lanes,
             "pow_win Fp2": lanes, "pt_mul_var G1": var1, "pt_mul_var G2": var2}
 
@@ -1818,6 +1827,22 @@ def entry_launch(torch, K, name, fn, args):
             K._check_rc(name, fn(packed.data_ptr(), out.data_ptr(), packed.shape[1], p, n0,
                                  K._stream(packed)))
         return launch, out
+    if name == "mul014":  # f and the line through a pointer each
+        f, line = args
+        out = torch.empty_like(f)
+
+        def launch():
+            K._check_rc(name, fn(f.data_ptr(), line.data_ptr(), out.data_ptr(), f.shape[1], p,
+                                 n0, K._stream(f)))
+        return launch, out
+    if name == "cyclo_sqr":
+        f, count = args
+        out = torch.empty_like(f)
+
+        def launch():
+            K._check_rc(name, fn(f.data_ptr(), out.data_ptr(), f.shape[1], count, p, n0,
+                                 K._stream(f)))
+        return launch, out
     if name == "pow_win":
         a, exponent = args
         digits, ndig = K._digits(exponent)
@@ -1910,6 +1935,19 @@ def ladder_edge_points():
     return [None, *small, off1], [None, off2]
 
 
+def cyclotomic_inputs(torch, rng, n):
+    """n cyclotomic Fp12 as a packed (12, n, 24) operand: the easy part
+    f^((p^6 - 1)(p^2 + 1)) of pairing_inputs' seeded values (through the
+    port's kernels), the one in element 0."""
+    from bls_verify_gadget_tpu_torch.ops import tower as T
+
+    f = T.fp12_unpack(pairing_inputs(torch, rng, "fp12_sqr", n)[0])
+    f1 = T.fp12_mul(T.fp12_frob(f, 6), T.fp12_inv(f))
+    m = T.fp12_pack(T.fp12_mul(T.fp12_frob(f1, 2), f1)).contiguous()
+    m[:, 0] = T.fp12_pack(T.fp12_one_like(T.fp12_unpack(m[:, :1])))[:, 0]
+    return m
+
+
 def group_cases(torch, rng):
     """(label, kernel, instance, args, timed) of the group phase:
     miller_dbl_run with two pairs and with one, runs of 32 at 4096 (timed)
@@ -1940,8 +1978,12 @@ def group_cases(torch, rng):
     meets acc = -P: set_inf), r + 2 (acc = P: the doubling case) and
     2^255 - 1 in elements 0-6, the base at infinity (Z = 0) in element 7,
     seeded 255-bit scalars in the rest; 4095 and 1 are the first 4095
-    elements and the last one.  The plain ladder costs the same at any
-    count on the card (~30-45 s, launch-bound), and each element's result
+    elements and the last one; cyclo_sqr at 4096 (timed), 4095 and 1
+    (timed), runs of 1 and 32 (|x|'s longest), on cyclotomic_inputs and
+    on pairing_inputs (random Fp12, the edge values in elements 0-4); mul014
+    at 4096 (timed), 4095 and 1 (timed) on pairing_inputs (f with the edge
+    values in elements 0-4, a quarter of the lines neutral).  The plain
+    ladder costs the same at any count on the card (~30-45 s, launch-bound), and each element's result
     depends on its own operands only, so it runs once, at 4096, and its
     columns are the reference of 4095 and 1 (a case's sixth item)."""
     import numpy as np
@@ -2014,6 +2056,16 @@ def group_cases(torch, rng):
     a[0, :len(edges)], a[1, :len(edges)] = edges, edges.roll(1, 0)
     cases.append((f"Fp2, e = (p - 11)/16, {BATCH}, edge values in elements 0-4", "pow_win",
                   "pow_win Fp2", (a, H.SQRT_K), True))
+    for n in (BATCH, BATCH - 1, 1):
+        edge = "element 0" if n == 1 else "elements 0-4"
+        for count in (1, longest):
+            cases.append((f"cyclotomic, the one in element 0, run of {count}, {n}", "cyclo_sqr",
+                          "cyclo_sqr", (cyclotomic_inputs(torch, rng, n), count), n != BATCH - 1))
+            cases.append((f"random Fp12, edge values in {edge}, run of {count}, {n}",
+                          "cyclo_sqr", "cyclo_sqr", pairing_inputs(torch, rng, "cyclo_sqr", n,
+                                                                   count), n != BATCH - 1))
+        cases.append((f"1/4 of the lines neutral, edge values in {edge}, {n}", "mul014",
+                      "mul014", pairing_inputs(torch, rng, "mul014", n), n != BATCH - 1))
     r = C.R
     edge_keys = [0, 1, 2, r - 1, r, r + 2, (1 << 255) - 1]
     keys = edge_keys + [int.from_bytes(rng.bytes(32), "little") >> 1
@@ -2400,7 +2452,7 @@ def main():
                     help="a git archive of the parent commit in a git-ignored directory of "
                          "this checkout: time its miller_dbl_run, miller_add, exp_x, "
                          "fp12_mul, fp6_mul, fp12_sqr, pt_mul_const, g2_cofactor, "
-                         "sswu_map2, pow_win and pt_mul_var "
+                         "sswu_map2, pow_win, pt_mul_var, mul014 and cyclo_sqr "
                          "kernels interleaved with this tree's in the group phase, and its "
                          "mul, add, sub, fp2_mul and fp2_sqr in the field phase")
     args = ap.parse_args()

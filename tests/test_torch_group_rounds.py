@@ -3,10 +3,11 @@ tables of csrc/group_rounds.cuh that csrc/group.cuh runs) on the CPU: the
 committed header is the generator's output, and each body run on Python
 ints as the kernels run it (run_body: phase by phase, every form and
 product with the kernels' bounds checked) gives the limbs of the plain
-versions of miller_dbl_run, miller_add and exp_x (ops/pairing.py) and
-fp12_mul, fp6_mul and fp12_sqr (ops/tower.py; with 0, 1 and p - 1 among
-their operands) on seeded random operands, off the curve and off the cyclotomic subgroup,
-with mixed valid masks; the point programs' scripts (run_script) give
+versions of miller_dbl_run, miller_add, exp_x and mul014 (ops/pairing.py)
+and fp12_mul, fp6_mul, fp12_sqr and cyclo_sqr (ops/tower.py; with 0, 1 and
+p - 1 among their operands, mul014 also on a neutral line) on seeded random
+operands, off the curve and off the cyclotomic subgroup, with mixed valid
+masks; the point programs' scripts (run_script) give
 those of pt_mul_const (G1, G2) and g2_cofactor (ops/curve.py) on edge
 points, and in affine the JAX package's golden curve and, in G1, its
 jitted pt_mul_const, and those of sswu_map2 (ops/hash_to_g2.py) on u
@@ -80,15 +81,14 @@ TOWER_BODIES = {
     "fp12_mul": (GR.fp12_mul_program, "mul", T.fp12_mul_plain, (12, 12), 12),
     "fp6_mul": (GR.fp6_mul_program, "mul", T.fp6_mul_packed_plain, (6, 6), 6),
     "fp12_sqr": (GR.fp12_sqr_program, "sqr", T.fp12_sqr_plain, (12,), 12),
+    "mul014": (GR.mul014_program, "line0", PR.mul014_plain, (12, 6), 12),
 }
 
 
-@pytest.mark.parametrize("name", TOWER_BODIES)
-def test_tower_body_matches_the_plain_version(name):
-    """The tower products' bodies on seeded operands with 0, 1 and p - 1 in
-    every coordinate of element 0 and the first three of element 2."""
-    program, body, plain, coords, nout = TOWER_BODIES[name]
-    rng = np.random.default_rng(75 + len(coords) + coords[0])
+def _edge_operands(rng, coords):
+    """Seeded operands of `coords` coordinates each, with 0, 1 and p - 1 in
+    every coordinate of element 0 and the first three of element 2: [(the
+    packed (c, N, 24) tensor, its ints)]."""
     edges = [0, 1, C.P - 1]
     ops = []
     for c in coords:
@@ -98,14 +98,60 @@ def test_tower_body_matches_the_plain_version(name):
         for j in range(3):
             vals[j][2] = edges[j]
         ops.append((torch.from_numpy(np.stack([ints_to_limbs(v, 24) for v in vals])), vals))
+    return ops
+
+
+@pytest.mark.parametrize("name", TOWER_BODIES)
+def test_tower_body_matches_the_plain_version(name):
+    """The tower products' bodies on seeded operands with 0, 1 and p - 1 in
+    every coordinate of element 0 and the first three of element 2; mul014's
+    line of element 1 is the neutral (1, 0, 0), which its kernel multiplies
+    by as any other."""
+    program, body, plain, coords, nout = TOWER_BODIES[name]
+    rng = np.random.default_rng(75 + len(coords) + coords[0])
+    ops = _edge_operands(rng, coords)
+    if name == "mul014":
+        line, vals = ops[1]
+        for j in range(6):
+            vals[j][1] = _mont(1) if j == 0 else 0
+        line[:, 1] = torch.from_numpy(np.stack(ints_to_limbs([v[1] for v in vals], 24)))
     want = ints(plain(*(t for t, _ in ops)))
     P = program()
-    out = P.slots["out"][0]
+    out = P.slots[P.outputs[0]][0]
     for i in range(N):
         slots = [0] * P.nslots  # the operands in order: the packed operand's
         slots[:sum(coords)] = [v[j][i] for _, v in ops for j in range(len(v))]
         GR.run_body(P, body, slots)
         assert slots[out:out + nout] == [want[c][i] for c in range(nout)]
+
+
+@pytest.mark.parametrize("count", [1, 3])
+def test_cyclo_sqr_body_matches_the_plain_version(count):
+    """cyclo_sqr's kernel runs the body square `count` times: on seeded
+    Fp12 off the cyclotomic subgroup, with 0, 1 and p - 1 among element 0's
+    and element 2's coordinates, the limbs of cyclo_sqr_plain."""
+    ((f, vals),) = _edge_operands(np.random.default_rng(90 + count), (12,))
+    want = ints(T.cyclo_sqr_plain(f, count))
+    P = GR.cyclo_sqr_program()
+    for i in range(N):
+        slots = [0] * P.nslots
+        slots[:12] = [vals[c][i] for c in range(12)]
+        for _ in range(count):
+            GR.run_body(P, "square", slots)
+        assert slots[:12] == [want[c][i] for c in range(12)]
+
+
+def test_step_programs_are_one_phase_of_products():
+    """cyclo_sqr's square and mul014's line0 are each one phase of
+    products (18 and 45), then the stores of f; the programs that share
+    their bodies keep their slot counts."""
+    for P, body, n in [(GR.cyclo_sqr_program(), "square", 18), (GR.mul014_program(), "line0", 45)]:
+        phases = P.bodies[body]
+        assert [sum(op.b is not None for op in ops) for ops in phases] == [n, 0]
+        assert [len(ops) for ops in phases] == [n, 12]
+        assert P.nslots == (12 if body == "square" else 18) + n
+    assert GR.exp_x_program().nslots == 90
+    assert [GR.miller_program(k).nslots for k in GR.MILLER_PAIRS] == [93, 126]
 
 
 @pytest.mark.parametrize("k", GR.MILLER_PAIRS)
