@@ -56,8 +56,9 @@ def points_from_numpy(pt, device="cuda"):
 
 
 def bitmap_from_numpy(bitmap, device="cuda") -> torch.Tensor:
-    """A participation bitmap (any integer or bool array) -> bool tensor."""
-    return torch.from_numpy(np.asarray(bitmap) != 0).to(resolve_device(device))
+    """A participation bitmap (any integer or bool array) -> bool tensor of
+    the elements > 0, the JAX package's selection."""
+    return torch.from_numpy(np.asarray(bitmap) > 0).to(resolve_device(device))
 
 
 def batch_from_numpy(pk_aff, sig_aff, msg_u8, device="cuda"):

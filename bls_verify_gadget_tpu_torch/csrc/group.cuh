@@ -1,7 +1,7 @@
 // The cooperative layer of the group kernels (pairing_kernels.cu's
-// miller_dbl_run, miller_add, exp_x, fp12_mul, fp6_mul and fp12_sqr,
-// hash_kernels.cu's pt_mul_const, g2_cofactor and sswu_map2,
-// point_kernels.cu's pt_mul_var): one batch
+// miller_dbl_run, miller_add, exp_x, fp12_mul, fp6_mul, fp12_sqr, mul014,
+// cyclo_sqr and dbl_step, hash_kernels.cu's pt_mul_const, g2_cofactor and
+// sswu_map2, point_kernels.cu's pt_mul_var and pt_add): one batch
 // element on a group of G threads (G a divisor of 32, so a group lies in
 // one warp), its state in shared memory, its bodies run as the rounds of
 // group_rounds.cuh.
@@ -27,7 +27,7 @@
 // The tables of ops are read through the read-only cache: the threads of a
 // group read different ops, and __constant__ would serialize them.
 //
-// Point programs (the ladders, g2_cofactor, sswu_map2) run a script
+// Point programs (the ladders, g2_cofactor, sswu_map2, pt_add) run a script
 // (run_script): bodies, complete additions, constant-scalar ladders,
 // variable-scalar ladders, cases, table loads and exponent chains in
 // lockstep, all through one run<G>, so that a kernel inlines one copy of
@@ -105,7 +105,7 @@ __device__ __forceinline__ void store_slot(uint32_t* S, int s,
   }
 }
 
-// a / 2 mod p (tower.cuh fp_half) on words.
+// a / 2 mod p (ops/pairing.py fp_half) on words.
 __device__ __forceinline__ void half_words(uint32_t (&a)[kFpWords],
                                            const FpModulus& M) {
   uint32_t t[kFpWords];
@@ -309,7 +309,7 @@ __device__ __forceinline__ bool scalar_bit(const uint32_t* S, int bit) {
 }
 
 // After the body add of a point program: the phase range [p0, p1) of the
-// body that the complete addition's case picks (curve.cuh pt_add, in
+// body that the complete addition's case picks (ops/curve.py pt_add, in
 // _pt_add_body's order): P (acc) at infinity -> take_base; Q (base) at
 // infinity -> none, acc is P; h = r = 0 -> dbl, the doubling of acc; h = 0
 // -> set_inf, (one, one, 0); else take_sum.  In a variable ladder (bit >=

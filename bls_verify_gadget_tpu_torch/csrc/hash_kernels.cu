@@ -23,7 +23,7 @@
 // _g2cofactor_kernel and _sswu_kernel) run on group.cuh: a group of G
 // threads per batch element, its state in shared memory, its bodies as
 // rounds of independent Montgomery products (group_rounds.cuh, traced from
-// curve.cuh's pt_dbl and pt_add and the SSWU map's formulas), its
+// ops/curve.py's pt_double and pt_add and the SSWU map's formulas), its
 // data-dependent choices (the addition's exceptional cases, sswu_map2's
 // e1, sqrt candidate and sgn0) as branches that the whole group takes
 // together.  The one-thread design they replace ran a G2 ladder's 1,291

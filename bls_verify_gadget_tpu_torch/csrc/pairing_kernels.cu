@@ -24,10 +24,11 @@
 // element at 3.35 TB/s and 16.75 T int32 multiply-adds/s).  Fusing buys
 // launches: the Miller loop is 11 launches and an x-chain one.
 //
-// miller_dbl_run, miller_add, exp_x, fp12_mul, fp6_mul, fp12_sqr, mul014 and
-// cyclo_sqr (the TPU's _millerdbl_kernel, _milleradd_kernel, _expx_kernel,
-// _fp12mul_kernel, _fp6mul_kernel, _fp12sqr_kernel, _mul014_kernel and
-// _cyclo_sqr_kernel) run on group.cuh: a group of G threads
+// miller_dbl_run, miller_add, exp_x, fp12_mul, fp6_mul, fp12_sqr, mul014,
+// cyclo_sqr and dbl_step (the TPU's _millerdbl_kernel, _milleradd_kernel,
+// _expx_kernel, _fp12mul_kernel, _fp6mul_kernel, _fp12sqr_kernel,
+// _mul014_kernel, _cyclo_sqr_kernel and _dblstep_kernel) run on group.cuh:
+// a group of G threads
 // per batch element, the element's state in shared memory, each body as rounds
 // of independent Montgomery products dealt out over the group
 // (group_rounds.cuh).  The design they replace ran one thread per element
@@ -39,11 +40,11 @@
 // square: 18 in one), runs each product inlined in registers, and puts G times
 // the warps on each SM.  G and the block are compile-time constants chosen on
 // the card (kGroup, kGroupFp12Mul, kGroupFp6Mul, kGroupFp12Sqr, kGroupMul014,
-// kGroupCycloSqr; PERF.md has the sweep).  What bounds the group kernels now
+// kGroupCycloSqr, kGroupDblStep; PERF.md has the sweep).  What bounds the group kernels now
 // is not one thread's latency: two products at once per thread ran slower.
 // By instruction count most of a body is mont_mul's CIOS.
-// The two other step kernels of this unit (dbl_step, add_step) keep
-// tower.cuh and one thread per element: their redesign is later work.
+// The other step kernel of this unit, add_step, keeps tower.cuh and one
+// thread per element: its redesign is later work.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -66,16 +67,22 @@ constexpr int kThreads = 32;
 // fp12_sqr, 36 products in 3 rounds at 16; mul014, 45 products in 3 rounds
 // at 16 (ahead of 8 and 4 at 4096 elements and at 1); and cyclo_sqr, 18 in
 // 3 rounds at 8, as exp_x's square (ahead of 4 and 16 on a run of 32 at
-// 4096, the step-wise verify's count; 16 is faster at a few elements).
+// 4096, the step-wise verify's count; 16 is faster at a few elements);
+// and dbl_step, 11 then 14 products at 8 (two rounds each; at 8192
+// elements, the step-wise verify's 63 launches, G = 4 / 8 / 16 take 42.2 /
+// 37.5 / 40.4 us, at 4096 36.1 / 26.4 / 23.2, at 1 30.7 / 20.0 / 13.4 on
+// an H100 at 700 W).
 // chip_smoke.py builds the sweep's other values as throwaway copies of this
-// unit with -DBLS_GROUP=G, which sets all six.
+// unit with -DBLS_GROUP=G, which sets all seven.
 #ifdef BLS_GROUP
 constexpr int kGroup = BLS_GROUP, kGroupFp12Mul = BLS_GROUP,
               kGroupFp6Mul = BLS_GROUP, kGroupFp12Sqr = BLS_GROUP,
-              kGroupMul014 = BLS_GROUP, kGroupCycloSqr = BLS_GROUP;
+              kGroupMul014 = BLS_GROUP, kGroupCycloSqr = BLS_GROUP,
+              kGroupDblStep = BLS_GROUP;
 #else
 constexpr int kGroup = 8, kGroupFp12Mul = 16, kGroupFp6Mul = 4,
-              kGroupFp12Sqr = 16, kGroupMul014 = 16, kGroupCycloSqr = 8;
+              kGroupFp12Sqr = 16, kGroupMul014 = 16, kGroupCycloSqr = 8,
+              kGroupDblStep = 8;
 #endif
 
 inline unsigned grid_for(long long n) {
@@ -348,12 +355,12 @@ __global__ void __launch_bounds__(bls::group::kThreads)
 // ------------------------------------------- the step-wise configuration
 // One launch per Miller step or line product.  Like the others they are
 // bound by operations (per-kernel bounds below, per element at 16.75 T
-// int32 multiply-adds/s against 3.35 TB/s).  mul014 and cyclo_sqr run on
-// the group layer, as the run kernels' line and square bodies;
-// dbl_step and add_step are thin one-thread bodies over tower.cuh's
-// miller_dbl_step and miller_add_step (the formulas that group_rounds.cuh
-// traces for the run kernels), and do not reach their bound: a thread's
-// Montgomery products run one after another.  What the step-wise form
+// int32 multiply-adds/s against 3.35 TB/s).  mul014, cyclo_sqr and
+// dbl_step run on the group layer, as the run kernels' line, square and
+// doubling bodies; add_step is a thin one-thread body over tower.cuh's
+// miller_add_step (the formula that group_rounds.cuh traces for the run
+// kernels), and does not reach its bound: a thread's Montgomery products
+// run one after another.  What the step-wise form
 // costs over the run kernels is launches and device-memory round trips of
 // f and T, which is why the default configuration fuses them.
 
@@ -391,21 +398,41 @@ __global__ void __launch_bounds__(bls::group::kThreads)
                               lane);
 }
 
-// Replaces _dblstep_kernel (kernels.py:646): T (6, n) = X, Y, Z and the G1
-// point (2, n) = xp, yp in; (12, n) = 2T, then the line (c0, c1, c4) out.
-// 25 Montgomery products (19 for T, 6 for the line): ~0.9 ns of operations
+// Replaces _dblstep_kernel (kernels.py:646): T (6, n) = X, Y, Z and the
+// G1 point (2, n) = xp, yp in, through a pointer each; (12, n) = 2T, then
+// the line (c0, c1, c4) out (mul014 reads the line as a view of it).  25
+// Montgomery products (19 for T, 6 for the line): ~0.9 ns of operations
 // against ~0.6 ns of bytes (20 Fp) per element.
-__global__ void __launch_bounds__(kThreads)
+// With DblStepProgram (group_rounds.py dbl_step_program): T and p into
+// slots 0-7, then the body dbl -- the Miller programs' doubling without
+// f^2: [11 products]; [the intermediates and the line's c0]; [14 products,
+// c1 and c4 among them]; [T] -- and T, then the line out: 11 / G + 14 / G
+// rounds, where the one-thread kernel it replaces ran the 25 products one
+// after another.
+template <int G>
+__global__ void __launch_bounds__(bls::group::kThreads)
     dbl_step_kernel(const int32_t* __restrict__ t,
                     const int32_t* __restrict__ p, int32_t* __restrict__ out,
                     long long n, FpModulus M) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  G2Proj pt = load_point(t, 0, n, i);
-  const Line l =
-      bls::miller_dbl_step(pt, load_fp(p, 0, n, i), load_fp(p, 1, n, i), M);
-  store_point(out, 0, n, i, pt);
-  store_line(out, 6, n, i, l);
+  using Prog = bls::group::DblStepProgram;
+  extern __shared__ uint4 smem[];
+  const int g = threadIdx.x / G, lane = threadIdx.x % G;
+  const long long i =
+      (long long)blockIdx.x * bls::group::elements_per_block<Prog, G>() + g;
+  if (i >= n) return;  // the whole group: no barrier spans groups
+  uint32_t* S = reinterpret_cast<uint32_t*>(smem) +
+                (long long)g * Prog::kSlots * bls::kFpWords;
+  const unsigned mask = bls::group::lane_mask<G>();
+  bls::group::load_coords<G>(
+      t, n, i, 6, [](int c) { return Prog::kSlot_t0 + c; }, S, lane);
+  bls::group::load_coords<G>(
+      p, n, i, 2, [](int c) { return Prog::kSlot_p0 + c; }, S, lane);
+  __syncwarp(mask);
+  bls::group::run<G>(Prog::kBody_dbl, Prog::kEnd_dbl, S, lane, mask, M);
+  bls::group::store_coords<G>(
+      out, n, i, 12,
+      [](int c) { return c < 6 ? Prog::kSlot_t0 + c : Prog::kSlot_line0 + c - 6; },
+      S, lane);
 }
 
 // Replaces _addstep_kernel (kernels.py:688): T (6, n), the affine Q (4, n)
@@ -550,10 +577,9 @@ int bls_mul014(const int32_t* f, const int32_t* line, int32_t* out,
 
 int bls_dbl_step(const int32_t* t, const int32_t* pts, int32_t* out,
                  long long n, const uint32_t* p, unsigned n0, void* stream) {
-  bls_kernels::dbl_step_kernel<<<grid_for(n), kThreads, 0,
-                                 (cudaStream_t)stream>>>(
-      t, pts, out, n, bls::make_modulus<bls::kFpWords>(p, n0));
-  return (int)cudaGetLastError();
+  return bls::group::launch<bls::group::DblStepProgram, kGroupDblStep>(
+      bls_kernels::dbl_step_kernel<kGroupDblStep>, n, (cudaStream_t)stream, t,
+      pts, out, n, bls::make_modulus<bls::kFpWords>(p, n0));
 }
 
 int bls_add_step(const int32_t* t, const int32_t* q, const int32_t* pts,

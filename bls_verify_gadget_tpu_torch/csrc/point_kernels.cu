@@ -2,15 +2,16 @@
 // loaded through ctypes by ops/kernels.py: Jacobian doubling repeated
 // `count` times, the complete Jacobian addition, and the variable-scalar
 // double-and-add ladder of keygen and signing, for G1 (coordinates in Fp)
-// and G2 (Fp2) as template instances: the first two over curve.cuh, the
-// ladder over group.cuh.
+// and G2 (Fp2) as template instances: the doubling over curve.cuh, the
+// addition and the ladder over group.cuh.
 //
-// Layout.  As in hash_kernels.cu: one packed operand buffer in and one
-// packed output buffer out, (c, n, 24) int32 16-bit Montgomery limbs, a
-// Jacobian point X, Y, Z (3 coordinates in G1, 6 in G2).  The ladder also
-// reads each element's scalar as a row of kScalarLimbs raw (non-Montgomery)
-// 16-bit limbs, little-endian.  The Montgomery one and the bit count ride
-// by value in the parameter bank.
+// Layout.  As in hash_kernels.cu: packed operand buffers in and one packed
+// output buffer out, (c, n, 24) int32 16-bit Montgomery limbs, a Jacobian
+// point X, Y, Z (3 coordinates in G1, 6 in G2); the addition takes P and Q
+// through a pointer each.  The ladder also reads each element's scalar as
+// a row of kScalarLimbs raw (non-Montgomery) 16-bit limbs, little-endian.
+// The Montgomery one and the bit count ride by value in the parameter
+// bank.
 //
 // What bounds them, and the design.  Device memory sees the operands and
 // the results only: 96 bytes per Fp coordinate in or out, and 64 per
@@ -20,16 +21,18 @@
 // a single addition or doubling at the 2,048 elements of a 4096-element
 // aggregation tree's widest level is bound by operations too, at 1-3
 // microseconds, about what a launch costs.
-// pt_dbl and pt_add run one thread per element (curve.cuh).  pt_mul_var
-// (the TPU's _ptmulvar_kernel) runs on group.cuh: a group of G threads per
-// element, its state in shared memory, the doubling and the complete
-// addition as rounds of independent Montgomery products (group_rounds.cuh,
-// the bodies of pt_mul_const's ladders, group_rounds.py ladder_bodies), and
-// the element's scalar bit as one more flag of the addition's case, which
-// every thread of the group reads from the element's slots: a group never
-// diverges on its bit.  The one-thread ladder it replaces ran 255 x (17 +
-// 44) G2 products in series per thread, 32 threads per block (one warp per
-// SM at 4096 elements), and branched per thread on its bit.
+// pt_dbl runs one thread per element (curve.cuh).  pt_add and pt_mul_var
+// (the TPU's _ptadd_kernel and _ptmulvar_kernel) run on group.cuh: a group
+// of G threads per element, its state in shared memory, the doubling and
+// the complete addition as rounds of independent Montgomery products
+// (group_rounds.cuh, the bodies of pt_mul_const's ladders, group_rounds.py
+// ladder_bodies), and the addition's case (and the ladder's scalar bit) as
+// flags that every thread of the group reads from the element's slots: a
+// group never diverges on its case.  The one-thread kernels they replace
+// ran a G2 addition's 44 products, or the ladder's 255 x (17 + 44), in
+// series per thread, 32 threads per block, so that an aggregation tree's
+// level took one thread's latency whatever its width, and branched per
+// thread on the case and the bit.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -39,18 +42,24 @@
 
 namespace {
 
-// One warp per block for pt_dbl and pt_add, as in pairing_kernels.cu.
+// One warp per block for pt_dbl, as in pairing_kernels.cu.
 constexpr int kThreads = 32;
 constexpr int kScalarLimbs = 16;  // raw Fr scalar: 16 x 16-bit limbs
 
-// pt_mul_var's threads per element (a divisor of 32) over Fp (G1) and Fp2
-// (G2), from the sweep at 4096 elements (PERF.md).  chip_smoke.py builds
-// the sweep's other values as throwaway copies of this unit with
-// -DBLS_POINT_GROUP=G, which sets both.
+// The group kernels' threads per element (a divisor of 32) over Fp (G1)
+// and Fp2 (G2): pt_mul_var's from the sweep at 4096 elements; pt_add's
+// from the sweep at the aggregation trees' levels, 2048 elements down to 1
+// (the keys run's 33 launches summed, H100 at 700 W: G1 G = 2 / 4 / 8 /
+// 16 690.6 / 460.1 / 428.2 / 422.2 us, G = 8 ahead at 2048; G2 918.1 /
+// 576.2 / 372.8 / 295.3 us; PERF.md).  chip_smoke.py builds the sweep's
+// other values as throwaway copies of this unit with -DBLS_POINT_GROUP=G,
+// which sets all four.
 #ifdef BLS_POINT_GROUP
-constexpr int kGroupVarG1 = BLS_POINT_GROUP, kGroupVarG2 = BLS_POINT_GROUP;
+constexpr int kGroupVarG1 = BLS_POINT_GROUP, kGroupVarG2 = BLS_POINT_GROUP,
+              kGroupAddG1 = BLS_POINT_GROUP, kGroupAddG2 = BLS_POINT_GROUP;
 #else
-constexpr int kGroupVarG1 = 4, kGroupVarG2 = 8;
+constexpr int kGroupVarG1 = 4, kGroupVarG2 = 8, kGroupAddG1 = 8,
+              kGroupAddG2 = 16;
 #endif
 
 inline unsigned grid_for(long long n) {
@@ -87,20 +96,45 @@ __global__ void __launch_bounds__(kThreads)
 // ----------------------------------------------------------------- pt_add
 
 // Replaces _ptadd_kernel (kernels.py:795): the complete addition P + Q
-// (curve.cuh pt_add, _pt_add_body) with the JAX body's case order: P == Q
-// doubles, P == -Q gives (1, 1, 0), P at infinity gives Q, Q at infinity
-// gives P.  in (6c, n) = P then Q, out (3c, n).  16 (G1) or 44 (G2)
-// Montgomery products per element: ~0.57 / ~1.6 ns of operations against
-// ~0.26 / ~0.52 ns of bytes.
-template <class F>
-__global__ void __launch_bounds__(kThreads)
-    pt_add_kernel(const int32_t* __restrict__ in, int32_t* __restrict__ out,
-                  long long n, FpModulus M, Fp one) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const Jac<F> p = bls::load_jac<F>(in, 0, n, i);
-  const Jac<F> q = bls::load_jac<F>(in, 3 * bls::kCoords<F>, n, i);
-  bls::store_jac(out, 0, n, i, bls::pt_add(p, q, one, M));
+// (_pt_add_body) with the JAX body's case order: P at infinity gives Q, Q
+// at infinity gives P, P == Q doubles, P == -Q gives (1, 1, 0).  P and Q
+// (3c, n) through a pointer each (no copy of both into one buffer per
+// tree level), out (3c, n), c = 1 (G1) or 2 (G2).  16 (G1) or 44 (G2)
+// Montgomery products per element, and a doubling's 7 / 17 more where P
+// == Q: ~0.57 / ~1.6 ns of operations against ~0.26 / ~0.52 ns of bytes.
+// On a group of G threads with PtAddG1Program / PtAddG2Program
+// (group_rounds.py add_program): P into acc and Q into base from their own
+// buffers, the Montgomery one into its slot, the script (one ADD step: the
+// body add, 5 product phases -- G1 3, 4, 4, 3, 2 products, G2 7, 12, 11,
+// 8, 6: one round each at G = 8 (G1) and 16 (G2) -- then the body of the
+// case that add_case picks), acc out.  At one element a launch takes about
+// 20 us in G1 and 23 us in G2 (PERF.md): each phase waits on mont_mul's
+// latency in one thread and on its chain of table reads.  The
+// elements of a warp may take different cases (an aggregation tree meets
+// masked keys' infinities and equal points); the branch is per group.
+template <class Prog, int G>
+__global__ void __launch_bounds__(bls::group::kThreads)
+    pt_add_kernel(const int32_t* __restrict__ p, const int32_t* __restrict__ q,
+                  int32_t* __restrict__ out, long long n, FpModulus M,
+                  Fp one) {
+  extern __shared__ uint4 smem[];
+  const int g = threadIdx.x / G, lane = threadIdx.x % G;
+  const long long i =
+      (long long)blockIdx.x * bls::group::elements_per_block<Prog, G>() + g;
+  if (i >= n) return;  // the whole group: no barrier spans groups
+  uint32_t* S = reinterpret_cast<uint32_t*>(smem) +
+                (long long)g * Prog::kSlots * bls::kFpWords;
+  const unsigned mask = bls::group::lane_mask<G>();
+  constexpr int nc = 3 * Prog::kCoord;
+  bls::group::load_coords<G>(
+      p, n, i, nc, [](int c) { return Prog::kSlot_acc + c; }, S, lane);
+  bls::group::load_coords<G>(
+      q, n, i, nc, [](int c) { return Prog::kSlot_base + c; }, S, lane);
+  bls::group::store_const<G>(S, Prog::kSlot_one, one, lane);
+  __syncwarp(mask);
+  bls::group::run_script<Prog, G>(0, S, lane, mask, M);
+  bls::group::store_coords<G>(
+      out, n, i, nc, [](int c) { return Prog::kSlot_acc + c; }, S, lane);
 }
 
 // ------------------------------------------------------------- pt_mul_var
@@ -174,21 +208,23 @@ int bls_pt_dbl(const int32_t* in, int32_t* out, long long n, int nc, int count,
   return (int)cudaGetLastError();
 }
 
-int bls_pt_add(const int32_t* in, int32_t* out, long long n, int nc,
-               const uint32_t* one, const uint32_t* p, unsigned n0,
-               void* stream) {
+int bls_pt_add(const int32_t* pts, const int32_t* qts, int32_t* out,
+               long long n, int nc, const uint32_t* one, const uint32_t* p,
+               unsigned n0, void* stream) {
   if (nc != 1 && nc != 2) return (int)cudaErrorInvalidValue;
   const auto M = bls::make_modulus<bls::kFpWords>(p, n0);
   const bls::Fp o = bls::make_fp(one);
   const cudaStream_t s = (cudaStream_t)stream;
+  using G1 = bls::group::PtAddG1Program;
+  using G2 = bls::group::PtAddG2Program;
   if (nc == 1) {
-    bls_kernels::pt_add_kernel<bls::Fp>
-        <<<grid_for(n), kThreads, 0, s>>>(in, out, n, M, o);
-  } else {
-    bls_kernels::pt_add_kernel<bls::Fp2>
-        <<<grid_for(n), kThreads, 0, s>>>(in, out, n, M, o);
+    return bls::group::launch<G1, kGroupAddG1>(
+        bls_kernels::pt_add_kernel<G1, kGroupAddG1>, n, s, pts, qts, out, n, M,
+        o);
   }
-  return (int)cudaGetLastError();
+  return bls::group::launch<G2, kGroupAddG2>(
+      bls_kernels::pt_add_kernel<G2, kGroupAddG2>, n, s, pts, qts, out, n, M,
+      o);
 }
 
 // scalars: (n, 16) int32 raw 16-bit limbs on the device

@@ -1,6 +1,6 @@
 // Device layer of the port's one-thread pairing and point kernels
-// (pairing_kernels.cu's dbl_step and add_step, curve.cuh): Fp and Fp2
-// arithmetic and the CLN Miller steps, for one batch element per thread,
+// (pairing_kernels.cu's add_step, curve.cuh): Fp and Fp2 arithmetic and
+// the CLN Miller addition step, for one batch element per thread,
 // over field.cuh's 32-bit words; and the packed operands' loads and stores
 // and the parameter-bank structs that every unit shares.
 //
@@ -14,7 +14,7 @@
 // Karatsuba sums of two canonical values (fp_lazy_add), which stay below 2p.
 //
 // Code size: the products are __noinline__ (fp_mul, the Fp2 product and
-// square, the Miller steps).  Inlined, a step's 25-41 Montgomery products
+// square, the Miller step).  Inlined, the step's 41 Montgomery products
 // would take nvcc minutes and overflow the instruction cache.  Additions
 // and subtractions (two 12-word carry chains each) are inlined.  The
 // __noinline__ functions are static: nvcc emits a host definition of each,
@@ -132,20 +132,6 @@ static __device__ __noinline__ Fp fp_mul(const Fp& a, const Fp& b,
   return r;
 }
 
-// a / 2 mod p (_half_rows, kernels.py:340): add p when a is odd
-// (a + p < 2^382), then shift the 384-bit value right by one.
-__device__ __forceinline__ Fp fp_half(const Fp& a, const FpModulus& M) {
-  Fp t, s, r;
-  add_words<kFpWords>(a.w, M.p, t.w);
-  select_words<kFpWords>((a.w[0] & 1u) != 0, t.w, a.w, s.w);
-#pragma unroll
-  for (int j = 0; j < kFpWords - 1; ++j) {
-    r.w[j] = (s.w[j] >> 1) | (s.w[j + 1] << 31);
-  }
-  r.w[kFpWords - 1] = s.w[kFpWords - 1] >> 1;
-  return r;
-}
-
 // ---------------------------------------------------------------- Fp2
 // _F2Rows (kernels.py:350): Fp2 = Fp[u]/(u^2 + 1).
 
@@ -162,16 +148,6 @@ __device__ __forceinline__ Fp2 f2_sub(const Fp2& a, const Fp2& b,
 __device__ __forceinline__ Fp2 f2_neg(const Fp2& a, const FpModulus& M) {
   const Fp z = fp_zero();
   return {fp_sub(z, a.c0, M), fp_sub(z, a.c1, M)};
-}
-
-// * xi = 1 + u
-__device__ __forceinline__ Fp2 f2_xi(const Fp2& a, const FpModulus& M) {
-  return {fp_sub(a.c0, a.c1, M), fp_add(a.c0, a.c1, M)};
-}
-
-// 3a
-__device__ __forceinline__ Fp2 f2_triple(const Fp2& a, const FpModulus& M) {
-  return f2_add(f2_add(a, a, M), a, M);
 }
 
 // Karatsuba with 3 Montgomery products (_fp2_mul_rows; the fp2_mul kernel).
@@ -196,37 +172,10 @@ __device__ __forceinline__ Fp2 f2_muls(const Fp2& a, const Fp& s,
   return {fp_mul(a.c0, s, M), fp_mul(a.c1, s, M)};
 }
 
-__device__ __forceinline__ Fp2 f2_half(const Fp2& a, const FpModulus& M) {
-  return {fp_half(a.c0, M), fp_half(a.c1, M)};
-}
-
 // ---------------------------------------------------------------- Miller
-// CLN steps in homogeneous projective coordinates on the M-twist
-// (kernels.py:620-685).
-
-// Doubling step: T <- 2T, returns the line (e - b, 3 X^2 xp, -h yp).  The
-// twist coefficient b' = 4(1 + u) enters as e = 4 xi(3 Z^2), without a
-// product (_miller_dbl_rows).
-static __device__ __noinline__ Line miller_dbl_step(G2Proj& T, const Fp& xp,
-                                             const Fp& yp,
-                                             const FpModulus& M) {
-  const Fp2 a = f2_half(f2_mul(T.X, T.Y, M), M);
-  const Fp2 b = f2_sqr(T.Y, M);
-  const Fp2 c = f2_sqr(T.Z, M);
-  Fp2 e = f2_xi(f2_triple(c, M), M);
-  e = f2_add(e, e, M);
-  e = f2_add(e, e, M);
-  const Fp2 f = f2_triple(e, M);
-  const Fp2 g = f2_half(f2_add(b, f, M), M);
-  const Fp2 h = f2_sub(f2_sqr(f2_add(T.Y, T.Z, M), M), f2_add(b, c, M), M);
-  const Fp2 i = f2_sub(e, b, M);
-  const Fp2 j = f2_sqr(T.X, M);
-  const Fp2 e2 = f2_sqr(e, M);
-  T.X = f2_mul(a, f2_sub(b, f, M), M);
-  T.Y = f2_sub(f2_sqr(g, M), f2_triple(e2, M), M);
-  T.Z = f2_mul(b, h, M);
-  return {i, f2_muls(f2_triple(j, M), xp, M), f2_muls(f2_neg(h, M), yp, M)};
-}
+// The CLN addition step in homogeneous projective coordinates on the
+// M-twist (kernels.py:620-685); the doubling step runs on group.cuh
+// (group_rounds.py dbl_step_program).
 
 // Mixed addition step with affine Q = (xq, yq): T <- T + Q, returns the
 // line (theta xq - lambda yq, -theta xp, lambda yp) (_miller_add_rows).

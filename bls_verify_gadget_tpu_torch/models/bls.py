@@ -187,14 +187,17 @@ class BatchedBLS:
         return CV.pt_sum(CV.FP2_OPS, self._to(sig_jac), axis)
 
     def aggregate_pubkeys_masked(self, pk_jac, bitmap, axis: int = 0):
-        """Bitmap-gated aggregation: the sum of pk_i where bitmap_i is set
-        (the others replaced by the infinity), and the count of set bits --
-        the device analogue of the reference's mapped_aggregate."""
+        """Bitmap-gated aggregation: the sum of pk_i where bitmap_i > 0
+        (the others replaced by the infinity), and the count, the JAX
+        package's: the bitmap's values as uint32 summed mod 2^32 (int64
+        here, in [0, 2^32)) -- the device analogue of the reference's
+        mapped_aggregate."""
         pk_jac = self._to(pk_jac)
-        sel = self._to(bitmap) > 0
+        bits = self._to(bitmap).to(torch.int64)  # signed and uint32 bitmaps compare as values
         inf = CV.pt_infinity_like(CV.FP_OPS, pk_jac)
-        masked = CV.pt_cmov(CV.FP_OPS, sel, pk_jac, inf)
-        return CV.pt_sum(CV.FP_OPS, masked, axis), sel.sum(axis)
+        masked = CV.pt_cmov(CV.FP_OPS, bits > 0, pk_jac, inf)
+        count = (bits & 0xFFFFFFFF).sum(axis) & 0xFFFFFFFF
+        return CV.pt_sum(CV.FP_OPS, masked, axis), count
 
 
 def _point_checks(pk_aff, sig_aff):

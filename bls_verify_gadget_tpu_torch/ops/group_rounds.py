@@ -30,20 +30,21 @@ with a b < p R (its accumulator then ends below 2p); p R > 9.8 p^2, so the
 generator keeps the two operands' bounds (V <= W p, or V < 3p when
 REDUCED) at a product of at most 9 p^2.
 
-The forms come from tracing csrc/tower.cuh's formulas (the Fp6 and Fp12
+The forms come from tracing the plain versions' formulas (the Fp6 and Fp12
 products, the line product and the Granger-Scott square: ops/tower.py's and
-ops/pairing.py's) with symbolic values (Lin below): every value is the same polynomial in the inputs as there, and
-every slot holds a canonical residue, so the kernels' limbs equal the plain
-versions' whatever the grouping of products and sums.  The Miller line and
-T are tower.cuh's miller_dbl_step formula and the Granger-Scott square is
-ops/tower.py's fp12_cyclotomic_sqr_plain formula (both matter off the curve
-and off the cyclotomic subgroup); the Fp12 square and products are exact
-products.
-The point programs (pt_mul_const, g2_cofactor, sswu_map2) trace
-csrc/curve.cuh's Jacobian doubling and complete addition: the Jacobian
-representative is the formulas' polynomial, so the doubling may regroup
-it (pt_dbl_rounds), and the addition's exceptional cases keep its order
-(add_case).  sswu_map2 traces the one-thread SSWU formulas (its fractions
+ops/pairing.py's) with symbolic values (Lin below): every value is the same
+polynomial in the inputs as there, and every slot holds a canonical
+residue, so the kernels' limbs equal the plain versions' whatever the
+grouping of products and sums.  The Miller line and T are ops/pairing.py's
+_dbl_step and tower.cuh's miller_add_step formulas, and the Granger-Scott
+square is ops/tower.py's fp12_cyclotomic_sqr_plain formula (both matter
+off the curve and off the cyclotomic subgroup); the Fp12 square and
+products are exact products.
+The point programs (pt_mul_const, g2_cofactor, sswu_map2, pt_mul_var,
+pt_add) trace ops/curve.py's Jacobian doubling and complete addition: the
+Jacobian representative is the formulas' polynomial, so the doubling may
+regroup it (pt_dbl_rounds), and the addition's exceptional cases keep its
+order (add_case).  sswu_map2 traces the one-thread SSWU formulas (its fractions
 and output keep their representatives) and runs its exponent chains in
 lockstep (POW) and its data-dependent choices as cases (CASE).
 
@@ -543,11 +544,10 @@ def miller_program(k):
     """miller_dbl_run with k pairs: f, then per pair X, Y, Z, xp, yp in the
     slots of the packed operand's coordinates 0 .. 12 + 8k - 1; per pair a
     line and the doubling step's intermediates.
-      body dbl: [pre: s, t_in of f^2]; [the 36 products of f^2 and the 11 of
-        each pair's first doubling round]; [f^2 into f; per pair the
-        intermediates a, b - f, e, g, b, h, 3j and the line's c0 = e - b];
-        round two: [per pair 14 products, the line's c1 and c4 among them];
-        [per pair X', Y', Z' into T].
+      body dbl: [pre: s, t_in of f^2]; [the 36 products of f^2 beside each
+        pair's first doubling round, dbl_first_round]; [f^2 into f beside
+        the doubling's intermediates]; the doubling's second round
+        (dbl_second_round).
       body line<p>: f <- f * line_p: [45 products]; [f].
     A run repeats dbl, then line<p> for each valid pair."""
     P = Program(f"miller{k}")
@@ -568,15 +568,36 @@ def miller_program(k):
     store_all(P, pre, (s, t_in))
     P.phase()
     v0, t = f12_sqr_products(P, F, fp6(pre[:6]), fp6(pre[6:]))
+    first = dbl_first_round(P, pairs)
+    P.phase()
+    store_all(P, f, f12_sqr_out(v0, t))
+    dbl_second_round(P, pairs, first, inter, lines)
+    line_bodies(P, f, lines)
+    P.inputs = ["f"] + [f"{n}{p}" for p in range(k) for n in "tp"]
+    P.outputs = ["f"] + [f"t{p}" for p in range(k)]
+    P.flow = ("loop", ["dbl"] + [("alt", None, f"line{p}") for p in range(k)])
+    return P.allocate()
+
+
+def dbl_first_round(P, pairs):
+    """The CLN doubling step's first round (ops/pairing.py _dbl_step) for
+    every pair (X, Y, Z), xp, yp into the open phase: 11 products per pair,
+    X Y, Y^2, Z^2, (Y + Z)^2 and X^2."""
     first = []
-    for (X, Y, Z), _, _ in pairs:  # miller_dbl_step, first round
+    for (X, Y, Z), _, _ in pairs:
         xy = f2_mul(P, X, Y)
         b, c = f2_sqr(P, Y), f2_sqr(P, Z)
         yz2 = f2_sqr(P, f2_add(Y, Z))
         j = f2_sqr(P, X)
         first.append((xy, b, c, yz2, j))
-    P.phase()
-    store_all(P, f, f12_sqr_out(v0, t))
+    return first
+
+
+def dbl_second_round(P, pairs, first, inter, lines):
+    """The rest of the doubling step for every pair, from the open phase:
+    the intermediates a, b - f, e, g, b, h, 3j into inter and the line's
+    c0 = e - b; [14 products per pair, the line's c1 = 3j xp and c4 = -h
+    yp among them]; [X', Y', Z' into T]."""
     for p, (xy, b, c, yz2, j) in enumerate(first):
         e = f2_scale(f2_xi(f2_scale(c, 3)), 4)
         ff = f2_scale(e, 3)
@@ -587,7 +608,7 @@ def miller_program(k):
         store_all(P, lines[p][:2], f2_sub(e, b))
     P.phase()
     second = []
-    for p, (_, xp, yp) in enumerate(pairs):  # second round
+    for p, (_, xp, yp) in enumerate(pairs):
         a, bmf, e, g, b, h, j3 = fp2s(inter[p])
         e2 = f2_sqr(P, e)
         x3 = f2_mul(P, a, bmf)
@@ -601,10 +622,26 @@ def miller_program(k):
     P.phase()
     for (t, _, _), new in zip(pairs, second):
         store_all(P, flat(t), new)
-    line_bodies(P, f, lines)
-    P.inputs = ["f"] + [f"{n}{p}" for p in range(k) for n in "tp"]
-    P.outputs = ["f"] + [f"t{p}" for p in range(k)]
-    P.flow = ("loop", ["dbl"] + [("alt", None, f"line{p}") for p in range(k)])
+
+
+def dbl_step_program():
+    """dbl_step: T = X, Y, Z and the G1 point xp, yp from the input (slots
+    0-7); body dbl, the Miller programs' doubling without f^2
+    (ops/pairing.py _dbl_step): [11 products]; [the intermediates and the
+    line's c0]; [14 products, c1 and c4 among them]; [T].  Out: T, then
+    the line."""
+    P = Program("dbl_step")
+    t = P.named("t0", 6)
+    xp, yp = P.named("p0", 2)
+    line, inter = P.named("line0", 6), P.named("dbl0", 14)
+    pairs = [(fp2s(t), xp, yp)]
+    P.body("dbl")
+    P.phase()
+    first = dbl_first_round(P, pairs)
+    P.phase()
+    dbl_second_round(P, pairs, first, [inter], [line])
+    P.inputs, P.outputs = ["t0", "p0"], ["t0", "line0"]
+    P.flow = "dbl"
     return P.allocate()
 
 
@@ -682,7 +719,7 @@ def miller_add_program(k):
 BODY, ADD, LADDER, POW, CASE, LOAD, VLADDER = range(7)
 ZERO, PARITY = range(2)  # a CASE flag: the slots all zero, the slot's value odd
 ADD_CASES = ("take_base", "dbl", "set_inf", "take_sum")  # the bodies add_case picks
-# curve.cuh's Jacobian formulas on symbolic coordinates: Fp (G1) a Lin,
+# ops/curve.py's Jacobian formulas on symbolic coordinates: Fp (G1) a Lin,
 # Fp2 (G2) a pair of them.  A point is (X, Y, Z).
 
 class Coord:
@@ -746,7 +783,7 @@ def pt_dbl_rounds(P, F, p):
 
 
 def pt_add_rounds(P, F, p, q):
-    """The generic sum of curve.cuh pt_add (_pt_add_body) in five product
+    """The generic sum of ops/curve.py pt_add (_pt_add_body) in five product
     phases: Z1^2, Z2^2, Z1 Z2; u1, u2, Y1 Z2^2, Y2 Z1^2; s1, s2, h^2, z3;
     h^3, v, r^2; r (v - x3), s1 h^3.  -> ((x3, y3, z3), h, r)."""
     (X1, Y1, Z1), (X2, Y2, Z2) = p, q
@@ -833,6 +870,20 @@ def var_ladder_program(F):
     ladder_bodies(P, F)
     P.inputs, P.presets, P.outputs = ["base"], ["one", "scalar"], ["acc"]
     P.script = [(VLADDER, None)]
+    return P.allocate()
+
+
+def add_program(F):
+    """pt_add over F: P in acc, Q in base, the Montgomery one in one; the
+    script one complete addition (ADD: the body add, then the case that
+    add_case picks: take_base where P is at infinity, none where Q is, dbl
+    where P == Q, set_inf where P == -Q, else take_sum), the result in
+    acc."""
+    P = Program("pt_add_g1" if F.width == 1 else "pt_add_g2")
+    point_slots(P, F)
+    ladder_bodies(P, F)
+    P.inputs, P.presets, P.outputs = ["acc", "base"], ["one"], ["acc"]
+    P.script = [(ADD, "add")]
     return P.allocate()
 
 
@@ -1356,7 +1407,8 @@ def programs():
             + [miller_add_program(k) for k in MILLER_PAIRS] + [sswu_program()]
             + [fp12_mul_program(), fp6_mul_program(), fp12_sqr_program()]
             + [var_ladder_program(FP_COORD), var_ladder_program(FP2_COORD)]
-            + [cyclo_sqr_program(), mul014_program()])
+            + [cyclo_sqr_program(), mul014_program()]
+            + [dbl_step_program(), add_program(FP_COORD), add_program(FP2_COORD)])
 
 
 def elements_per_block(P, g):
@@ -1455,9 +1507,9 @@ def run_body(P, body, slots):
 
 def add_case(P, slots, bit=None):
     """The body that the complete addition's case picks after the body add,
-    or None (group.cuh add_case; curve.cuh pt_add, in _pt_add_body's order):
-    P at infinity -> take_base; Q at infinity -> none (acc is P); h = r =
-    0 -> dbl; h = 0 -> set_inf; else take_sum.  In a variable ladder
+    or None (group.cuh add_case; ops/curve.py pt_add, in _pt_add_body's
+    order): P at infinity -> take_base; Q at infinity -> none (acc is P);
+    h = r = 0 -> dbl; h = 0 -> set_inf; else take_sum.  In a variable ladder
     (`bit` the scalar's bit) a clear bit comes first: none, acc stays (the
     plain version's cmov)."""
     c = P.consts["kCoord"]

@@ -15,7 +15,8 @@ against each other; the others take packed (c, N, 24) tensors (an Fp2 is 2
 coordinates, a Jacobian point 3 or 6, an Fp6 6, an Fp12 12,
 coefficient-major) and
 pack their operands into one contiguous buffer per launch, except the step
-kernels (mul014, dbl_step, add_step), which take one pointer per operand.
+kernels (mul014, dbl_step, add_step) and pt_add, which take one pointer per
+operand.
 A tensor on the
 CPU goes to the kernel's plain PyTorch version (ops/fp.py, ops/tower.py,
 ops/curve.py, ops/hash_to_g2.py, ops/pairing.py); a CUDA
@@ -168,7 +169,7 @@ def _declare(lib, names=KERNELS):
         "g2_cofactor": [vp, vp, i64, vp, vp, i32, vp, vp, vp, u32, vp],
         "sswu_map2": [vp, vp, vp, i64, vp, i32, vp, i32, vp, vp, u32, vp],
         "pt_dbl": [vp, vp, i64, i32, i32, vp, u32, vp],
-        "pt_add": [vp, vp, i64, i32, vp, vp, u32, vp],
+        "pt_add": [vp, vp, vp, i64, i32, vp, vp, u32, vp],
         "pt_mul_var": [vp, vp, vp, i64, i32, i32, vp, vp, u32, vp],
         "mul014": [vp, vp, vp, i64, vp, u32, vp],
         "dbl_step": [vp, vp, vp, i64, vp, u32, vp],
@@ -661,7 +662,7 @@ def pt_add(field, p, q):
     if q.shape != p.shape:
         raise ValueError(f"pt_add takes points of one shape, got {tuple(p.shape)} "
                          f"and {tuple(q.shape)}")
-    return _packed_launch("pt_add", field, torch.cat([p, q]), 6 * c, 3 * c, c,
+    return _packed_launch("pt_add", field, (p, q), (3 * c, 3 * c), 3 * c, c,
                           _mont_words(field, [1]))
 
 

@@ -106,17 +106,24 @@ Needs one CUDA card and nvcc.  Phases, each fatal on failure:
      32, on cyclotomic elements (the easy part of seeded values; the one
      in element 0) and on seeded random Fp12 with edge values in elements
      0-4, and mul014 at 4096, 4095 and 1 with a quarter of the lines
-     neutral and edge values in elements 0-4 of f: bit-equal to the plain
+     neutral and edge values in elements 0-4 of f, dbl_step at 8192 (the
+     step-wise verify's two pairs), 4096 (aggregate_verify_distinct's one)
+     and 1 with edge values in elements 0-4, and pt_add in G1 and G2 on
+     seeded points at every level of the keys run's aggregation trees
+     (2048, 1024, ..., 1 elements) and on P, Q meeting each branch of the
+     complete addition at 2048 and 1: bit-equal to the plain
      versions; the sweep's
      group sizes (throwaway copies of csrc/pairing_kernels.cu built with
      -DBLS_GROUP=G for G = 4, 8 and 16, which sets every group instance of
      the unit, of csrc/hash_kernels.cu built with -DBLS_HASH_GROUP=G for
      G = 2, 4 and 8 and with -DBLS_POW_LANES=L for pow_win's L = 2 and 4,
-     of csrc/point_kernels.cu built with -DBLS_POINT_GROUP=G for G = 2, 4
-     and 8, into build/, in parallel with the library) bit-equal to the
-     wrapper, and device ms per launch of each G or L at 4096 (fp6_mul
-     8192; and at 1 for the ladders, sswu_map2, the three tower products,
-     pow_win, pt_mul_var, cyclo_sqr and mul014); with --parent DIR, the
+     of csrc/point_kernels.cu built with -DBLS_POINT_GROUP=G for G = 2, 4,
+     8 and 16, into build/, in parallel with the library) bit-equal to the
+     wrapper, and device ms per launch of each G or L at 4096 (fp6_mul and
+     dbl_step 8192; and at 1 for the ladders, sswu_map2, the three tower
+     products, pow_win, pt_mul_var, cyclo_sqr, mul014 and dbl_step; pt_add
+     at every tree level, with the keys run's pt_add device time summed
+     over its 33 launches); with --parent DIR, the
      parent commit's
      kernels (its pairing_kernels.cu, hash_kernels.cu and
      point_kernels.cu, built from DIR in parallel too) bit-equal as well
@@ -459,12 +466,19 @@ COMMITTEE = 512  # pubkeys of a sync committee
 PARTICIPATION = 2 / 3
 
 
+def tree_counts(n):
+    """Elements of each pt_add launch of a pt_sum halving tree over n points,
+    level by level (an odd element carried to the next level)."""
+    counts = []
+    while n > 1:
+        counts.append(n // 2)
+        n = n // 2 + n % 2
+    return counts
+
+
 def tree_levels(n):
     """pt_add launches of a pt_sum halving tree over n points."""
-    levels = 0
-    while n > 1:
-        n, levels = n // 2 + n % 2, levels + 1
-    return levels
+    return len(tree_counts(n))
 
 
 def keys_data():
@@ -958,6 +972,7 @@ def pairing_inputs(torch, rng, name, n, count=None, k=2):
         "miller_add": lambda: (fp(12), fp(k, 6), fp(k, 4), fp(k), fp(k), valid),
         "exp_x": lambda: (fp(12), CV.X_SEGMENTS),
         "mul014": lambda: (fp(12), torch.where(valid[0][:, None], fp(6), neutral)),
+        "dbl_step": lambda: (fp(6), fp(2)),
         "cyclo_sqr": lambda: (fp(12), count),
     }[name]()
 
@@ -1120,8 +1135,9 @@ def _lines(line):
 
 
 # (bytes, Montgomery products) of one point or step kernel call at n
-# elements (step kernels: the line product 45, csrc/tower.cuh
-# miller_dbl_step 25 and miller_add_step 41, the Granger-Scott square 18)
+# elements (step kernels: the line product 45, the doubling step 25
+# (group_rounds.py dbl_step_program), csrc/tower.cuh miller_add_step 41, the
+# Granger-Scott square 18)
 HASH_WORK.update({
     "mul014": lambda n, f, line: (n * 30 * 96, _lines(line) * 45),
     "dbl_step": lambda n, t, p: (n * 20 * 96, n * 25),
@@ -1648,8 +1664,9 @@ def kernel_phase(torch, K, launches, sizes, verify_s, ctx, keys, steps):
 # threads per element swept: the pairing unit's group kernels (the library's
 # is BLS_GROUP), the hash unit's (kGroupG1, kGroupG2, kGroupCofactor,
 # kGroupSswu), pow_win's lanes (kPowLanes, in the hash unit's source) and the
-# point unit's pt_mul_var (kGroupVarG1, kGroupVarG2)
-GROUP_SWEEP = {"pairing": (4, 8, 16), "hash": (2, 4, 8), "pow": (2, 4), "point": (2, 4, 8)}
+# point unit's pt_mul_var and pt_add (kGroupVarG1, kGroupVarG2, kGroupAddG1,
+# kGroupAddG2)
+GROUP_SWEEP = {"pairing": (4, 8, 16), "hash": (2, 4, 8), "pow": (2, 4), "point": (2, 4, 8, 16)}
 GROUP_UNITS = {"pairing": "pairing_kernels.cu", "hash": "hash_kernels.cu",
                "pow": "hash_kernels.cu", "point": "point_kernels.cu"}
 GROUP_DEFINE = {"pairing": "BLS_GROUP", "hash": "BLS_HASH_GROUP", "pow": "BLS_POW_LANES",
@@ -1658,9 +1675,9 @@ GROUP_VAR = {"pairing": "G", "hash": "G", "pow": "L", "point": "G"}  # the swept
 # group kernel -> its sweep; a group instance: the kernel, or the ladder's field
 GROUP_KERNELS = {"miller_dbl_run": "pairing", "miller_add": "pairing", "exp_x": "pairing",
                  "fp12_mul": "pairing", "fp6_mul": "pairing", "fp12_sqr": "pairing",
-                 "mul014": "pairing", "cyclo_sqr": "pairing",
+                 "mul014": "pairing", "cyclo_sqr": "pairing", "dbl_step": "pairing",
                  "pt_mul_const": "hash", "g2_cofactor": "hash", "sswu_map2": "hash",
-                 "pow_win": "pow", "pt_mul_var": "point"}
+                 "pow_win": "pow", "pt_mul_var": "point", "pt_add": "point"}
 # ptxas's mangled name of each group kernel instance -> (label, program of
 # ops/group_rounds.py, G)
 GROUP_LOG = (
@@ -1676,38 +1693,44 @@ GROUP_LOG = (
      lambda m: (f"g2_cofactor<G={m[1]}>", "g2_cofactor", int(m[1]))),
     (re.compile(r"sswu_map2_kernelILi(\d+)E"),
      lambda m: (f"sswu_map2<G={m[1]}>", "sswu_map2", int(m[1]))),
-    (re.compile(r"(fp12_mul|fp6_mul|fp12_sqr|mul014|cyclo_sqr)_kernelILi(\d+)E"),
+    (re.compile(r"(fp12_mul|fp6_mul|fp12_sqr|mul014|cyclo_sqr|dbl_step)_kernelILi(\d+)E"),
      lambda m: (f"{m[1]}<G={m[2]}>", m[1], int(m[2]))),
     (re.compile(r"pow_win_kernelILi(\d+)ELi(\d+)E"),
      lambda m: (f"pow_win<C={m[1]}, L={m[2]}>", None, int(m[2]))),
     (re.compile(r"pt_mul_var_kernelIN3bls5group\d+VarLadder(G[12])ProgramELi(\d+)E"),
      lambda m: (f"pt_mul_var<{m[1]}, G={m[2]}>", f"var_ladder_{m[1].lower()}", int(m[2]))),
+    (re.compile(r"pt_add_kernelIN3bls5group\d+PtAdd(G[12])ProgramELi(\d+)E"),
+     lambda m: (f"pt_add<{m[1]}, G={m[2]}>", f"pt_add_{m[1].lower()}", int(m[2]))),
 )
 
 
 def library_groups(K):
     """The library's threads per element of each group instance:
     pairing_kernels.cu's kGroup, kGroupFp12Mul, kGroupFp6Mul,
-    kGroupFp12Sqr, kGroupMul014 and kGroupCycloSqr, hash_kernels.cu's
-    kGroupG1, kGroupG2, kGroupCofactor, kGroupSswu and BLS_POW_LANES
-    (pow_win's L), point_kernels.cu's kGroupVarG1 and kGroupVarG2."""
-    pairing, fp12, fp6, sqr, mul014, cyclo = map(int, re.search(
+    kGroupFp12Sqr, kGroupMul014, kGroupCycloSqr and kGroupDblStep,
+    hash_kernels.cu's kGroupG1, kGroupG2, kGroupCofactor, kGroupSswu and
+    BLS_POW_LANES (pow_win's L), point_kernels.cu's kGroupVarG1,
+    kGroupVarG2, kGroupAddG1 and kGroupAddG2."""
+    pairing, fp12, fp6, sqr, mul014, cyclo, dbl = map(int, re.search(
         r"#else\nconstexpr int kGroup = (\d+), kGroupFp12Mul = (\d+), kGroupFp6Mul = (\d+),"
-        r"\s+kGroupFp12Sqr = (\d+), kGroupMul014 = (\d+), kGroupCycloSqr = (\d+);",
+        r"\s+kGroupFp12Sqr = (\d+), kGroupMul014 = (\d+), kGroupCycloSqr = (\d+),"
+        r"\s+kGroupDblStep = (\d+);",
         (K.CSRC_DIR / GROUP_UNITS["pairing"]).read_text()).groups())
     hash_src = (K.CSRC_DIR / GROUP_UNITS["hash"]).read_text()
     g1, g2, cofactor, sswu = map(int, re.search(
         r"#else\nconstexpr int kGroupG1 = (\d+), kGroupG2 = (\d+), kGroupCofactor = (\d+), "
         r"kGroupSswu = (\d+);", hash_src).groups())
     lanes = int(re.search(r"#define BLS_POW_LANES (\d+)", hash_src)[1])
-    var1, var2 = map(int, re.search(
-        r"#else\nconstexpr int kGroupVarG1 = (\d+), kGroupVarG2 = (\d+);",
+    var1, var2, add1, add2 = map(int, re.search(
+        r"#else\nconstexpr int kGroupVarG1 = (\d+), kGroupVarG2 = (\d+), kGroupAddG1 = (\d+),"
+        r"\s+kGroupAddG2 = (\d+);",
         (K.CSRC_DIR / GROUP_UNITS["point"]).read_text()).groups())
     return {"miller_dbl_run": pairing, "miller_add": pairing, "exp_x": pairing,
             "fp12_mul": fp12, "fp6_mul": fp6, "fp12_sqr": sqr, "mul014": mul014,
-            "cyclo_sqr": cyclo, "pt_mul_const G1": g1,
+            "cyclo_sqr": cyclo, "dbl_step": dbl, "pt_mul_const G1": g1,
             "pt_mul_const G2": g2, "g2_cofactor": cofactor, "sswu_map2": sswu, "pow_win Fp": lanes,
-            "pow_win Fp2": lanes, "pt_mul_var G1": var1, "pt_mul_var G2": var2}
+            "pow_win Fp2": lanes, "pt_mul_var G1": var1, "pt_mul_var G2": var2,
+            "pt_add G1": add1, "pt_add G2": add2}
 
 
 def ptxas_report(log_path, patterns):
@@ -1812,10 +1835,11 @@ def unit_library(K, unit, started):
     return lib
 
 
-def entry_launch(torch, K, name, fn, args):
+def entry_launch(torch, K, name, fn, args, packed=False):
     """A closure that launches the C entry point `fn` (bls_<name> of some
     build) on the operands the wrapper K.<name> would pass for `args`, into
-    one preallocated output; -> (launch, output)."""
+    one preallocated output; -> (launch, output).  `packed`: fn is a pt_add
+    that takes P and Q as one (6c, n, 24) operand (a parent's)."""
     from bls_verify_gadget_tpu_torch.ops.fp import FP
 
     p, n0 = K._p_words(FP), FP.n0_word
@@ -1827,13 +1851,22 @@ def entry_launch(torch, K, name, fn, args):
             K._check_rc(name, fn(packed.data_ptr(), out.data_ptr(), packed.shape[1], p, n0,
                                  K._stream(packed)))
         return launch, out
-    if name == "mul014":  # f and the line through a pointer each
-        f, line = args
-        out = torch.empty_like(f)
+    if name in ("mul014", "dbl_step"):  # f and the line, or T and p, through a pointer each
+        a, b = args
+        out = a.new_empty((12, *a.shape[1:]))
 
         def launch():
-            K._check_rc(name, fn(f.data_ptr(), line.data_ptr(), out.data_ptr(), f.shape[1], p,
-                                 n0, K._stream(f)))
+            K._check_rc(name, fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), a.shape[1], p,
+                                 n0, K._stream(a)))
+        return launch, out
+    if name == "pt_add":  # P and Q through a pointer each, or packed
+        pts, qts = args
+        out, one = torch.empty_like(pts), K._mont_words(FP, [1])
+        ops = (torch.cat([pts, qts]),) if packed else (pts, qts)
+
+        def launch():
+            K._check_rc(name, fn(*(t.data_ptr() for t in ops), out.data_ptr(), pts.shape[1],
+                                 pts.shape[0] // 3, one, p, n0, K._stream(pts)))
         return launch, out
     if name == "cyclo_sqr":
         f, count = args
@@ -1982,7 +2015,11 @@ def group_cases(torch, rng):
     (timed), runs of 1 and 32 (|x|'s longest), on cyclotomic_inputs and
     on pairing_inputs (random Fp12, the edge values in elements 0-4); mul014
     at 4096 (timed), 4095 and 1 (timed) on pairing_inputs (f with the edge
-    values in elements 0-4, a quarter of the lines neutral).  The plain
+    values in elements 0-4, a quarter of the lines neutral); dbl_step at
+    8192, 4096 and 1 (all timed) on pairing_inputs; pt_add in G1 and G2 on
+    seeded coordinates (off the curve: the generic sum) at every level of a
+    4096-point tree, 2048 down to 1 (all timed), and on pt_add_branches of
+    seeded points at 2048 (timed) and 1 (Q = -P).  The plain
     ladder costs the same at any count on the card (~30-45 s, launch-bound), and each element's result
     depends on its own operands only, so it runs once, at 4096, and its
     columns are the reference of 4095 and 1 (a case's sixth item)."""
@@ -2088,18 +2125,36 @@ def group_cases(torch, rng):
         cases.append((f"{what}, 1, the last of {BATCH}", "pt_mul_var", key,
                       (pts[:, -1:].contiguous(), scalars[-1:].contiguous(), 255), True,
                       ref[:, -1:]))
+    for n in (2 * BATCH, BATCH, 1):
+        edge = "elements 0-4" if n > 1 else "element 0"
+        cases.append((f"{n}, edge values in {edge}", "dbl_step", "dbl_step",
+                      pairing_inputs(torch, rng, "dbl_step", n), True))
+    for what, ops in (("G1", CV.FP_OPS), ("G2", CV.FP2_OPS)):
+        c = 3 if ops is CV.FP_OPS else 6
+        for n in tree_counts(BATCH):
+            p, q = (rand_limbs(torch, rng, c * n, top).view(c, n, 24) for _ in range(2))
+            cases.append((f"{what}, tree level of {n}", "pt_add", f"pt_add {what}", (p, q), True))
+        for n in (BATCH // 2, 1):
+            pts = CV.unpack_point(ops, rand_limbs(torch, rng, 2 * c * n, top).view(c, 2 * n, 24))
+            cases.append((f"{what} branches, {n}", "pt_add", f"pt_add {what}",
+                          pt_add_branches(torch, rng, ops, pts, n), n > 1))
     return cases
 
 
-def group_phase(torch, K, sweep_started, parent_started=None):
+def group_phase(torch, K, sweep_started, parent_started=None, parent_dir=None):
     """The group kernels (module docstring, phase 8): on each case of
     group_cases, the wrapper bit-equal to the plain version, each G of the
     sweep (the library's and the throwaway builds of sweep_started) and the
     parent's kernel bit-equal to the wrapper, all on the same
     CUDA tensors; on the timed cases device ms per launch (CUDA-graph
     replay) of each G, and of the parent's kernel and the wrapper
-    interleaved (parent, group, group, parent).  -> {kernel: {case:
+    interleaved (parent, group, group, parent); then the keys run's pt_add
+    device time, each tree level's time summed over its 33 launches.  A
+    parent whose bls_pt_add takes P and Q as one packed operand (the
+    one-thread kernel's interface) is launched so.  -> {kernel: {case:
     timings}} for the kernel rows."""
+    import ctypes
+
     import numpy as np
 
     rng = np.random.default_rng(SEED + 3)
@@ -2110,6 +2165,14 @@ def group_phase(torch, K, sweep_started, parent_started=None):
         group_build_report(started[2], f"sweep build, {GROUP_DEFINE[unit]}={g}")
     parent = {unit: unit_library(K, unit, s) for unit, s in (parent_started or {}).items()
               if unit in GROUP_SWEEP}
+    parent_packed = set()
+    if parent:
+        src = (pathlib.Path(parent_dir) / "bls_verify_gadget_tpu_torch" / "csrc"
+               / GROUP_UNITS["point"]).read_text()
+        if "bls_pt_add(const int32_t* in," in src:
+            vp, i64, i32, u32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_uint
+            parent["point"].bls_pt_add.argtypes = [vp, vp, i64, i32, vp, vp, u32, vp]
+            parent_packed.add("pt_add")
     out = {name: {} for name in GROUP_KERNELS}
     for label, name, key, args, timed, *ref in group_cases(torch, rng):
         unit = GROUP_KERNELS[name]
@@ -2130,7 +2193,8 @@ def group_phase(torch, K, sweep_started, parent_started=None):
             variants.append(("parent", getattr(parent[unit], f"bls_{name}")))
         launches = {}
         for vlabel, fn in variants:
-            launch, res = entry_launch(torch, K, name, fn, args)
+            launch, res = entry_launch(torch, K, name, fn, args,
+                                       vlabel == "parent" and name in parent_packed)
             launch()
             torch.cuda.synchronize()
             if not torch.equal(res, want):
@@ -2156,6 +2220,17 @@ def group_phase(torch, K, sweep_started, parent_started=None):
         out[name][label] = row
         log(f"[group] {name} ({label}): bit-equal to plain; {', '.join(launches)} bit-equal "
             f"to it (library {var} = {lib_g[key]}){extra}")
+    # the keys run's pt_add: G1 over 4096 pubkeys and the 512-key committee,
+    # G2 over 4096 signatures, one launch per tree level
+    levels = [("G1", n) for n in tree_counts(BATCH) + tree_counts(COMMITTEE)]
+    levels += [("G2", n) for n in tree_counts(BATCH)]
+    rows = [out["pt_add"][f"{what}, tree level of {n}"] for what, n in levels]
+    timed = [v for v in rows[0] if v.startswith("G = ") or v in ("parent_ms", "group_ms")]
+    total = {v: sum(r[v] for r in rows) for v in timed if all(v in r for r in rows)}
+    out["pt_add"]["keys run, 33 launches"] = total
+    log(f"[group] pt_add, the keys run's {len(levels)} launches (G1 levels "
+        f"{tree_counts(BATCH)} and {tree_counts(COMMITTEE)}, G2 {tree_counts(BATCH)}), device "
+        f"ms summed over the levels: " + ", ".join(f"{v} {t:.5f}" for v, t in total.items()))
     return out
 
 
@@ -2452,9 +2527,10 @@ def main():
                     help="a git archive of the parent commit in a git-ignored directory of "
                          "this checkout: time its miller_dbl_run, miller_add, exp_x, "
                          "fp12_mul, fp6_mul, fp12_sqr, pt_mul_const, g2_cofactor, "
-                         "sswu_map2, pow_win, pt_mul_var, mul014 and cyclo_sqr "
-                         "kernels interleaved with this tree's in the group phase, and its "
-                         "mul, add, sub, fp2_mul and fp2_sqr in the field phase")
+                         "sswu_map2, pow_win, pt_mul_var, mul014, cyclo_sqr, dbl_step "
+                         "and pt_add kernels interleaved with this tree's in the group "
+                         "phase, and its mul, add, sub, fp2_mul and fp2_sqr in the field "
+                         "phase")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2475,7 +2551,7 @@ def main():
     try:
         build_phase(K)
         if args.group:
-            group_phase(torch, K, sweep, parent_group)
+            group_phase(torch, K, sweep, parent_group, args.parent)
         elif args.field:
             field_phase(torch, K, field_sweep, parent.get("field"))
         else:
@@ -2484,7 +2560,7 @@ def main():
             keys = keys_phase(torch, K)
             steps = steps_phase(torch, K, ctx, want, launches, keys)
             rows = kernel_phase(torch, K, launches, sizes, verify_s, ctx, keys, steps)
-            group = group_phase(torch, K, sweep, parent_group)
+            group = group_phase(torch, K, sweep, parent_group, args.parent)
             staged = field_phase(torch, K, field_sweep, parent.get("field"))
             for row in rows:
                 if row["name"] in group:

@@ -3,11 +3,13 @@ tables of csrc/group_rounds.cuh that csrc/group.cuh runs) on the CPU: the
 committed header is the generator's output, and each body run on Python
 ints as the kernels run it (run_body: phase by phase, every form and
 product with the kernels' bounds checked) gives the limbs of the plain
-versions of miller_dbl_run, miller_add, exp_x and mul014 (ops/pairing.py)
-and fp12_mul, fp6_mul, fp12_sqr and cyclo_sqr (ops/tower.py; with 0, 1 and
-p - 1 among their operands, mul014 also on a neutral line) on seeded random
-operands, off the curve and off the cyclotomic subgroup, with mixed valid
-masks; the point programs' scripts (run_script) give
+versions of miller_dbl_run, miller_add, exp_x, mul014 and dbl_step
+(ops/pairing.py) and fp12_mul, fp6_mul, fp12_sqr and cyclo_sqr
+(ops/tower.py; with 0, 1 and p - 1 among their operands, mul014 also on a
+neutral line) on seeded random operands, off the curve and off the
+cyclotomic subgroup, with mixed valid masks; pt_add's script (G1, G2) gives
+those of pt_add_plain on operands that meet each of the complete
+addition's five cases; the point programs' scripts (run_script) give
 those of pt_mul_const (G1, G2) and g2_cofactor (ops/curve.py) on edge
 points, and in affine the JAX package's golden curve and, in G1, its
 jitted pt_mul_const, and those of sswu_map2 (ops/hash_to_g2.py) on u
@@ -87,15 +89,15 @@ TOWER_BODIES = {
 
 def _edge_operands(rng, coords):
     """Seeded operands of `coords` coordinates each, with 0, 1 and p - 1 in
-    every coordinate of element 0 and the first three of element 2: [(the
-    packed (c, N, 24) tensor, its ints)]."""
+    every coordinate of element 0 and the first three (or all) of element
+    2: [(the packed (c, N, 24) tensor, its ints)]."""
     edges = [0, 1, C.P - 1]
     ops = []
     for c in coords:
         _, vals = packed(rng, c)
         for j in range(c):
             vals[j][0] = edges[j % 3]
-        for j in range(3):
+        for j in range(min(3, c)):
             vals[j][2] = edges[j]
         ops.append((torch.from_numpy(np.stack([ints_to_limbs(v, 24) for v in vals])), vals))
     return ops
@@ -152,6 +154,79 @@ def test_step_programs_are_one_phase_of_products():
         assert P.nslots == (12 if body == "square" else 18) + n
     assert GR.exp_x_program().nslots == 90
     assert [GR.miller_program(k).nslots for k in GR.MILLER_PAIRS] == [93, 126]
+
+
+def test_dbl_step_body_matches_the_plain_version():
+    """dbl_step's kernel runs the body dbl once on T and the G1 point
+    (slots 0-7): the Miller programs' doubling without f^2, [11 products];
+    [the intermediates and c0]; [14 products]; [T].  On seeded T and points
+    off the curve, with 0, 1 and p - 1 among element 0's and element 2's
+    coordinates, 2T and the line are the limbs of dbl_step_plain."""
+    (t, tv), (p, pv) = _edge_operands(np.random.default_rng(95), (6, 2))
+    want = ints(PR.dbl_step_plain(t, p))
+    P = GR.dbl_step_program()
+    assert [sum(op.b is not None for op in ops) for ops in P.bodies["dbl"]] == [11, 0, 14, 0]
+    t0, line = P.slots["t0"][0], P.slots["line0"][0]
+    for i in range(N):
+        slots = [0] * P.nslots
+        slots[:8] = [tv[c][i] for c in range(6)] + [pv[c][i] for c in range(2)]
+        GR.run_body(P, "dbl", slots)
+        assert slots[t0:t0 + 6] + slots[line:line + 6] == [want[c][i] for c in range(12)]
+
+
+# the complete addition's outcomes (add_case) in _pt_add_body's order
+ADD_OUTCOMES = ("take_base", None, "dbl", "set_inf", "take_sum")
+
+
+@pytest.mark.parametrize("F", [GR.FP_COORD, GR.FP2_COORD], ids=["G1", "G2"])
+def test_add_program_matches_pt_add_plain(F, monkeypatch):
+    """pt_add's script (one ADD step) on P in acc and Q in base, element e
+    meeting ADD_OUTCOMES[e]: P at infinity (Z = 0); Q at infinity; Q = P
+    and Q = -P in another Jacobian representative (l^2 X, +-l^3 Y, l Z for
+    a seeded l); two unrelated points.  Seeded coordinates off the curve
+    (the formulas are polynomials): acc is the limbs of pt_add_plain, and
+    add_case picks each outcome once, in order."""
+    c = F.width
+    rng = np.random.default_rng(96 + c)
+
+    def coords():
+        return [int.from_bytes(rng.bytes(48), "little") % C.P for _ in range(3 * c)]
+
+    ps, qs = [], []
+    for case in ADD_OUTCOMES:
+        p, q = coords(), coords()
+        lam = int.from_bytes(rng.bytes(48), "little") % C.P
+        if case == "take_base":
+            p[2 * c:] = [0] * c
+        elif case is None:
+            q[2 * c:] = [0] * c
+        elif case in ("dbl", "set_inf"):
+            sign = 1 if case == "dbl" else -1
+            q = ([x * lam**2 % C.P for x in p[:c]] + [sign * y * lam**3 % C.P for y in p[c:2 * c]]
+                 + [z * lam % C.P for z in p[2 * c:]])
+        ps.append(p)
+        qs.append(q)
+
+    def pack(pts):
+        return torch.from_numpy(np.stack([ints_to_limbs([pt[j] for pt in pts], 24)
+                                          for j in range(3 * c)]))
+
+    want = ints(CV.pt_add_plain(pack(ps), pack(qs)))
+    P = GR.add_program(F)
+    cases, add_case = [], GR.add_case
+
+    def counted(*args):
+        cases.append(add_case(*args))
+        return cases[-1]
+
+    monkeypatch.setattr(GR, "add_case", counted)
+    for i in range(len(ADD_OUTCOMES)):
+        slots = [0] * P.nslots  # P, then Q: the inputs acc and base at slots 0 and up
+        slots[:6 * c] = ps[i] + qs[i]
+        slots[P.slots["one"][0]] = _mont(1)
+        GR.run_script(P, (), slots)
+        assert slots[:3 * c] == [want[j][i] for j in range(3 * c)]
+    assert cases == list(ADD_OUTCOMES)
 
 
 @pytest.mark.parametrize("k", GR.MILLER_PAIRS)
@@ -327,7 +402,8 @@ def test_add_case_follows_the_jax_order(flags, case):
     scalar's bit comes first: set, the same case; clear, none (acc stays,
     the plain version's cmov), whatever the other flags."""
     for P in (GR.ladder_program(GR.FP_COORD), GR.cofactor_program(),
-              GR.var_ladder_program(GR.FP_COORD), GR.var_ladder_program(GR.FP2_COORD)):
+              GR.var_ladder_program(GR.FP_COORD), GR.var_ladder_program(GR.FP2_COORD),
+              GR.add_program(GR.FP_COORD), GR.add_program(GR.FP2_COORD)):
         c = P.consts["kCoord"]
         slots = [7] * P.nslots
         for flag, (name, off) in zip(flags, [("acc", 2 * c), ("base", 2 * c), ("h", 0),

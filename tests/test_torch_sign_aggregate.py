@@ -17,6 +17,8 @@ distinct-message aggregate verifications and the JAX compiles take most
 of it.  JAX's sign and
 aggregate_verify_distinct are not jitted (multi-minute CPU compiles)."""
 
+import functools
+
 import jax
 import numpy as np
 import pytest
@@ -292,6 +294,13 @@ def test_fast_aggregate_verify_matches_vectors():
     assert results == {name: vec["output"] for name, vec in cases}
 
 
+@functools.cache
+def jax_masked_aggregate():
+    """jax.jit of the JAX package's aggregate_pubkeys_masked, one for the
+    module: the masked tests' uint32 bitmaps share its compile."""
+    return jax.jit(JBatchedBLS().aggregate_pubkeys_masked)
+
+
 def test_aggregate_pubkeys_masked_matches_jax():
     """aggregate_pubkeys_masked over 5 pubkeys (Jacobian, random Z) and a
     bitmap of 3 set bits against jax.jit of the JAX package's
@@ -301,13 +310,40 @@ def test_aggregate_pubkeys_masked_matches_jax():
     pts = random_points("g1", rng, 5)
     jp = jacobian("g1", pts, rand_ints(rng, 5))
     bitmap = np.array([1, 0, 1, 1, 0], np.uint32)
-    jsum, jcount = jax.jit(JBatchedBLS().aggregate_pubkeys_masked)(jp, bitmap)
+    jsum, jcount = jax_masked_aggregate()(jp, bitmap)
     bls = BatchedBLS(device="cpu")
     p = points_from_numpy(jp, device="cpu")
     sel = bitmap_from_numpy(bitmap, device="cpu")
     got, count = bls.aggregate_pubkeys_masked(p, sel)
     assert_same(got, jsum)
     assert int(count) == int(jcount) == 3
+    subset = bls.aggregate_pubkeys(tuple(c[sel] for c in p))
+    assert bool(CV.pt_eq(CV.FP_OPS, unsqueeze(got), unsqueeze(subset))[0])
+
+
+@pytest.mark.parametrize("bitmap, count", [
+    (np.array([2, 0, 1, 3, 0], np.uint32), 6),
+    (np.array([1, 0, -1, 1, 0], np.int32), 1),
+], ids=["uint32", "int32"])
+def test_aggregate_pubkeys_masked_counts_values_as_jax(bitmap, count):
+    """Bitmaps that are not 0/1, on test_aggregate_pubkeys_masked_matches_jax's
+    5 pubkeys: aggregate_pubkeys_masked on the raw bitmap tensor gives
+    jax.jit of the JAX package's sum and count -- the values as uint32
+    summed mod 2^32 (2 + 1 + 3 = 6; 1 + (2^32 - 1) + 1 wraps to 1) over the
+    points with a value > 0 (the int32 -1 leaves its point out); and
+    bitmap_from_numpy selects those points, as JAX's bitmap > 0 does."""
+    rng = np.random.default_rng(68)
+    pts = random_points("g1", rng, 5)
+    jp = jacobian("g1", pts, rand_ints(rng, 5))
+    jsum, jcount = jax_masked_aggregate()(jp, bitmap)
+    bls = BatchedBLS(device="cpu")
+    p = points_from_numpy(jp, device="cpu")
+    got, got_count = bls.aggregate_pubkeys_masked(p, torch.from_numpy(bitmap))
+    assert_same(got, jsum)
+    assert int(got_count) == int(jcount) == count
+    sel = bitmap_from_numpy(bitmap, device="cpu")
+    assert sel.dtype == torch.bool
+    assert sel.tolist() == np.asarray(jax.numpy.asarray(bitmap) > 0).tolist()
     subset = bls.aggregate_pubkeys(tuple(c[sel] for c in p))
     assert bool(CV.pt_eq(CV.FP_OPS, unsqueeze(got), unsqueeze(subset))[0])
 
