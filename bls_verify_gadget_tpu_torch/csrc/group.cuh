@@ -1,7 +1,8 @@
 // The cooperative layer of the group kernels (pairing_kernels.cu's
 // miller_dbl_run, miller_add, exp_x, fp12_mul, fp6_mul, fp12_sqr, mul014,
-// cyclo_sqr and dbl_step, hash_kernels.cu's pt_mul_const, g2_cofactor and
-// sswu_map2, point_kernels.cu's pt_mul_var and pt_add): one batch
+// cyclo_sqr, dbl_step and add_step, hash_kernels.cu's pt_mul_const,
+// g2_cofactor and sswu_map2, point_kernels.cu's pt_dbl, pt_mul_var and
+// pt_add): one batch
 // element on a group of G threads (G a divisor of 32, so a group lies in
 // one warp), its state in shared memory, its bodies run as the rounds of
 // group_rounds.cuh.
@@ -16,13 +17,13 @@
 // ops, dealt out round-robin over the group's threads (op j to thread
 // j mod G), each op whole in one thread, and ends at __syncwarp over the
 // group.  An op evaluates one or two linear forms of slots -- the sums,
-// differences, small multiples and halvings of tower.cuh's and curve.cuh's
-// formulas, made by the thread itself (eval_form; eval_operands for a
-// product's two) -- and stores either the form or, for a product,
-// field.cuh's mont_mul of the two, inlined in registers (no call, no
-// stack).  Every slot holds a canonical residue and every operation is
-// exact mod p, so the limbs equal the one-thread formulas' whatever thread
-// runs which op.
+// differences, small multiples and halvings of the plain versions'
+// formulas (ops/tower.py, ops/pairing.py, ops/curve.py, ops/hash_to_g2.py),
+// made by the thread itself (eval_form; eval_operands for a product's two)
+// -- and stores either the form or, for a product, field.cuh's mont_mul of
+// the two, inlined in registers (no call, no stack).  Every slot holds a
+// canonical residue and every operation is exact mod p, so the limbs equal
+// the plain versions' whatever thread runs which op.
 //
 // The tables of ops are read through the read-only cache: the threads of a
 // group read different ops, and __constant__ would serialize them.

@@ -5,8 +5,8 @@
 // products run in lockstep (mont_mul_slices, N = 3) and hide each other's
 // latency.
 //
-// What it replaces, and what bounds it.  The one-thread pow_win (once in
-// curve.cuh) ran field.cuh's mont_mul on one thread per element: a 12-word
+// What it replaces, and what bounds it.  The one-thread pow_win ran
+// field.cuh's mont_mul on one thread per element: a 12-word
 // CIOS whose every row is a serial carry chain of 12 multiply-adds for
 // a * b[i], the quotient digit m, and 12 more for m * p, ~1.35 us per
 // product, and the same time at 1 element as at 4096 (one warp per SM):
@@ -300,7 +300,7 @@ __device__ __forceinline__ void canonical(Val<1>& a, const FpModulus& M) {
   select_words<kFpWords>(borrow != 0, a.w[0], d, a.w[0]);
 }
 
-// Karatsuba with 3 products (tower.cuh f2_mul); its sums and differences
+// Karatsuba with 3 products (ops/tower.py fp2_mul_plain); its sums and differences
 // in every lane on the whole words (field.cuh).
 template <int L>
 __device__ __forceinline__ void val_mul(const Val<2>& a, const Val<2>& b,
@@ -317,7 +317,8 @@ __device__ __forceinline__ void val_mul(const Val<2>& a, const Val<2>& b,
   mod_sub<kFpWords>(sa, v1, r.w[1], M);
 }
 
-// (a0 + a1)(a0 - a1) + 2 a0 a1 u with 2 products (tower.cuh f2_sqr).
+// (a0 + a1)(a0 - a1) + 2 a0 a1 u with 2 products (ops/tower.py
+// fp2_sqr_plain).
 template <int L>
 __device__ __forceinline__ void val_sqr(const Val<2>& a, Val<2>& r,
                                         const Lane<L>& ln,

@@ -24,40 +24,32 @@
 // element at 3.35 TB/s and 16.75 T int32 multiply-adds/s).  Fusing buys
 // launches: the Miller loop is 11 launches and an x-chain one.
 //
-// miller_dbl_run, miller_add, exp_x, fp12_mul, fp6_mul, fp12_sqr, mul014,
-// cyclo_sqr and dbl_step (the TPU's _millerdbl_kernel, _milleradd_kernel,
+// Every kernel here (the TPU's _millerdbl_kernel, _milleradd_kernel,
 // _expx_kernel, _fp12mul_kernel, _fp6mul_kernel, _fp12sqr_kernel,
-// _mul014_kernel, _cyclo_sqr_kernel and _dblstep_kernel) run on group.cuh:
-// a group of G threads
-// per batch element, the element's state in shared memory, each body as rounds
-// of independent Montgomery products dealt out over the group
-// (group_rounds.cuh).  The design they replace ran one thread per element
-// through tower.cuh: every product after the one before it (1,404 in a row per
-// exp_x element, ~2.5 us each), behind __noinline__ calls with the state in an
-// L1-backed stack, and at 4096 elements one warp on each SM, so nothing hid a
-// product's latency.  The group cuts the serial chain per element to the
-// rounds' depth (a Miller iteration: 176 products in 4 rounds; a Granger-Scott
-// square: 18 in one), runs each product inlined in registers, and puts G times
-// the warps on each SM.  G and the block are compile-time constants chosen on
-// the card (kGroup, kGroupFp12Mul, kGroupFp6Mul, kGroupFp12Sqr, kGroupMul014,
-// kGroupCycloSqr, kGroupDblStep; PERF.md has the sweep).  What bounds the group kernels now
+// _mul014_kernel, _cyclo_sqr_kernel, _dblstep_kernel and _addstep_kernel)
+// runs on group.cuh: a group of G threads per batch element, the element's
+// state in shared memory, each body as rounds of independent Montgomery
+// products dealt out over the group (group_rounds.cuh).  The design they
+// replace ran one thread per element: every product after the one before it
+// (1,404 in a row per exp_x element, ~2.5 us each), behind __noinline__
+// calls with the state in an L1-backed stack, and at 4096 elements one warp
+// on each SM, so nothing hid a product's latency.  The group cuts the serial
+// chain per element to the rounds' depth (a Miller iteration: 176 products
+// in 4 rounds; a Granger-Scott square: 18 in one), runs each product inlined
+// in registers, and puts G times the warps on each SM.  G and the block are
+// compile-time constants chosen on the card (kGroup, kGroupFp12Mul,
+// kGroupFp6Mul, kGroupFp12Sqr, kGroupMul014, kGroupCycloSqr, kGroupDblStep,
+// kGroupAddStep; PERF.md has the sweep).  What bounds the group kernels now
 // is not one thread's latency: two products at once per thread ran slower.
 // By instruction count most of a body is mont_mul's CIOS.
-// The other step kernel of this unit, add_step, keeps tower.cuh and one
-// thread per element: its redesign is later work.
 #include <cuda_runtime.h>
 
 #include <cstdint>
 #include <type_traits>
 
 #include "group.cuh"
-#include "tower.cuh"
 
 namespace {
-
-// One warp per block: at the main path's 4096 elements, 128 blocks spread
-// over 128 of the 132 SMs instead of stacking 2-4 warps on a quarter of them.
-constexpr int kThreads = 32;
 
 // The group kernels' threads per batch element (a divisor of 32), from the
 // sweep at the main path's counts (PERF.md): the Miller kernels and exp_x;
@@ -68,60 +60,29 @@ constexpr int kThreads = 32;
 // at 16 (ahead of 8 and 4 at 4096 elements and at 1); and cyclo_sqr, 18 in
 // 3 rounds at 8, as exp_x's square (ahead of 4 and 16 on a run of 32 at
 // 4096, the step-wise verify's count; 16 is faster at a few elements);
-// and dbl_step, 11 then 14 products at 8 (two rounds each; at 8192
+// dbl_step, 11 then 14 products at 8 (two rounds each; at 8192
 // elements, the step-wise verify's 63 launches, G = 4 / 8 / 16 take 42.2 /
 // 37.5 / 40.4 us, at 4096 36.1 / 26.4 / 23.2, at 1 30.7 / 20.0 / 13.4 on
-// an H100 at 700 W).
+// an H100 at 700 W); and add_step, product phases of 6, 14, 9 and 12 at
+// 8 (the sweep at the step-wise verify's 8192 elements: PERF.md).
 // chip_smoke.py builds the sweep's other values as throwaway copies of this
-// unit with -DBLS_GROUP=G, which sets all seven.
+// unit with -DBLS_GROUP=G, which sets all eight.
 #ifdef BLS_GROUP
 constexpr int kGroup = BLS_GROUP, kGroupFp12Mul = BLS_GROUP,
               kGroupFp6Mul = BLS_GROUP, kGroupFp12Sqr = BLS_GROUP,
               kGroupMul014 = BLS_GROUP, kGroupCycloSqr = BLS_GROUP,
-              kGroupDblStep = BLS_GROUP;
+              kGroupDblStep = BLS_GROUP, kGroupAddStep = BLS_GROUP;
 #else
 constexpr int kGroup = 8, kGroupFp12Mul = 16, kGroupFp6Mul = 4,
               kGroupFp12Sqr = 16, kGroupMul014 = 16, kGroupCycloSqr = 8,
-              kGroupDblStep = 8;
+              kGroupDblStep = 8, kGroupAddStep = 8;
 #endif
-
-inline unsigned grid_for(long long n) {
-  return (unsigned)((n + kThreads - 1) / kThreads);
-}
 
 }  // namespace
 
 namespace bls_kernels {
 
-using bls::Fp;
-using bls::Fp2;
 using bls::FpModulus;
-using bls::G2Proj;
-using bls::Line;
-using bls::load_fp;
-using bls::load_fp2;
-using bls::store_fp;
-using bls::store_fp2;
-
-__device__ __forceinline__ G2Proj load_point(const int32_t* buf, int j,
-                                             long long n, long long i) {
-  return {load_fp2(buf, j, n, i), load_fp2(buf, j + 2, n, i),
-          load_fp2(buf, j + 4, n, i)};
-}
-
-__device__ __forceinline__ void store_point(int32_t* buf, int j, long long n,
-                                            long long i, const G2Proj& t) {
-  store_fp2(buf, j, n, i, t.X);
-  store_fp2(buf, j + 2, n, i, t.Y);
-  store_fp2(buf, j + 4, n, i, t.Z);
-}
-
-__device__ __forceinline__ void store_line(int32_t* buf, int j, long long n,
-                                           long long i, const Line& l) {
-  store_fp2(buf, j, n, i, l.c0);
-  store_fp2(buf, j + 2, n, i, l.c1);
-  store_fp2(buf, j + 4, n, i, l.c4);
-}
 
 // The tower products on a group of G threads per element (group.cuh): the
 // input's `nin` coordinates into slots 0 and up, the body [p0, p1) of
@@ -271,8 +232,8 @@ __global__ void __launch_bounds__(bls::group::kThreads)
 // element; 86 for one valid pair).
 // On a group of G threads with MillerAdd1Program / MillerAdd2Program
 // (group_rounds.py miller_add_program): the input's coordinates are its
-// first slots; the body add runs tower.cuh's miller_add_step for every pair
-// at once (product phases of 6k, 14k, 9k and 12k products; the lines' c0
+// first slots; the body add runs the mixed addition step of ops/pairing.py
+// _add_step for every pair at once (product phases of 6k, 14k, 9k and 12k products; the lines' c0
 // stored after the third, T after the last), then, per valid pair, the
 // body line<p> (45), as in miller_dbl_run.
 template <int K, int G>
@@ -355,14 +316,11 @@ __global__ void __launch_bounds__(bls::group::kThreads)
 // ------------------------------------------- the step-wise configuration
 // One launch per Miller step or line product.  Like the others they are
 // bound by operations (per-kernel bounds below, per element at 16.75 T
-// int32 multiply-adds/s against 3.35 TB/s).  mul014, cyclo_sqr and
-// dbl_step run on the group layer, as the run kernels' line, square and
-// doubling bodies; add_step is a thin one-thread body over tower.cuh's
-// miller_add_step (the formula that group_rounds.cuh traces for the run
-// kernels), and does not reach its bound: a thread's Montgomery products
-// run one after another.  What the step-wise form
-// costs over the run kernels is launches and device-memory round trips of
-// f and T, which is why the default configuration fuses them.
+// int32 multiply-adds/s against 3.35 TB/s), and run on the group layer as
+// the run kernels' line, square, doubling and addition bodies.  What the
+// step-wise form costs over the run kernels is launches and device-memory
+// round trips of f and T, which is why the default configuration fuses
+// them.
 
 // Replaces _mul014_kernel (kernels.py:606): f * (c0 + c1 v + c4 v w).  f
 // (12, n) and the line (6, n) = c0, c1, c4 in, through a pointer each (the
@@ -435,23 +393,44 @@ __global__ void __launch_bounds__(bls::group::kThreads)
       S, lane);
 }
 
-// Replaces _addstep_kernel (kernels.py:688): T (6, n), the affine Q (4, n)
-// = xq, yq and the G1 point (2, n) in; (12, n) = T + Q, then the line out.
-// 41 Montgomery products (31 for T, 10 for the line): ~1.5 ns of
-// operations against ~0.7 ns of bytes (24 Fp) per element.
-__global__ void __launch_bounds__(kThreads)
+// Replaces _addstep_kernel (kernels.py:688): T (6, n) = X, Y, Z, the
+// affine Q (4, n) = xq, yq and the G1 point (2, n) = xp, yp in, through a
+// pointer each; (12, n) = T + Q, then the line (c0, c1, c4) out.  41
+// Montgomery products (31 for T, 10 for the line): ~1.5 ns of operations
+// against ~0.7 ns of bytes (24 Fp) per element.
+// With MillerAdd1Program (group_rounds.py miller_add_program, one pair):
+// T, Q and p into their slots, then the body add -- miller_add's step
+// (ops/pairing.py _add_step): [6 products]; [14]; [9]; [the line's c0];
+// [12]; [T] -- and T, then the line out: 4 product rounds of at most
+// 14 / G where the one-thread kernel it replaces ran the 41 products one
+// after another.  The body reads no slot of f, which stays unloaded.
+template <int G>
+__global__ void __launch_bounds__(bls::group::kThreads)
     add_step_kernel(const int32_t* __restrict__ t,
                     const int32_t* __restrict__ q,
                     const int32_t* __restrict__ p, int32_t* __restrict__ out,
                     long long n, FpModulus M) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  G2Proj pt = load_point(t, 0, n, i);
-  const Line l =
-      bls::miller_add_step(pt, load_fp2(q, 0, n, i), load_fp2(q, 2, n, i),
-                           load_fp(p, 0, n, i), load_fp(p, 1, n, i), M);
-  store_point(out, 0, n, i, pt);
-  store_line(out, 6, n, i, l);
+  using Prog = bls::group::MillerAdd1Program;
+  extern __shared__ uint4 smem[];
+  const int g = threadIdx.x / G, lane = threadIdx.x % G;
+  const long long i =
+      (long long)blockIdx.x * bls::group::elements_per_block<Prog, G>() + g;
+  if (i >= n) return;  // the whole group: no barrier spans groups
+  uint32_t* S = reinterpret_cast<uint32_t*>(smem) +
+                (long long)g * Prog::kSlots * bls::kFpWords;
+  const unsigned mask = bls::group::lane_mask<G>();
+  bls::group::load_coords<G>(
+      t, n, i, 6, [](int c) { return Prog::kSlot_t0 + c; }, S, lane);
+  bls::group::load_coords<G>(
+      q, n, i, 4, [](int c) { return Prog::kSlot_q0 + c; }, S, lane);
+  bls::group::load_coords<G>(
+      p, n, i, 2, [](int c) { return Prog::kSlot_p0 + c; }, S, lane);
+  __syncwarp(mask);
+  bls::group::run<G>(Prog::kBody_add, Prog::kEnd_add, S, lane, mask, M);
+  bls::group::store_coords<G>(
+      out, n, i, 12,
+      [](int c) { return c < 6 ? Prog::kSlot_t0 + c : Prog::kSlot_line0 + c - 6; },
+      S, lane);
 }
 
 // Replaces _cyclo_sqr_kernel (kernels.py:1412): `count` Granger-Scott
@@ -585,10 +564,9 @@ int bls_dbl_step(const int32_t* t, const int32_t* pts, int32_t* out,
 int bls_add_step(const int32_t* t, const int32_t* q, const int32_t* pts,
                  int32_t* out, long long n, const uint32_t* p, unsigned n0,
                  void* stream) {
-  bls_kernels::add_step_kernel<<<grid_for(n), kThreads, 0,
-                                 (cudaStream_t)stream>>>(
-      t, q, pts, out, n, bls::make_modulus<bls::kFpWords>(p, n0));
-  return (int)cudaGetLastError();
+  return bls::group::launch<bls::group::MillerAdd1Program, kGroupAddStep>(
+      bls_kernels::add_step_kernel<kGroupAddStep>, n, (cudaStream_t)stream, t,
+      q, pts, out, n, bls::make_modulus<bls::kFpWords>(p, n0));
 }
 
 int bls_cyclo_sqr(const int32_t* in, int32_t* out, long long n, int count,

@@ -2,8 +2,7 @@
 // loaded through ctypes by ops/kernels.py: Jacobian doubling repeated
 // `count` times, the complete Jacobian addition, and the variable-scalar
 // double-and-add ladder of keygen and signing, for G1 (coordinates in Fp)
-// and G2 (Fp2) as template instances: the doubling over curve.cuh, the
-// addition and the ladder over group.cuh.
+// and G2 (Fp2) as template instances over group.cuh.
 //
 // Layout.  As in hash_kernels.cu: packed operand buffers in and one packed
 // output buffer out, (c, n, 24) int32 16-bit Montgomery limbs, a Jacobian
@@ -15,35 +14,32 @@
 //
 // What bounds them, and the design.  Device memory sees the operands and
 // the results only: 96 bytes per Fp coordinate in or out, and 64 per
-// scalar, against 7-8 / 17 Montgomery products per G1 / G2 doubling and 16
+// scalar, against 7 / 17 Montgomery products per G1 / G2 doubling and 16
 // / 44 per addition (~600 32-bit multiply-adds each).  The ladder is bound
 // by operations (up to 5,865 / 15,555 products per element for 255 bits);
 // a single addition or doubling at the 2,048 elements of a 4096-element
 // aggregation tree's widest level is bound by operations too, at 1-3
 // microseconds, about what a launch costs.
-// pt_dbl runs one thread per element (curve.cuh).  pt_add and pt_mul_var
-// (the TPU's _ptadd_kernel and _ptmulvar_kernel) run on group.cuh: a group
-// of G threads per element, its state in shared memory, the doubling and
-// the complete addition as rounds of independent Montgomery products
-// (group_rounds.cuh, the bodies of pt_mul_const's ladders, group_rounds.py
-// ladder_bodies), and the addition's case (and the ladder's scalar bit) as
-// flags that every thread of the group reads from the element's slots: a
-// group never diverges on its case.  The one-thread kernels they replace
-// ran a G2 addition's 44 products, or the ladder's 255 x (17 + 44), in
-// series per thread, 32 threads per block, so that an aggregation tree's
-// level took one thread's latency whatever its width, and branched per
-// thread on the case and the bit.
+// pt_dbl, pt_add and pt_mul_var (the TPU's _ptdbl_kernel, _ptadd_kernel
+// and _ptmulvar_kernel) run on group.cuh: a group of G threads per
+// element, its state in shared memory, the doubling and the complete
+// addition as rounds of independent Montgomery products (group_rounds.cuh,
+// the bodies of pt_mul_const's ladders, group_rounds.py ladder_bodies),
+// and the addition's case (and the ladder's scalar bit) as flags that
+// every thread of the group reads from the element's slots: a group never
+// diverges on its case.  The one-thread kernels they replace ran a G2
+// addition's 44 products, or the ladder's 255 x (17 + 44), in series per
+// thread, 32 threads per block, so that an aggregation tree's level took
+// one thread's latency whatever its width, and branched per thread on the
+// case and the bit.
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
-#include "curve.cuh"
 #include "group.cuh"
 
 namespace {
 
-// One warp per block for pt_dbl, as in pairing_kernels.cu.
-constexpr int kThreads = 32;
 constexpr int kScalarLimbs = 16;  // raw Fr scalar: 16 x 16-bit limbs
 
 // The group kernels' threads per element (a divisor of 32) over Fp (G1)
@@ -51,46 +47,59 @@ constexpr int kScalarLimbs = 16;  // raw Fr scalar: 16 x 16-bit limbs
 // from the sweep at the aggregation trees' levels, 2048 elements down to 1
 // (the keys run's 33 launches summed, H100 at 700 W: G1 G = 2 / 4 / 8 /
 // 16 690.6 / 460.1 / 428.2 / 422.2 us, G = 8 ahead at 2048; G2 918.1 /
-// 576.2 / 372.8 / 295.3 us; PERF.md).  chip_smoke.py builds the sweep's
+// 576.2 / 372.8 / 295.3 us; PERF.md); pt_dbl's from the sweep at 4096
+// elements, count 1 and 63 (PERF.md).  chip_smoke.py builds the sweep's
 // other values as throwaway copies of this unit with -DBLS_POINT_GROUP=G,
-// which sets all four.
+// which sets all six.
 #ifdef BLS_POINT_GROUP
 constexpr int kGroupVarG1 = BLS_POINT_GROUP, kGroupVarG2 = BLS_POINT_GROUP,
-              kGroupAddG1 = BLS_POINT_GROUP, kGroupAddG2 = BLS_POINT_GROUP;
+              kGroupAddG1 = BLS_POINT_GROUP, kGroupAddG2 = BLS_POINT_GROUP,
+              kGroupDblG1 = BLS_POINT_GROUP, kGroupDblG2 = BLS_POINT_GROUP;
 #else
 constexpr int kGroupVarG1 = 4, kGroupVarG2 = 8, kGroupAddG1 = 8,
-              kGroupAddG2 = 16;
+              kGroupAddG2 = 16, kGroupDblG1 = 4, kGroupDblG2 = 8;
 #endif
-
-inline unsigned grid_for(long long n) {
-  return (unsigned)((n + kThreads - 1) / kThreads);
-}
 
 }  // namespace
 
 namespace bls_kernels {
 
 using bls::Fp;
-using bls::Fp2;
 using bls::FpModulus;
-using bls::Jac;
 
 // ----------------------------------------------------------------- pt_dbl
 
 // Replaces _ptdbl_kernel (bls_verify_gadget_tpu/ops/pallas/kernels.py:771):
-// `count` Jacobian doublings (curve.cuh pt_dbl, _pt_dbl_body) in one launch.
-// in and out (3c, n), c = 1 (G1) or 2 (G2).  8 (G1) or 17 (G2) Montgomery
-// products per doubling: ~0.29 / ~0.61 ns of operations per element against
-// ~0.17 / ~0.34 ns of bytes for one doubling.
-template <class F>
-__global__ void __launch_bounds__(kThreads)
+// `count` Jacobian doublings (_pt_dbl_body; ops/curve.py pt_double) in one
+// launch.  in and out (3c, n), c = 1 (G1) or 2 (G2).  7 (G1) or 17 (G2)
+// Montgomery products per doubling: ~0.25 / ~0.61 ns of operations per
+// element against ~0.17 / ~0.34 ns of bytes for one doubling.
+// On a group of G threads with PtAddG1Program / PtAddG2Program: the point
+// into acc, then `count` times the body dbl -- the ladders' doubling
+// (group_rounds.py pt_dbl_rounds): 3 product phases, G1 3, 3, 1 products,
+// G2 7, 7, 3, then acc in place -- and acc out.  Infinity stays infinity
+// (Z3 = 2 Y Z), so no case is read.
+template <class Prog, int G>
+__global__ void __launch_bounds__(bls::group::kThreads)
     pt_dbl_kernel(const int32_t* __restrict__ in, int32_t* __restrict__ out,
                   long long n, int count, FpModulus M) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  Jac<F> p = bls::load_jac<F>(in, 0, n, i);
-  for (int r = 0; r < count; ++r) p = bls::pt_dbl(p, M);
-  bls::store_jac(out, 0, n, i, p);
+  extern __shared__ uint4 smem[];
+  const int g = threadIdx.x / G, lane = threadIdx.x % G;
+  const long long i =
+      (long long)blockIdx.x * bls::group::elements_per_block<Prog, G>() + g;
+  if (i >= n) return;  // the whole group: no barrier spans groups
+  uint32_t* S = reinterpret_cast<uint32_t*>(smem) +
+                (long long)g * Prog::kSlots * bls::kFpWords;
+  const unsigned mask = bls::group::lane_mask<G>();
+  constexpr int nc = 3 * Prog::kCoord;
+  bls::group::load_coords<G>(
+      in, n, i, nc, [](int c) { return Prog::kSlot_acc + c; }, S, lane);
+  __syncwarp(mask);
+  for (int r = 0; r < count; ++r) {
+    bls::group::run<G>(Prog::kBody_dbl, Prog::kEnd_dbl, S, lane, mask, M);
+  }
+  bls::group::store_coords<G>(
+      out, n, i, nc, [](int c) { return Prog::kSlot_acc + c; }, S, lane);
 }
 
 // ----------------------------------------------------------------- pt_add
@@ -198,14 +207,14 @@ int bls_pt_dbl(const int32_t* in, int32_t* out, long long n, int nc, int count,
   if ((nc != 1 && nc != 2) || count < 1) return (int)cudaErrorInvalidValue;
   const auto M = bls::make_modulus<bls::kFpWords>(p, n0);
   const cudaStream_t s = (cudaStream_t)stream;
+  using G1 = bls::group::PtAddG1Program;
+  using G2 = bls::group::PtAddG2Program;
   if (nc == 1) {
-    bls_kernels::pt_dbl_kernel<bls::Fp>
-        <<<grid_for(n), kThreads, 0, s>>>(in, out, n, count, M);
-  } else {
-    bls_kernels::pt_dbl_kernel<bls::Fp2>
-        <<<grid_for(n), kThreads, 0, s>>>(in, out, n, count, M);
+    return bls::group::launch<G1, kGroupDblG1>(
+        bls_kernels::pt_dbl_kernel<G1, kGroupDblG1>, n, s, in, out, n, count, M);
   }
-  return (int)cudaGetLastError();
+  return bls::group::launch<G2, kGroupDblG2>(
+      bls_kernels::pt_dbl_kernel<G2, kGroupDblG2>, n, s, in, out, n, count, M);
 }
 
 int bls_pt_add(const int32_t* pts, const int32_t* qts, int32_t* out,

@@ -36,17 +36,18 @@ ops/pairing.py's) with symbolic values (Lin below): every value is the same
 polynomial in the inputs as there, and every slot holds a canonical
 residue, so the kernels' limbs equal the plain versions' whatever the
 grouping of products and sums.  The Miller line and T are ops/pairing.py's
-_dbl_step and tower.cuh's miller_add_step formulas, and the Granger-Scott
+_dbl_step and _add_step formulas, and the Granger-Scott
 square is ops/tower.py's fp12_cyclotomic_sqr_plain formula (both matter
 off the curve and off the cyclotomic subgroup); the Fp12 square and
 products are exact products.
 The point programs (pt_mul_const, g2_cofactor, sswu_map2, pt_mul_var,
-pt_add) trace ops/curve.py's Jacobian doubling and complete addition: the
-Jacobian representative is the formulas' polynomial, so the doubling may
-regroup it (pt_dbl_rounds), and the addition's exceptional cases keep its
-order (add_case).  sswu_map2 traces the one-thread SSWU formulas (its fractions
-and output keep their representatives) and runs its exponent chains in
-lockstep (POW) and its data-dependent choices as cases (CASE).
+pt_add, pt_dbl) trace ops/curve.py's Jacobian doubling and complete
+addition: the Jacobian representative is the formulas' polynomial, so the
+doubling may regroup it (pt_dbl_rounds), and the addition's exceptional
+cases keep its order (add_case).  sswu_map2 traces ops/hash_to_g2.py's
+SSWU formulas (its fractions and output keep their representatives) and
+runs its exponent chains in lockstep (POW) and its data-dependent choices
+as cases (CASE).
 
 Every value gets a slot of its own while a program is traced, auto
 bodies are scheduled into phases by their data (Program._flush), and
@@ -265,7 +266,7 @@ class Program:
 
 
 # ----------------------------------------------------------------- the tower
-# tower.cuh's formulas, and ops/tower.py's Fp6 and Fp12 products, on
+# ops/tower.py's Fp2, Fp6 and Fp12 products and ops/pairing.py's line, on
 # symbolic values: Fp a Lin, Fp2 a pair, Fp6 a triple of Fp2, Fp12 a pair of
 # Fp6.
 
@@ -662,7 +663,7 @@ def miller_add_program(k):
     """miller_add with k pairs: f, then per pair X, Y, Z, xq, yq, xp,
     yp in the slots of the packed operand's coordinates 0 .. 12 + 12k - 1;
     per pair a line.
-      body add: tower.cuh miller_add_step for every pair at once, scheduled
+      body add: ops/pairing.py _add_step for every pair at once, scheduled
         (auto): [yq Z, xq Z]; [theta^2, lambda^2 and the line's theta xq,
         lambda yq, -theta xp, lambda yp]; [e = lambda dd, f = Z cc, g = X
         dd]; [the line's c0]; [lambda h, Z e, theta (g - h), e Y]; [T].
@@ -763,7 +764,7 @@ FP_COORD, FP2_COORD = Coord(1), Coord(2)
 
 
 def pt_dbl_rounds(P, F, p):
-    """curve.cuh pt_dbl (_pt_dbl_body) in three product phases: a = X^2,
+    """ops/curve.py pt_double (_pt_dbl_body) in three product phases: a = X^2,
     b = Y^2, Y Z; d = b^2, X b, a^2; a (s - 3 a^2).  Its values, regrouped
     so that the operands stay unreduced: with s = 2((X + b)^2 - a - d) =
     4 X b and m = 3a, x3 = m^2 - 2s = 9 a^2 - 2s, y3 = m (s - x3) - 8d =
@@ -890,7 +891,7 @@ def add_program(F):
 def cofactor_program():
     """g2_cofactor (hash_kernels.cu): P in p, the constants cx, cy (Fp2) and
     c2 (Fp) of psi and psi^2 and the one in their slots, then, in the order
-    of the one-thread body (every intermediate the same representative):
+    of g2_cofactor_plain (every intermediate the same representative):
       start     base = P;                  ladder: acc = L1 = [|x|]P
       x1        base = xp = -L1, t1 = L1;  ladder: acc = L2 = [|x|]xp
       aux_in    t2 = xxp = -L2, base = -P; then acc = xp;  add: aux
@@ -1048,7 +1049,7 @@ def _sgn0_rules(off):
 def sswu_program():
     """sswu_map2 (hash_kernels.cu; _sswu_kernel, kernels.py:1023) on the
     packed (4, N) u = u0, u1, both maps side by side in every phase, with
-    the values of the one-thread formulas (the fractions xn / xd, yn / yd
+    the values of sswu_map2_plain's formulas (the fractions xn / xd, yn / yd
     and the Jacobian output keep their representatives; every other value
     is unique and may come from any chain).  Its script:
       LOAD   the head's constants;

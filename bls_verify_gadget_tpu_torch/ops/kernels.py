@@ -43,8 +43,7 @@ CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "build"
 UNITS = ("field_kernels.cu", "pairing_kernels.cu", "hash_kernels.cu",
          "point_kernels.cu")  # one nvcc each
-SOURCES = ("field.cuh", "tower.cuh", "curve.cuh", "group.cuh", "group_rounds.cuh", "lanes.cuh",
-           *UNITS)
+SOURCES = ("field.cuh", "tower.cuh", "group.cuh", "group_rounds.cuh", "lanes.cuh", *UNITS)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",

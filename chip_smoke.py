@@ -106,24 +106,27 @@ Needs one CUDA card and nvcc.  Phases, each fatal on failure:
      32, on cyclotomic elements (the easy part of seeded values; the one
      in element 0) and on seeded random Fp12 with edge values in elements
      0-4, and mul014 at 4096, 4095 and 1 with a quarter of the lines
-     neutral and edge values in elements 0-4 of f, dbl_step at 8192 (the
-     step-wise verify's two pairs), 4096 (aggregate_verify_distinct's one)
-     and 1 with edge values in elements 0-4, and pt_add in G1 and G2 on
-     seeded points at every level of the keys run's aggregation trees
-     (2048, 1024, ..., 1 elements) and on P, Q meeting each branch of the
-     complete addition at 2048 and 1: bit-equal to the plain
-     versions; the sweep's
+     neutral and edge values in elements 0-4 of f, dbl_step and add_step
+     at 8192 (the step-wise verify's two pairs), 4096
+     (aggregate_verify_distinct's one) and 1 with edge values in elements
+     0-4, pt_add in G1 and G2 on seeded points at every level of the keys
+     run's aggregation trees (2048, 1024, ..., 1 elements) and on P, Q
+     meeting each branch of the complete addition at 2048 and 1, and
+     pt_dbl in G1 and G2, count 1 and 63, at 4096 (edge values in
+     elements 0-4, the infinity in element 5) and 1: bit-equal to the
+     plain versions; the sweep's
      group sizes (throwaway copies of csrc/pairing_kernels.cu built with
      -DBLS_GROUP=G for G = 4, 8 and 16, which sets every group instance of
      the unit, of csrc/hash_kernels.cu built with -DBLS_HASH_GROUP=G for
      G = 2, 4 and 8 and with -DBLS_POW_LANES=L for pow_win's L = 2 and 4,
      of csrc/point_kernels.cu built with -DBLS_POINT_GROUP=G for G = 2, 4,
      8 and 16, into build/, in parallel with the library) bit-equal to the
-     wrapper, and device ms per launch of each G or L at 4096 (fp6_mul and
-     dbl_step 8192; and at 1 for the ladders, sswu_map2, the three tower
-     products, pow_win, pt_mul_var, cyclo_sqr, mul014 and dbl_step; pt_add
-     at every tree level, with the keys run's pt_add device time summed
-     over its 33 launches); with --parent DIR, the
+     wrapper, and device ms per launch of each G or L at 4096 (fp6_mul,
+     dbl_step and add_step 8192; and at 1 for the ladders, sswu_map2, the
+     three tower products, pow_win, pt_mul_var, cyclo_sqr, mul014,
+     dbl_step, add_step and pt_dbl; pt_add at every tree level, with the
+     keys run's pt_add device time summed over its 33 launches); with
+     --parent DIR, the
      parent commit's
      kernels (its pairing_kernels.cu, hash_kernels.cu and
      point_kernels.cu, built from DIR in parallel too) bit-equal as well
@@ -973,6 +976,7 @@ def pairing_inputs(torch, rng, name, n, count=None, k=2):
         "exp_x": lambda: (fp(12), CV.X_SEGMENTS),
         "mul014": lambda: (fp(12), torch.where(valid[0][:, None], fp(6), neutral)),
         "dbl_step": lambda: (fp(6), fp(2)),
+        "add_step": lambda: (fp(6), fp(4), fp(2)),
         "cyclo_sqr": lambda: (fp(12), count),
     }[name]()
 
@@ -1136,8 +1140,9 @@ def _lines(line):
 
 # (bytes, Montgomery products) of one point or step kernel call at n
 # elements (step kernels: the line product 45, the doubling step 25
-# (group_rounds.py dbl_step_program), csrc/tower.cuh miller_add_step 41, the
-# Granger-Scott square 18)
+# (group_rounds.py dbl_step_program), the addition step 41 (ops/pairing.py
+# _add_step), the Granger-Scott square 18; a G1 doubling 7, as
+# group_rounds.py pt_dbl_rounds computes it, a G2 doubling 17)
 HASH_WORK.update({
     "mul014": lambda n, f, line: (n * 30 * 96, _lines(line) * 45),
     "dbl_step": lambda n, t, p: (n * 20 * 96, n * 25),
@@ -1145,11 +1150,11 @@ HASH_WORK.update({
     "cyclo_sqr": lambda n, f, count: (n * 24 * 96, n * 18 * count),
     "pt_dbl": lambda n, p, count: (
         n * 2 * p.shape[0] * 96,
-        _finite(p, p.shape[0] // 3) * count * (8 if p.shape[0] == 3 else 17)),
+        _finite(p, p.shape[0] // 3) * count * (7 if p.shape[0] == 3 else 17)),
     "pt_add": lambda n, p, q: (
         n * 3 * p.shape[0] * 96,
         _both_finite(p, q, p.shape[0] // 3) * (16 if p.shape[0] == 3 else 44)
-        + _doublings(p, q, p.shape[0] // 3) * (8 if p.shape[0] == 3 else 17)),
+        + _doublings(p, q, p.shape[0] // 3) * (7 if p.shape[0] == 3 else 17)),
     "pt_mul_var": lambda n, p, s, nbits: (
         n * (2 * p.shape[0] * 96 + 4 * s.shape[1]),
         _ladder_var_products(p.shape[0] // 3, p, s)),
@@ -1676,8 +1681,9 @@ GROUP_VAR = {"pairing": "G", "hash": "G", "pow": "L", "point": "G"}  # the swept
 GROUP_KERNELS = {"miller_dbl_run": "pairing", "miller_add": "pairing", "exp_x": "pairing",
                  "fp12_mul": "pairing", "fp6_mul": "pairing", "fp12_sqr": "pairing",
                  "mul014": "pairing", "cyclo_sqr": "pairing", "dbl_step": "pairing",
-                 "pt_mul_const": "hash", "g2_cofactor": "hash", "sswu_map2": "hash",
-                 "pow_win": "pow", "pt_mul_var": "point", "pt_add": "point"}
+                 "add_step": "pairing", "pt_mul_const": "hash", "g2_cofactor": "hash",
+                 "sswu_map2": "hash", "pow_win": "pow", "pt_mul_var": "point", "pt_add": "point",
+                 "pt_dbl": "point"}
 # ptxas's mangled name of each group kernel instance -> (label, program of
 # ops/group_rounds.py, G)
 GROUP_LOG = (
@@ -1701,36 +1707,41 @@ GROUP_LOG = (
      lambda m: (f"pt_mul_var<{m[1]}, G={m[2]}>", f"var_ladder_{m[1].lower()}", int(m[2]))),
     (re.compile(r"pt_add_kernelIN3bls5group\d+PtAdd(G[12])ProgramELi(\d+)E"),
      lambda m: (f"pt_add<{m[1]}, G={m[2]}>", f"pt_add_{m[1].lower()}", int(m[2]))),
+    (re.compile(r"add_step_kernelILi(\d+)E"),
+     lambda m: (f"add_step<G={m[1]}>", "miller_add1", int(m[1]))),
+    (re.compile(r"pt_dbl_kernelIN3bls5group\d+PtAdd(G[12])ProgramELi(\d+)E"),
+     lambda m: (f"pt_dbl<{m[1]}, G={m[2]}>", f"pt_add_{m[1].lower()}", int(m[2]))),
 )
 
 
 def library_groups(K):
     """The library's threads per element of each group instance:
     pairing_kernels.cu's kGroup, kGroupFp12Mul, kGroupFp6Mul,
-    kGroupFp12Sqr, kGroupMul014, kGroupCycloSqr and kGroupDblStep,
-    hash_kernels.cu's kGroupG1, kGroupG2, kGroupCofactor, kGroupSswu and
-    BLS_POW_LANES (pow_win's L), point_kernels.cu's kGroupVarG1,
-    kGroupVarG2, kGroupAddG1 and kGroupAddG2."""
-    pairing, fp12, fp6, sqr, mul014, cyclo, dbl = map(int, re.search(
+    kGroupFp12Sqr, kGroupMul014, kGroupCycloSqr, kGroupDblStep and
+    kGroupAddStep, hash_kernels.cu's kGroupG1, kGroupG2, kGroupCofactor,
+    kGroupSswu and BLS_POW_LANES (pow_win's L), point_kernels.cu's
+    kGroupVarG1, kGroupVarG2, kGroupAddG1, kGroupAddG2, kGroupDblG1 and
+    kGroupDblG2."""
+    pairing, fp12, fp6, sqr, mul014, cyclo, dbl, add_step = map(int, re.search(
         r"#else\nconstexpr int kGroup = (\d+), kGroupFp12Mul = (\d+), kGroupFp6Mul = (\d+),"
         r"\s+kGroupFp12Sqr = (\d+), kGroupMul014 = (\d+), kGroupCycloSqr = (\d+),"
-        r"\s+kGroupDblStep = (\d+);",
+        r"\s+kGroupDblStep = (\d+), kGroupAddStep = (\d+);",
         (K.CSRC_DIR / GROUP_UNITS["pairing"]).read_text()).groups())
     hash_src = (K.CSRC_DIR / GROUP_UNITS["hash"]).read_text()
     g1, g2, cofactor, sswu = map(int, re.search(
         r"#else\nconstexpr int kGroupG1 = (\d+), kGroupG2 = (\d+), kGroupCofactor = (\d+), "
         r"kGroupSswu = (\d+);", hash_src).groups())
     lanes = int(re.search(r"#define BLS_POW_LANES (\d+)", hash_src)[1])
-    var1, var2, add1, add2 = map(int, re.search(
+    var1, var2, add1, add2, dbl1, dbl2 = map(int, re.search(
         r"#else\nconstexpr int kGroupVarG1 = (\d+), kGroupVarG2 = (\d+), kGroupAddG1 = (\d+),"
-        r"\s+kGroupAddG2 = (\d+);",
+        r"\s+kGroupAddG2 = (\d+), kGroupDblG1 = (\d+), kGroupDblG2 = (\d+);",
         (K.CSRC_DIR / GROUP_UNITS["point"]).read_text()).groups())
     return {"miller_dbl_run": pairing, "miller_add": pairing, "exp_x": pairing,
             "fp12_mul": fp12, "fp6_mul": fp6, "fp12_sqr": sqr, "mul014": mul014,
-            "cyclo_sqr": cyclo, "dbl_step": dbl, "pt_mul_const G1": g1,
+            "cyclo_sqr": cyclo, "dbl_step": dbl, "add_step": add_step, "pt_mul_const G1": g1,
             "pt_mul_const G2": g2, "g2_cofactor": cofactor, "sswu_map2": sswu, "pow_win Fp": lanes,
             "pow_win Fp2": lanes, "pt_mul_var G1": var1, "pt_mul_var G2": var2,
-            "pt_add G1": add1, "pt_add G2": add2}
+            "pt_add G1": add1, "pt_add G2": add2, "pt_dbl G1": dbl1, "pt_dbl G2": dbl2}
 
 
 def ptxas_report(log_path, patterns):
@@ -1851,13 +1862,12 @@ def entry_launch(torch, K, name, fn, args, packed=False):
             K._check_rc(name, fn(packed.data_ptr(), out.data_ptr(), packed.shape[1], p, n0,
                                  K._stream(packed)))
         return launch, out
-    if name in ("mul014", "dbl_step"):  # f and the line, or T and p, through a pointer each
-        a, b = args
-        out = a.new_empty((12, *a.shape[1:]))
+    if name in ("mul014", "dbl_step", "add_step"):  # each operand through a pointer of its own
+        out = args[0].new_empty((12, *args[0].shape[1:]))
 
         def launch():
-            K._check_rc(name, fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), a.shape[1], p,
-                                 n0, K._stream(a)))
+            K._check_rc(name, fn(*(a.data_ptr() for a in args), out.data_ptr(),
+                                 args[0].shape[1], p, n0, K._stream(args[0])))
         return launch, out
     if name == "pt_add":  # P and Q through a pointer each, or packed
         pts, qts = args
@@ -1868,12 +1878,13 @@ def entry_launch(torch, K, name, fn, args, packed=False):
             K._check_rc(name, fn(*(t.data_ptr() for t in ops), out.data_ptr(), pts.shape[1],
                                  pts.shape[0] // 3, one, p, n0, K._stream(pts)))
         return launch, out
-    if name == "cyclo_sqr":
+    if name in ("cyclo_sqr", "pt_dbl"):  # pt_dbl: the coordinate count before the count
         f, count = args
         out = torch.empty_like(f)
+        nc = (f.shape[0] // 3,) if name == "pt_dbl" else ()
 
         def launch():
-            K._check_rc(name, fn(f.data_ptr(), out.data_ptr(), f.shape[1], count, p, n0,
+            K._check_rc(name, fn(f.data_ptr(), out.data_ptr(), f.shape[1], *nc, count, p, n0,
                                  K._stream(f)))
         return launch, out
     if name == "pow_win":
@@ -2015,14 +2026,18 @@ def group_cases(torch, rng):
     (timed), runs of 1 and 32 (|x|'s longest), on cyclotomic_inputs and
     on pairing_inputs (random Fp12, the edge values in elements 0-4); mul014
     at 4096 (timed), 4095 and 1 (timed) on pairing_inputs (f with the edge
-    values in elements 0-4, a quarter of the lines neutral); dbl_step at
-    8192, 4096 and 1 (all timed) on pairing_inputs; pt_add in G1 and G2 on
+    values in elements 0-4, a quarter of the lines neutral); dbl_step and
+    add_step at 8192, 4096 and 1 (all timed) on pairing_inputs; pt_add in G1 and G2 on
     seeded coordinates (off the curve: the generic sum) at every level of a
     4096-point tree, 2048 down to 1 (all timed), and on pt_add_branches of
-    seeded points at 2048 (timed) and 1 (Q = -P).  The plain
-    ladder costs the same at any count on the card (~30-45 s, launch-bound), and each element's result
-    depends on its own operands only, so it runs once, at 4096, and its
-    columns are the reference of 4095 and 1 (a case's sixth item)."""
+    seeded points at 2048 (timed) and 1 (Q = -P); pt_dbl in G1 and G2,
+    counts 1 and 63, at 4096 (timed; seeded coordinates, edge_limbs rolled
+    per coordinate in elements 0-4, the infinity in element 5) and at 1
+    (timed; the last element of 4096).  The plain variable ladder and
+    pt_dbl's plain version cost about the same at any count on the card
+    (launch-bound: ~30-45 s and a few s), and each element's result depends
+    on its own operands only, so each runs once, at 4096, and its columns
+    are the reference of 4095 and 1 (a case's sixth item)."""
     import numpy as np
 
     from bls_verify_gadget_tpu_torch import constants as C
@@ -2129,6 +2144,22 @@ def group_cases(torch, rng):
         edge = "elements 0-4" if n > 1 else "element 0"
         cases.append((f"{n}, edge values in {edge}", "dbl_step", "dbl_step",
                       pairing_inputs(torch, rng, "dbl_step", n), True))
+        cases.append((f"{n}, edge values in {edge}", "add_step", "add_step",
+                      pairing_inputs(torch, rng, "add_step", n), True))
+    edges = edge_limbs(torch, FP)
+    for what, c in (("G1", 1), ("G2", 2)):
+        pts = rand_limbs(torch, rng, 3 * c * BATCH, top).view(3 * c, BATCH, 24)
+        for j in range(3 * c):
+            pts[j, :len(edges)] = edges.roll(j, 0)
+        pts[2 * c:, len(edges)] = 0  # the infinity
+        for count in (1, 63):
+            ref = CV.pt_dbl_plain(pts, count)
+            cases.append((f"{what}, {BATCH}, edge values in elements 0-4, the infinity in "
+                          f"element 5, count {count}", "pt_dbl", f"pt_dbl {what}", (pts, count),
+                          True, ref))
+            cases.append((f"{what}, 1, the last of {BATCH}, count {count}", "pt_dbl",
+                          f"pt_dbl {what}", (pts[:, -1:].contiguous(), count), True,
+                          ref[:, -1:]))
     for what, ops in (("G1", CV.FP_OPS), ("G2", CV.FP2_OPS)):
         c = 3 if ops is CV.FP_OPS else 6
         for n in tree_counts(BATCH):
@@ -2527,8 +2558,8 @@ def main():
                     help="a git archive of the parent commit in a git-ignored directory of "
                          "this checkout: time its miller_dbl_run, miller_add, exp_x, "
                          "fp12_mul, fp6_mul, fp12_sqr, pt_mul_const, g2_cofactor, "
-                         "sswu_map2, pow_win, pt_mul_var, mul014, cyclo_sqr, dbl_step "
-                         "and pt_add kernels interleaved with this tree's in the group "
+                         "sswu_map2, pow_win, pt_mul_var, mul014, cyclo_sqr, dbl_step, "
+                         "add_step, pt_add and pt_dbl kernels interleaved with this tree's in the group "
                          "phase, and its mul, add, sub, fp2_mul and fp2_sqr in the field "
                          "phase")
     args = ap.parse_args()

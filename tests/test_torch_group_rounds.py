@@ -3,12 +3,14 @@ tables of csrc/group_rounds.cuh that csrc/group.cuh runs) on the CPU: the
 committed header is the generator's output, and each body run on Python
 ints as the kernels run it (run_body: phase by phase, every form and
 product with the kernels' bounds checked) gives the limbs of the plain
-versions of miller_dbl_run, miller_add, exp_x, mul014 and dbl_step
-(ops/pairing.py) and fp12_mul, fp6_mul, fp12_sqr and cyclo_sqr
-(ops/tower.py; with 0, 1 and p - 1 among their operands, mul014 also on a
-neutral line) on seeded random operands, off the curve and off the
-cyclotomic subgroup, with mixed valid masks; pt_add's script (G1, G2) gives
-those of pt_add_plain on operands that meet each of the complete
+versions of miller_dbl_run, miller_add, exp_x, mul014, dbl_step and
+add_step (ops/pairing.py), fp12_mul, fp6_mul, fp12_sqr and cyclo_sqr
+(ops/tower.py) and pt_dbl (ops/curve.py; with 0, 1 and p - 1 among their
+operands, mul014 also on a neutral line, pt_dbl also on the infinity) on
+seeded random operands, off the curve and off the cyclotomic subgroup,
+with mixed valid masks, the step and pt_dbl bodies with every slot that
+their kernels leave unloaded holding seeded values; pt_add's script (G1,
+G2) gives those of pt_add_plain on operands that meet each of the complete
 addition's five cases; the point programs' scripts (run_script) give
 those of pt_mul_const (G1, G2) and g2_cofactor (ops/curve.py) on edge
 points, and in affine the JAX package's golden curve and, in G1, its
@@ -172,6 +174,62 @@ def test_dbl_step_body_matches_the_plain_version():
         slots[:8] = [tv[c][i] for c in range(6)] + [pv[c][i] for c in range(2)]
         GR.run_body(P, "dbl", slots)
         assert slots[t0:t0 + 6] + slots[line:line + 6] == [want[c][i] for c in range(12)]
+
+
+def _unloaded(rng, P):
+    """Seeded values in every slot of program P: the shared memory that a
+    kernel leaves unloaded, which its body must not read."""
+    return [int.from_bytes(rng.bytes(48), "little") % C.P for _ in range(P.nslots)]
+
+
+def test_add_step_body_matches_the_plain_version():
+    """add_step's kernel runs MillerAdd1Program's body add once on T, Q and
+    the G1 point loaded into t0, q0 and p0, f's slots not loaded: [6
+    products]; [14]; [9]; [the line's c0]; [12]; [T].  On seeded T, Q and
+    points off the curve, with 0, 1 and p - 1 among element 0's and element
+    2's coordinates, and seeded values in every other slot, T + Q and the
+    line are the limbs of add_step_plain."""
+    rng = np.random.default_rng(97)
+    (t, tv), (q, qv), (p, pv) = _edge_operands(rng, (6, 4, 2))
+    want = ints(PR.add_step_plain(t, q, p))
+    P = GR.miller_add_program(1)
+    assert [sum(op.b is not None for op in ops) for ops in P.bodies["add"]] == [6, 14, 9, 0, 12, 0]
+    t0, q0, p0, line = (P.slots[name][0] for name in ("t0", "q0", "p0", "line0"))
+    for i in range(N):
+        slots = _unloaded(rng, P)
+        slots[t0:t0 + 6] = [tv[c][i] for c in range(6)]
+        slots[q0:q0 + 4] = [qv[c][i] for c in range(4)]
+        slots[p0:p0 + 2] = [pv[c][i] for c in range(2)]
+        GR.run_body(P, "add", slots)
+        assert slots[t0:t0 + 6] + slots[line:line + 6] == [want[c][i] for c in range(12)]
+
+
+@pytest.mark.parametrize("count", [1, 3])
+@pytest.mark.parametrize("F", [GR.FP_COORD, GR.FP2_COORD], ids=["G1", "G2"])
+def test_pt_dbl_on_the_add_programs_dbl_body(F, count):
+    """pt_dbl's kernel runs the body dbl of pt_add's program `count` times
+    on the point loaded into acc, no other slot loaded: 3 product phases
+    (G1 3, 3, 1 products; G2 7, 7, 3), then acc.  On seeded points off the
+    curve, with 0, 1 and p - 1 among element 0's and element 2's
+    coordinates, element 1 at infinity (Z = 0), and seeded values in every
+    other slot, acc is the limbs of pt_dbl_plain."""
+    c = F.width
+    rng = np.random.default_rng(98 + 2 * c + count)
+    ((_, vals),) = _edge_operands(rng, (3 * c,))
+    for j in range(2 * c, 3 * c):
+        vals[j][1] = 0
+    pts = torch.from_numpy(np.stack([ints_to_limbs(v, 24) for v in vals]))
+    want = ints(CV.pt_dbl_plain(pts, count))
+    P = GR.add_program(F)
+    products = [3, 3, 1, 0] if c == 1 else [7, 7, 3, 0]
+    assert [sum(op.b is not None for op in ops) for ops in P.bodies["dbl"]] == products
+    acc = P.slots["acc"][0]
+    for i in range(N):
+        slots = _unloaded(rng, P)
+        slots[acc:acc + 3 * c] = [vals[j][i] for j in range(3 * c)]
+        for _ in range(count):
+            GR.run_body(P, "dbl", slots)
+        assert slots[acc:acc + 3 * c] == [want[j][i] for j in range(3 * c)]
 
 
 # the complete addition's outcomes (add_case) in _pt_add_body's order
