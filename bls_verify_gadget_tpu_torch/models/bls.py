@@ -57,11 +57,18 @@ class BatchedBLS:
             return tuple(self._to(v) for v in x)
         return x.to(self.device)
 
-    def _msg(self, msg_u8, msg_len):
+    def _msg(self, msg_u8, msg_len, msg_lens=None):
+        """-> (messages, per-element lengths or None) on the device: msg_len,
+        where given, is the width; msg_lens a 1-D tensor of B lengths."""
         msg_u8 = self._to(msg_u8)
         if msg_len is not None and msg_len != msg_u8.shape[-1]:
             raise ValueError(f"msg_len {msg_len} != message width {msg_u8.shape[-1]}")
-        return msg_u8
+        if msg_lens is not None:
+            msg_lens = self._to(torch.as_tensor(msg_lens))
+            if tuple(msg_lens.shape) != tuple(msg_u8.shape[:1]) or msg_u8.dim() != 2:
+                raise ValueError(f"msg_lens must be a 1-D tensor of {msg_u8.shape[0]} lengths "
+                                 f"for (B, L) messages, got {tuple(msg_lens.shape)}")
+        return msg_u8, msg_lens
 
     # ------------------------------------------------------------------
     # keygen / sign
@@ -74,17 +81,19 @@ class BatchedBLS:
         gen = CV.g1_generator((*sk.shape[:-1], C.NLIMB), self.device)
         return CV.pt_mul_var(CV.FP_OPS, gen, sk, 255)
 
-    def hash_to_g2(self, msg_u8, msg_len: int | None = None):
-        """H(m) as a Jacobian G2 point, one message length per batch."""
-        msg_u8 = self._msg(msg_u8, msg_len)
-        return hash_to_g2(msg_u8, msg_u8.shape[-1])
+    def hash_to_g2(self, msg_u8, msg_len: int | None = None, msg_lens=None):
+        """H(m) as a Jacobian G2 point.  `msg_lens` (per-element byte
+        lengths) enables mixed-length batches; msg_len is then the padded
+        width."""
+        msg_u8, msg_lens = self._msg(msg_u8, msg_len, msg_lens)
+        return hash_to_g2(msg_u8, msg_u8.shape[-1], lens=msg_lens)
 
-    def sign(self, sk_limbs, msg_u8, msg_len: int | None = None):
+    def sign(self, sk_limbs, msg_u8, msg_len: int | None = None, msg_lens=None):
         """-> (sig Jacobian G2 [sk]H(m), valid mask): ONE pt_mul_var launch
         after the hash.  Zero keys give valid = False (the reference
-        rejects them).  All messages of a batch share one length."""
+        rejects them).  `msg_lens` as in hash_to_g2."""
         sk = self._to(sk_limbs)
-        sig = CV.pt_mul_var(CV.FP2_OPS, self.hash_to_g2(msg_u8, msg_len), sk, 255)
+        sig = CV.pt_mul_var(CV.FP2_OPS, self.hash_to_g2(msg_u8, msg_len, msg_lens), sk, 255)
         return sig, ~(sk == 0).all(-1)
 
     # ------------------------------------------------------------------
@@ -92,18 +101,22 @@ class BatchedBLS:
     # ------------------------------------------------------------------
 
     @staticmethod
-    def hash_parts(msg_len: int):
+    def hash_parts(msg_len: int, msg_lens=None):
         """Stage 1 as its ordered parts [(name, fn)]: hash_to_g2's steps,
         then the affine conversion; each fn takes the previous part's
-        output, the first the (B, msg_len) message bytes."""
-        return [*hash_to_g2_steps(msg_len),
+        output, the first the (B, msg_len) message bytes (with msg_lens,
+        each row's first msg_lens bytes)."""
+        return [*hash_to_g2_steps(msg_len, lens=msg_lens),
                 ("pt_to_affine", lambda h: CV.pt_to_affine(CV.FP2_OPS, h))]
 
-    def hash_stage(self, msg_u8, msg_len: int | None = None):
+    def hash_stage(self, msg_u8, msg_len: int | None = None, msg_lens=None):
         """Stage 1 of verify: h = hash_to_g2(msg) as affine coordinates
-        (x, y, is_inf) for the mixed-addition Miller loop."""
-        x = msg_u8 = self._msg(msg_u8, msg_len)
-        for _, part in self.hash_parts(msg_u8.shape[-1]):
+        (x, y, is_inf) for the mixed-addition Miller loop.  `msg_lens`
+        (per-element byte lengths) enables mixed-length batches; msg_len is
+        then the padded width."""
+        msg_u8, msg_lens = self._msg(msg_u8, msg_len, msg_lens)
+        x = msg_u8
+        for _, part in self.hash_parts(msg_u8.shape[-1], msg_lens):
             x = part(x)
         return x
 
@@ -135,16 +148,18 @@ class BatchedBLS:
         """Stage 2: validity checks + the pairing product test."""
         return self.finalexp_stage(*self.miller_stage(pk_aff, sig_aff, h_aff))
 
-    def verify(self, pk_aff, sig_aff, msg_u8, msg_len: int | None = None):
+    def verify(self, pk_aff, sig_aff, msg_u8, msg_len: int | None = None, msg_lens=None):
         """Batched verification -> (B,) bool tensor.
 
-        pk_aff  = (x, y, is_inf): affine G1 limb tensors + infinity mask
-        sig_aff = ((x0, x1), (y0, y1), is_inf): affine G2 + infinity mask
-        msg_u8  = (B, L) byte tensor, one length L for the whole batch
+        pk_aff   = (x, y, is_inf): affine G1 limb tensors + infinity mask
+        sig_aff  = ((x0, x1), (y0, y1), is_inf): affine G2 + infinity mask
+        msg_u8   = (B, L) byte tensor
+        msg_lens = optional (B,) per-element byte lengths for mixed-length
+                   batches (msg_u8 is then padded to L)
 
         Identity pk -> False; pk/sig off the curve or outside the subgroup
         -> False; else the pairing product test."""
-        return self.pairing_stage(pk_aff, sig_aff, self.hash_stage(msg_u8, msg_len))
+        return self.pairing_stage(pk_aff, sig_aff, self.hash_stage(msg_u8, msg_len, msg_lens))
 
     def aggregate_verify_distinct(self, pk_aff, sig_aff, msg_u8, msg_len: int | None = None):
         """Distinct-message aggregate verification (IETF AggregateVerify):
@@ -257,3 +272,19 @@ def encode_messages(msgs, device="cuda"):
         raise ValueError("batch messages must share a length")
     arr = np.frombuffer(b"".join(msgs), np.uint8).reshape(len(msgs), L)
     return torch.from_numpy(arr.copy()).to(dev)
+
+
+def encode_messages_var(msgs, pad_to: int | None = None, device="cuda"):
+    """Host byte strings of any lengths -> (msg (B, L) uint8, lens (B,)
+    int32, L): zero-padded to the batch's longest (or to `pad_to`), with
+    the per-element byte lengths that hash_to_g2, sign, hash_stage and
+    verify take as `msg_lens`."""
+    dev = resolve_device(device)
+    L = max((len(m) for m in msgs), default=0) if pad_to is None else pad_to
+    if any(len(m) > L for m in msgs):
+        raise ValueError(f"a message is longer than pad_to = {L} bytes")
+    buf = np.zeros((len(msgs), L), np.uint8)
+    for i, m in enumerate(msgs):
+        buf[i, : len(m)] = np.frombuffer(m, np.uint8)
+    lens = np.array([len(m) for m in msgs], np.int32)
+    return torch.from_numpy(buf).to(dev), torch.from_numpy(lens).to(dev), L

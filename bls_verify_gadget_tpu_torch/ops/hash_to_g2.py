@@ -2,12 +2,13 @@
 package's ops/hash_to_g2.py, fused path).
 
 Pipeline (RFC 9380 BLS12381G2_XMD:SHA-256_SSWU_RO_): expand_message_xmd
-(batched SHA-256) -> hash_to_field (512-bit -> Fp via Montgomery folding)
--> both simplified-SWU maps, their 3-isogeny and their sum in ONE
-sswu_map2 kernel launch -> Budroni-Pintore cofactor clearing in ONE
-g2_cofactor launch (ops/curve.py).  All messages of a batch share one byte
-length.  The plain version of sswu_map2 is here, beside the constant table
-that it and the kernel read.
+(SHA-256 and the b_1..b_ell chain in ONE xmd launch) -> hash_to_field
+(512-bit -> Fp via Montgomery folding) -> both simplified-SWU maps, their
+3-isogeny and their sum in ONE sswu_map2 kernel launch -> Budroni-Pintore
+cofactor clearing in ONE g2_cofactor launch (ops/curve.py).  Messages of
+one batch share a padded width; `lens` gives each element its own byte
+length (mixed-length batches).  The plain versions of xmd and sswu_map2
+are here, beside the constant tables that they and the kernels read.
 """
 
 import torch
@@ -18,7 +19,7 @@ from .fp import FP
 from . import kernels as K
 from . import curve as CV
 from .tower import F2, pow_win_plain
-from .sha256 import sha256_bytes
+from .sha256 import sha256_bytes, sha256_bytes_var
 
 # ----------------------------------------------------------------------------
 # sqrt in Fp2 for q == 9 mod 16: candidate multipliers
@@ -49,19 +50,41 @@ def _const_bytes(bs, batch, device):
     return torch.tensor(list(bs), dtype=torch.int64, device=device).expand(batch + (len(bs),))
 
 
-def expand_message_xmd(msg_u8, msg_len: int, dst: bytes, len_in_bytes: int):
-    """(..., msg_len) byte tensor -> (..., len_in_bytes) byte tensor
-    (RFC 9380 sec 5.3.1)."""
-    ell = -(-len_in_bytes // 32)
-    assert ell <= 255 and len(dst) <= 255
+def _xmd_tail(dst: bytes, len_in_bytes: int):
+    """(I2OSP(len_in_bytes, 2) || 0 || DST', DST') of expand_message_xmd."""
+    if not 1 <= -(-len_in_bytes // 32) <= 255 or len(dst) > 255:
+        raise ValueError(f"expand_message_xmd takes 1 to {255 * 32} bytes out and a DST of at "
+                         f"most 255 bytes, got {len_in_bytes} and {len(dst)}")
     dst_prime = dst + bytes([len(dst)])
-    batch, dev = msg_u8.shape[:-1], msg_u8.device
-    tail = len_in_bytes.to_bytes(2, "big") + b"\x00" + dst_prime
-    msg_prime = torch.cat(
-        [_const_bytes(bytes(64), batch, dev), msg_u8.to(torch.int64),
-         _const_bytes(tail, batch, dev)], -1,
-    )
-    b0 = sha256_bytes(msg_prime, 64 + msg_len + len(tail))
+    return len_in_bytes.to_bytes(2, "big") + b"\x00" + dst_prime, dst_prime
+
+
+def xmd_plain(msg_u8, lens, dst: bytes, len_in_bytes: int):
+    """Plain version of the xmd kernel: expand_message_xmd (RFC 9380 sec
+    5.3.1) of each (..., L) row of byte values -> (..., len_in_bytes) uint8.
+    With `lens` ((...,) byte lengths <= L), each row is its first lens
+    bytes: msg' = Z_pad || msg || I2OSP(len_in_bytes, 2) || 0 || DST' is
+    built by masks, as the JAX package does, and hashed by sha256_bytes_var
+    (every element pays the block count of the widest)."""
+    tail, dst_prime = _xmd_tail(dst, len_in_bytes)
+    ell = -(-len_in_bytes // 32)
+    batch, dev, width = msg_u8.shape[:-1], msg_u8.device, msg_u8.shape[-1]
+    msg = msg_u8.to(torch.int64)
+    if lens is None:
+        msg_prime = torch.cat([_const_bytes(bytes(64), batch, dev), msg,
+                               _const_bytes(tail, batch, dev)], -1)
+        b0 = sha256_bytes(msg_prime, 64 + width + len(tail))
+    else:
+        n = lens.to(device=dev, dtype=torch.int64)[..., None]
+        total = 64 + width + len(tail)
+        buf = torch.cat([_const_bytes(bytes(64), batch, dev), msg,
+                         torch.zeros(batch + (len(tail),), dtype=torch.int64, device=dev)], -1)
+        iota = torch.arange(total, device=dev)
+        # the tail starts right after each element's own message bytes
+        t_idx = (iota - 64 - n).clamp(0, len(tail) - 1)
+        tail_vals = torch.tensor(list(tail), dtype=torch.int64, device=dev)[t_idx]
+        buf = torch.where(iota < 64 + n, buf, tail_vals)
+        b0 = sha256_bytes_var(buf, n[..., 0] + 64 + len(tail), total)
     tail_dst = _const_bytes(dst_prime, batch, dev)
     blen = 32 + 1 + len(dst_prime)
 
@@ -73,14 +96,60 @@ def expand_message_xmd(msg_u8, msg_len: int, dst: bytes, len_in_bytes: int):
     for i in range(2, ell + 1):
         prev = sha256_bytes(block_input(b0 ^ prev, i), blen)
         blocks.append(prev)
-    return torch.cat(blocks, -1)[..., :len_in_bytes]
+    return torch.cat(blocks, -1)[..., :len_in_bytes].to(torch.uint8)
+
+
+# Words of the xmd kernel's table (csrc/xmd_kernels.cu kExtWords,
+# kTmplWords): b0's bytes past the message, up to 72 past its tail (b0's
+# last block), then the padded b_i input as words.
+XMD_EXT_WORDS, XMD_TMPL_WORDS = 84, 80
+_xmd_tables = {}
+
+
+def xmd_table(dst: bytes, len_in_bytes: int, device):
+    """-> ((164,) int32 table, tail length, blocks per b_i) of the xmd
+    kernel on `device` (built once per DST, output length and device).
+    The table holds, as bytes in memory order, I2OSP(len_in_bytes, 2) ||
+    0 || DST' || 0x80 and zeros (b0's bytes past each message, its padding
+    up to the bit length), then, as big-endian words, the padded SHA-256
+    input of b_i = H(x || i || DST') with the 32 bytes of x and the counter
+    i zero: every b_i's blocks but those 33 bytes."""
+    dev = torch.device(device)
+    key = (dst, len_in_bytes, dev)
+    hit = _xmd_tables.get(key)
+    if hit is None:
+        tail, dst_prime = _xmd_tail(dst, len_in_bytes)
+        ext = tail + b"\x80" + bytes(4 * XMD_EXT_WORDS - len(tail) - 1)
+        m = 33 + len(dst_prime)
+        nbi = (m + 8) // 64 + 1
+        tmpl = bytes(33) + dst_prime + b"\x80"
+        tmpl += bytes(nbi * 64 - 8 - len(tmpl)) + (8 * m).to_bytes(8, "big")
+        tmpl += bytes(4 * XMD_TMPL_WORDS - len(tmpl))
+        words = [int.from_bytes(ext[i : i + 4], "little") for i in range(0, len(ext), 4)]
+        words += [int.from_bytes(tmpl[i : i + 4], "big") for i in range(0, len(tmpl), 4)]
+        table = torch.tensor([w - (1 << 32) if w >> 31 else w for w in words],
+                             dtype=torch.int32, device=dev)
+        hit = _xmd_tables[key] = (table, len(tail), nbi)
+    return hit
+
+
+def expand_message_xmd(msg_u8, msg_len: int, dst: bytes, len_in_bytes: int, lens=None):
+    """(..., msg_len) byte tensor -> (..., len_in_bytes) uint8 tensor (RFC
+    9380 sec 5.3.1): ONE xmd launch on a CUDA tensor, its plain version on
+    a CPU one.  With `lens` ((...,) per-element byte lengths <= msg_len),
+    messages of different lengths batch together and msg_len is the
+    padded width."""
+    if msg_u8.shape[-1] != msg_len:
+        raise ValueError(f"msg_len {msg_len} != message width {msg_u8.shape[-1]}")
+    return K.xmd(msg_u8, lens, dst, len_in_bytes)
 
 
 def _bytes_be_to_fp(tv):
     """(..., 64) big-endian bytes -> Fp Montgomery limbs:
-    v = hi*2^384 + lo, v*R = mont_mul(lo, R^2) + mont_mul(hi, R^3)."""
-    rev = tv.flip(-1)
-    limbs = (rev[..., 0::2] + (rev[..., 1::2] << 8)).to(torch.int32)  # (..., 32)
+    v = hi*2^384 + lo, v*R = mont_mul(lo, R^2) + mont_mul(hi, R^3).
+    Widened first: a uint8 byte shifted by 8 would wrap."""
+    rev = tv.flip(-1).to(torch.int32)
+    limbs = rev[..., 0::2] + (rev[..., 1::2] << 8)  # (..., 32)
     lo = limbs[..., :24]
     hi = torch.cat([limbs[..., 24:], torch.zeros_like(limbs[..., :16])], -1)
     consts = torch.stack([
@@ -91,11 +160,12 @@ def _bytes_be_to_fp(tv):
     return FP.add(prods[0], prods[1])
 
 
-def hash_to_field_fp2(msg_u8, msg_len: int, count: int = 2, dst: bytes = C.DST_G2):
+def hash_to_field_fp2(msg_u8, msg_len: int, count: int = 2, dst: bytes = C.DST_G2,
+                      lens=None):
     """-> list of `count` Fp2 elements (Montgomery form), 64 bytes per base
-    field element."""
+    field element; `lens` as in expand_message_xmd."""
     m = 2
-    uniform = expand_message_xmd(msg_u8, msg_len, dst, count * m * C.L_FIELD)
+    uniform = expand_message_xmd(msg_u8, msg_len, dst, count * m * C.L_FIELD, lens)
     out = []
     for i in range(count):
         coords = []
@@ -277,19 +347,21 @@ def sswu_map2(u0, u1):
     return CV.unpack_point(CV.FP2_OPS, K.sswu_map2(FP, torch.stack([*u0, *u1])))
 
 
-def hash_to_g2_steps(msg_len: int, dst: bytes = C.DST_G2):
+def hash_to_g2_steps(msg_len: int, dst: bytes = C.DST_G2, lens=None):
     """hash_to_g2 as its ordered steps [(name, fn)]: each fn takes the
-    previous step's output, the first the (B, msg_len) message bytes."""
+    previous step's output, the first the (B, msg_len) message bytes
+    (with `lens`, each row's first lens bytes)."""
     return [
-        ("xmd+hash_to_field", lambda msg: hash_to_field_fp2(msg, msg_len, 2, dst)),
+        ("xmd+hash_to_field", lambda msg: hash_to_field_fp2(msg, msg_len, 2, dst, lens)),
         ("sswu_map2", lambda u: sswu_map2(*u)),
         ("g2_cofactor", CV.g2_clear_cofactor),
     ]
 
 
-def hash_to_g2(msg_u8, msg_len: int, dst: bytes = C.DST_G2):
-    """Full batched hash-to-G2 -> Jacobian G2 point (in the subgroup)."""
+def hash_to_g2(msg_u8, msg_len: int, dst: bytes = C.DST_G2, lens=None):
+    """Full batched hash-to-G2 -> Jacobian G2 point (in the subgroup);
+    `lens` enables mixed-length batches (see expand_message_xmd)."""
     x = msg_u8
-    for _, step in hash_to_g2_steps(msg_len, dst):
+    for _, step in hash_to_g2_steps(msg_len, dst, lens):
         x = step(x)
     return x

@@ -2,7 +2,9 @@
 per kernel (the counterpart of the JAX package's ops/pallas/kernels.py
 FieldKernels.mul/add/sub/fp2_mul/fp2_sqr/fp6_mul/fp12_mul/fp12_sqr/
 miller_dbl_run/miller_add/exp_x/pow_win/pt_mul_const/g2_cofactor/sswu_map2/
-pt_dbl/pt_add/pt_mul_var/mul014/dbl_step/add_step/cyclo_sqr).
+pt_dbl/pt_add/pt_mul_var/mul014/dbl_step/add_step/cyclo_sqr), and xmd,
+which replaces no Pallas kernel: expand_message_xmd with its SHA-256, which
+XLA fuses in the JAX package (ops/sha256.py, ops/hash_to_g2.py).
 
 The sources in csrc/ are compiled on first use with nvcc for sm_90a, one
 nvcc per .cu file, all started together, and linked into one shared
@@ -16,7 +18,7 @@ coordinates, a Jacobian point 3 or 6, an Fp6 6, an Fp12 12,
 coefficient-major) and
 pack their operands into one contiguous buffer per launch, except the step
 kernels (mul014, dbl_step, add_step) and pt_add, which take one pointer per
-operand.
+operand.  xmd takes uint8 (B, L) message bytes and int32 (B,) lengths.
 A tensor on the
 CPU goes to the kernel's plain PyTorch version (ops/fp.py, ops/tower.py,
 ops/curve.py, ops/hash_to_g2.py, ops/pairing.py); a CUDA
@@ -42,7 +44,7 @@ PKG_DIR = pathlib.Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "build"
 UNITS = ("field_kernels.cu", "pairing_kernels.cu", "hash_kernels.cu",
-         "point_kernels.cu")  # one nvcc each
+         "point_kernels.cu", "xmd_kernels.cu")  # one nvcc each
 SOURCES = ("field.cuh", "tower.cuh", "group.cuh", "group_rounds.cuh", "lanes.cuh", *UNITS)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -53,7 +55,7 @@ KERNELS = (
     "fp12_mul", "fp12_sqr", "miller_dbl_run", "miller_add", "exp_x",
     "pow_win", "pt_mul_const", "g2_cofactor", "sswu_map2",
     "pt_dbl", "pt_add", "pt_mul_var",
-    "mul014", "dbl_step", "add_step", "cyclo_sqr",
+    "mul014", "dbl_step", "add_step", "cyclo_sqr", "xmd",
 )
 MILLER_PAIRS = (1, 2)  # pair counts of a Miller launch (csrc/pairing_kernels.cu)
 SCALAR_LIMBS = 16  # raw Fr scalar limbs of pt_mul_var (csrc/point_kernels.cu)
@@ -174,6 +176,7 @@ def _declare(lib, names=KERNELS):
         "dbl_step": [vp, vp, vp, i64, vp, u32, vp],
         "add_step": [vp, vp, vp, vp, i64, vp, u32, vp],
         "cyclo_sqr": [vp, vp, i64, i32, vp, u32, vp],
+        "xmd": [vp, vp, i64, i32, vp, i32, i32, i32, vp, vp],
         "launch_floor": [u32, i32, vp],
     }
     for name in names:
@@ -684,3 +687,54 @@ def pt_mul_var(field, p, scalars, nbits: int):
                          f"{scalars.dtype} {tuple(scalars.shape)} on {scalars.device}")
     return _packed_launch("pt_mul_var", field, p, 3 * c, 3 * c, c, nbits,
                           _mont_words(field, [1]), aux=scalars.contiguous())
+
+
+# ----------------------------------------------------------------------------
+# expand_message_xmd (csrc/xmd_kernels.cu)
+# ----------------------------------------------------------------------------
+
+def xmd(msg, lens, dst: bytes, len_in_bytes: int):
+    """expand_message_xmd (RFC 9380 sec 5.3.1, SHA-256) of each row of the
+    (..., L) message bytes -> (..., len_in_bytes) uint8: b0 and the b_1 ..
+    b_ell chain in one launch.  `lens`: (...,) byte lengths in 0..L, each
+    row being its first lens bytes, or None for L each.  Replaces no
+    Pallas kernel (the JAX package's jnp SHA-256 and XMD, which XLA
+    fuses)."""
+    width = msg.shape[-1]
+    if lens is not None:
+        if tuple(lens.shape) != tuple(msg.shape[:-1]) or lens.device != msg.device:
+            raise ValueError(f"expected lens of shape {tuple(msg.shape[:-1])} on {msg.device}, "
+                             f"got {tuple(lens.shape)} on {lens.device}")
+        if lens.numel() and bool(((lens < 0) | (lens > width)).any()):
+            raise ValueError(f"message lengths must lie in 0..{width}")
+    from . import hash_to_g2
+
+    if msg.device.type == "cpu":
+        return hash_to_g2.xmd_plain(msg, lens, dst, len_in_bytes)
+    if msg.device.type != "cuda" or msg.dtype != torch.uint8:
+        raise ValueError(f"xmd takes CPU tensors or CUDA uint8 ones, got {msg.dtype} on "
+                         f"{msg.device}")
+    if msg.device.index != torch.cuda.current_device():
+        raise ValueError(f"operands on {msg.device}, current device is "
+                         f"cuda:{torch.cuda.current_device()}")
+    rows = msg.reshape(-1, width).contiguous()
+    n = rows.shape[0]
+    out = torch.empty((n, len_in_bytes), dtype=torch.uint8, device=msg.device)
+    if n:
+        lens32 = None if lens is None else lens.reshape(-1).to(torch.int32).contiguous()
+        _xmd_launch(library().bls_xmd, rows, lens32, dst, len_in_bytes, out)
+        COUNTS.record("xmd", n)
+    return out.reshape(*msg.shape[:-1], len_in_bytes)
+
+
+def _xmd_launch(fn, rows, lens32, dst: bytes, len_in_bytes: int, out):
+    """Launch bls_xmd `fn` on checked operands: rows (n, L) uint8 and
+    lens32 (n,) int32 or None, contiguous, on the current device; out (n,
+    len_in_bytes) uint8.  No host sync, so a CUDA graph can capture it
+    once the table for (dst, len_in_bytes) is cached."""
+    from . import hash_to_g2
+
+    table, tlen, nbi = hash_to_g2.xmd_table(dst, len_in_bytes, rows.device)
+    _check_rc("xmd", fn(rows.data_ptr(), None if lens32 is None else lens32.data_ptr(),
+                        rows.shape[0], rows.shape[1], table.data_ptr(), tlen, nbi,
+                        len_in_bytes, out.data_ptr(), _stream(rows)))

@@ -1,10 +1,12 @@
 """Batched SHA-256 in plain PyTorch, message-parallel (counterpart of the
-JAX package's ops/sha256.py fixed-length path).
+JAX package's ops/sha256.py): the plain versions that the CPU path runs
+and that the xmd kernel (csrc/xmd_kernels.cu) is held to.
 
 Words are int64 tensors holding 32-bit values; every sum is masked with
 & 0xFFFFFFFF, so no signed-32-bit wrap is needed.  Input layout:
-(..., nblocks, 16) big-endian message words, already padded.  All
-messages of a batch share one byte length.
+(..., nblocks, 16) big-endian message words, already padded.
+sha256_bytes hashes messages of one byte length; sha256_bytes_var takes
+per-element lengths.
 """
 
 import torch
@@ -74,3 +76,37 @@ def words_to_bytes(words):
 def sha256_bytes(data_u8, msg_len: int):
     """(..., msg_len) byte tensor -> (..., 32) digest bytes (int64)."""
     return words_to_bytes(sha256_words(bytes_to_padded_words(data_u8, msg_len)))
+
+
+def sha256_bytes_var(data_u8, lens, max_len: int):
+    """Variable-length batched SHA-256, the JAX package's form: every
+    element pays the block count of max_len, and its padding and the pick
+    of its final state are masks and a gather.
+
+    data_u8: (..., max_len) byte values (bytes past an element's length are
+    ignored); lens: (...,) integer byte lengths <= max_len.  Returns
+    (..., 32) digest bytes (int64)."""
+    nb = (max_len + 8) // 64 + 1
+    total = nb * 64
+    batch, dev = data_u8.shape[:-1], data_u8.device
+    n = lens.to(device=dev, dtype=torch.int64)[..., None]
+    buf = torch.cat([data_u8.to(torch.int64),
+                     torch.zeros(batch + (total - max_len,), dtype=torch.int64, device=dev)], -1)
+    iota = torch.arange(total, device=dev)
+    buf = torch.where(iota < n, buf, 0)
+    buf = torch.where(iota == n, 0x80, buf)
+    # each element's 8 big-endian bit-length bytes end its own final block
+    pos0 = ((n + 8) // 64 + 1) * 64 - 8
+    in_len = (iota >= pos0) & (iota < pos0 + 8)
+    shift = torch.where(in_len, (pos0 + 7 - iota) * 8, 0)
+    buf = torch.where(in_len, ((n * 8) >> shift) & 0xFF, buf)
+    b = buf.reshape(batch + (nb, 16, 4))
+    words = (b[..., 0] << 24) | (b[..., 1] << 16) | (b[..., 2] << 8) | b[..., 3]
+    iv = torch.tensor(SHA256_IV, dtype=torch.int64, device=dev)
+    state, states = iv.expand(batch + (8,)), []
+    for blk in words.unbind(-2):
+        state = _compress(state, blk)
+        states.append(state)
+    sel = ((n + 8) // 64)[..., None].expand(batch + (1, 8))
+    digest = torch.stack(states, -2).gather(-2, sel)[..., 0, :]
+    return words_to_bytes(digest)

@@ -5,15 +5,16 @@
 
 Needs one CUDA card and nvcc.  Phases, each fatal on failure:
   1. device   -- card name and power limit (nvidia-smi), torch's name;
-  2. build    -- nvcc builds the 22 kernels from csrc/ (one nvcc per
-     source, all at once) and prints ptxas's register/stack/spill report;
+  2. build    -- nvcc builds the 23 kernels from csrc/ (one nvcc per
+     source, all at once) and prints ptxas's register/stack/spill report
+     (xmd's must show no stack and no spill);
   3. main path -- BatchedBLS(device="cuda").verify at batch 4096 with
      32-byte messages: the decodable verify vectors tiled, plus tampered-
      message and identity-pk probes.  One warm-up run, then timed runs;
      launch counters are zeroed just before the first timed run and read
      just after it: every kernel must have launched, the fused kernels
-     the expected number of times (KERNELS); every element must equal its
-     expected result.  Then the hash stage split into its parts (XMD +
+     and xmd the expected number of times (KERNELS); every element must
+     equal its expected result.  Then the hash stage split into its parts (XMD +
      hash_to_field, sswu_map2, g2_cofactor, pt_to_affine), each closed by
      a synchronize, and its result held to hash_stage's;
   4. profile  -- one torch.profiler run over one verify batch, each part
@@ -29,7 +30,7 @@ Needs one CUDA card and nvcc.  Phases, each fatal on failure:
      pairs (its one-pair Miller launches at 4096 elements), and a doubling
      of the pubkeys (CV.pt_double).  Launch counters are zeroed just
      before and read just after that run: every kernel must have launched,
-     pt_mul_var, pt_add and pt_dbl the expected number of times.  Then the
+     pt_mul_var, pt_add, pt_dbl and xmd the expected number of times.  Then the
      checks: the sign/ vectors byte for byte (g2_compress), key 0 invalid,
      every valid (pk, msg, sig) true through verify and false with a
      tampered message, the aggregate/ and fast_aggregate_verify/ vectors,
@@ -37,24 +38,39 @@ Needs one CUDA card and nvcc.  Phases, each fatal on failure:
      aggregate false with two messages swapped; then ms and launches per
      call of each entry point.  Neither default path may launch a
      step-wise kernel;
-  6. steps    -- the step-wise pairing configuration (config.fuse_miller
+  6. mixed    -- the mixed-length message path at batch 4096: the decodable
+     verify vectors, then messages signed with the keys phase's keys (the
+     sign/ vectors' messages, the RFC 9380 K.1 messages, every length at
+     which msg' gains a block and seeded lengths up to 256), zero-padded
+     to the longest, with per-element lengths.  sign(msg_lens=) and
+     verify(msg_lens=) are counted apart (counters zeroed just before each
+     and read just after): each launches what the keys phase's sign and
+     the main path's verify launch.  Checks: the sign/ vectors byte for
+     byte, each verify vector's expected output and true for every valid
+     port-signed element, all false with a byte flipped inside each
+     element's length and with each length changed by one, H(m) of the
+     32-byte elements equal to the fixed-length path's; then the verify
+     wall and verifications/s interleaved with the main path's
+     fixed-length verify;
+  7. steps    -- the step-wise pairing configuration (config.fuse_miller
      and fuse_expx off, restored however the phase ends) on the main
      path's batch: a warm-up verify that records the step kernels'
      operands, miller_stage's f and its final exponentiation limb-equal to
      the fused path's, one counted verify (counters zeroed just before,
-     read just after: 423 launches, the default's less the 16 run and
+     read just after: 424 launches, the default's less the 16 run and
      exp_x launches, plus 63 dbl_step and 5 add_step at 8192, 136 mul014
      and 63 more fp12_sqr at 4096, 30 cyclo_sqr at the run lengths of |x|
      and 25 more fp12_mul), every result as expected, then the stage times
      and verifications/s of the step-wise and the fused path in
      interleaved runs; then aggregate_verify_distinct over the keys
-     phase's 4095 pairs, recorded, counted (367 launches: the fused call's
+     phase's 4095 pairs, recorded, counted (368 launches: the fused call's
      launches with the same changes for one pair at 4096, the x-chains at
      batch 1), true, false with two messages swapped, and timed
      interleaved with the fused path;
-  7. kernels  -- each kernel against its plain PyTorch version on the same
+  8. kernels  -- each kernel against its plain PyTorch version on the same
      CUDA tensors, bit for bit, at every element count that the verify
-     run, the keys run or a steps run launched it with (a kernel launched
+     run, the keys run, the mixed run or a steps run launched it with (a
+     kernel launched
      at a count no case covers fails the run), with the launch counters
      unmoved by every plain call (the plain versions launch no kernel of
      the port): the field and
@@ -74,7 +90,11 @@ Needs one CUDA card and nvcc.  Phases, each fatal on failure:
      pairs stacked at 8192 and one pair at 4096, cyclo_sqr on cyclotomic
      elements at every run length at 4096 and 1) and on seeded random ones
      (mul014 with a quarter of the lines neutral, cyclo_sqr at every run
-     length at 4096 and 1);
+     length at 4096 and 1); xmd on each path's messages (the verify
+     batch, the keys run's 4096 and 4095, the mixed batch with its
+     lengths), also against a host hashlib XMD element by element, on the
+     RFC 9380 K.1 vectors with their DST, and with a 255-byte DST and 77
+     bytes out;
      mul, add and sub (Fp and Fr), fp2_mul and fp2_sqr also on edge
      operands (0, 1, m - 1, the Montgomery one, a = b, borrows and carries
      across every word and lane; for mul 2^384 - 1 by R^2 and R^3 and 2p -
@@ -84,10 +104,11 @@ Needs one CUDA card and nvcc.  Phases, each fatal on failure:
      plain time from CUDA events (a mean of 3 calls for the field kernels;
      the slow plain versions of the others: their one comparison call at
      the main size), and the bound from bytes and
-     integer multiply-adds; the launch floor: an empty kernel
+     integer multiply-adds (xmd: SHA-256's 32-bit integer instructions);
+     the launch floor: an empty kernel
      (launch_floor_kernel) timed the same way at 1 block and on each field
      kernel's grid;
-  8. group    -- the group kernels (csrc/group.cuh): miller_dbl_run (k =
+  9. group    -- the group kernels (csrc/group.cuh): miller_dbl_run (k =
      1 and 2) and exp_x at 4096 and 4095 elements with mixed valid masks,
      fp12_mul at 4096, 4095 and 1, fp6_mul at 8192, 8191, 2 and 1 and
      fp12_sqr at 4096, 4095 and 1 (edge values in elements 0-4),
@@ -134,7 +155,7 @@ Needs one CUDA card and nvcc.  Phases, each fatal on failure:
      parent).
      ptxas's registers, stack and spills and the shared memory per block of
      each group kernel instance are printed under [build];
-  9. field    -- the staged field kernels (csrc/field_kernels.cu mul, add,
+ 10. field    -- the staged field kernels (csrc/field_kernels.cu mul, add,
      sub, fp2_mul and fp2_sqr): fp2_mul at 8192, 4096 and 1 elements,
      fp2_sqr at 4096, 8192 and 1, mul in Fp at 8192, 4096 and 1 and in Fr
      at 8192 and 1, add and sub in Fp at 4096, 8192 and 1 and in Fr at
@@ -157,11 +178,12 @@ its last line {"ok": true, "device": {...}}.  Imports nothing of JAX.
     python3 chip_smoke.py --group [--parent DIR]
     python3 chip_smoke.py --field [--parent DIR]
 
-run only phases 1, 2 and 8 (the group kernels' checks, sweep and
-timing) or 1, 2 and 9 (the staged field kernels'), and start only the
+run only phases 1, 2 and 9 (the group kernels' checks, sweep and
+timing) or 1, 2 and 10 (the staged field kernels'), and start only the
 builds of that phase.
 """
 
+import collections
 import json
 import pathlib
 import re
@@ -177,15 +199,24 @@ TIMED_RUNS = 3
 
 # bytes/s and int32 multiply-adds/s of one H100 SXM: 3.35 TB/s HBM, and the
 # 67 TFLOP/s fp32 rate (an FMA counted as 2 flops) halved, since a Hopper
-# SM has 64 INT32 lanes against 128 FP32 lanes
+# SM has 64 INT32 lanes against 128 FP32 lanes: 132 SMs x 64 lanes x 1.98
+# GHz, one 32-bit integer instruction (IMAD, IADD3, LOP3, SHF) per lane per
+# clock
 HBM_BYTES_PER_S = 3.35e12
 INT32_MAD_PER_S = 67e12 / 2 / 2
 MAD_PER_MONT = 600  # 12x12 word products for a*b and for m*p, lo + hi each
+# 32-bit integer instructions of one SHA-256 compression whose state and
+# block differ in every word between elements: 64 rounds of 14 (3 SHF and a
+# LOP3 per Sigma, a LOP3 each for ch and maj, 4 IADD3), 48 schedule words
+# of 10 (3 SHF and a LOP3 per sigma, 2 IADD3), 8 adds (csrc/xmd_kernels.cu);
+# sha_compression_ops counts fewer where words are the same for all
+OPS_PER_COMPRESSION = 64 * 14 + 48 * 10 + 8
 
 FIELD_SRC = "bls_verify_gadget_tpu_torch/csrc/field_kernels.cu"
 PAIRING_SRC = "bls_verify_gadget_tpu_torch/csrc/pairing_kernels.cu"
 HASH_SRC = "bls_verify_gadget_tpu_torch/csrc/hash_kernels.cu"
 POINT_SRC = "bls_verify_gadget_tpu_torch/csrc/point_kernels.cu"
+XMD_SRC = "bls_verify_gadget_tpu_torch/csrc/xmd_kernels.cu"
 TPU_KERNELS = "bls_verify_gadget_tpu/ops/pallas/kernels.py"
 # name -> (TPU kernel replaced, source, launches per verify expected or None)
 KERNELS = {
@@ -214,6 +245,9 @@ KERNELS = {
     "dbl_step": (f"{TPU_KERNELS}:646", PAIRING_SRC, 0),
     "add_step": (f"{TPU_KERNELS}:688", PAIRING_SRC, 0),
     "cyclo_sqr": (f"{TPU_KERNELS}:1412", PAIRING_SRC, 0),
+    # not a TPU kernel: the port's counterpart of the jnp code XLA fuses
+    "xmd": ("none: the JAX package's jnp SHA-256/XMD (bls_verify_gadget_tpu/ops/sha256.py:28, "
+            "bls_verify_gadget_tpu/ops/hash_to_g2.py:143)", XMD_SRC, 1),
 }
 STEP_KERNELS = ("mul014", "dbl_step", "add_step", "cyclo_sqr")
 # launches of the step-wise configuration less the default's, per Miller
@@ -250,16 +284,18 @@ def build_phase(K):
             log(f"[build] {line.strip()}")
     group_build_report(so.with_suffix(".log"), "library")
     field_build_report(so.with_suffix(".log"), "library")
+    xmd_build_report(so.with_suffix(".log"), "library")
 
 
 def unhex(s):
     return bytes.fromhex(s[2:] if s.startswith("0x") else s)
 
 
-def load_cases():
+def verify_vectors():
+    """(pk, sig, msg, expected) of every decodable verify/ vector."""
     from bls_verify_gadget_tpu_torch.golden import codec
 
-    cases = []
+    out = []
     for path in sorted((ROOT / "tests" / "vectors" / "verify").glob("*.json")):
         vec = json.loads(path.read_text())
         try:
@@ -267,11 +303,17 @@ def load_cases():
             sig = codec.g2_decompress(unhex(vec["input"]["signature"]))
         except ValueError:
             continue
-        msg = unhex(vec["input"]["message"])
+        out.append((pk, sig, unhex(vec["input"]["message"]), bool(vec["output"])))
+    return out
+
+
+def load_cases():
+    cases = []
+    for pk, sig, msg, ok in verify_vectors():
         if len(msg) != MSG_LEN:
             continue
-        cases.append((pk, sig, msg, bool(vec["output"])))
-        if vec["output"]:
+        cases.append((pk, sig, msg, ok))
+        if ok:
             tampered = bytes([msg[0] ^ 1]) + msg[1:]
             cases.append((pk, sig, tampered, False))
             cases.append((None, sig, msg, False))
@@ -626,11 +668,11 @@ def keys_phase(torch, K):
     stray = {k: launches[k] for k in STEP_KERNELS if launches[k]}
     if stray:
         raise RuntimeError(f"step-wise kernels launched in the default configuration: {stray}")
-    want_n = {"pt_mul_var": 2, "pt_dbl": 1,
+    want_n = {"pt_mul_var": 2, "pt_dbl": 1, "xmd": 2,  # xmd: sign's hash, the distinct pairs'
               "pt_add": 2 * tree_levels(BATCH) + tree_levels(COMMITTEE)}
     off = {k: launches[k] for k, n in want_n.items() if launches[k] != n}
     if off:
-        raise RuntimeError(f"point kernels launched other than expected {want_n}: {off}")
+        raise RuntimeError(f"point kernels and xmd launched other than expected {want_n}: {off}")
     log(f"[keys] counted run {run_s:.3f} s; launches: {launches} (total {sum(launches.values())})")
     log(f"[keys] element counts per kernel: "
         f"{ {k: dict(sorted(v.items())) for k, v in sizes.items()} }")
@@ -700,7 +742,7 @@ def keys_phase(torch, K):
             torch.cuda.synchronize()
             ms.append((time.perf_counter() - t0) * 1e3)
         n_launch = sum(K.COUNTS.launches.values())
-        per_call[name] = (sum(ms) / len(ms), n_launch)
+        per_call[name] = (sum(ms) / len(ms), n_launch, dict(K.COUNTS.launches))
         log(f"[keys] {name}: mean {per_call[name][0]:.3f} ms ({[round(x, 3) for x in ms]}), "
             f"{n_launch} port launches per call")
     sign_ms = per_call["sign"][0]
@@ -711,7 +753,154 @@ def keys_phase(torch, K):
             "gen": gen, "bls": bls, "pk_valid": take(pk, idx), "pk_aff": out["pk_aff"],
             "asig": batch_of_one(out["asig"]), "sig_aff": out["sig_aff"],
             "pair_msg": pair_msg, "swapped_msg": swapped, "committee_pk": take(pk, committee),
-            "bitmap": bitmap}
+            "bitmap": bitmap, "msg": msg, "keys": keys, "vectors": vectors,
+            "sign_launches": per_call["sign"][2]}
+
+
+# ----------------------------------------------------------------------------
+# mixed phase: messages of many lengths in one batch (msg_lens)
+# ----------------------------------------------------------------------------
+
+RFC_DST = b"QUUX-V01-CS02-with-expander-SHA256-128"
+RFC_XMD = [  # RFC 9380 K.1, expand_message_xmd(msg, RFC_DST, 0x20)
+    (b"", "68a985b87eb6b46952128911f2a4412bbc302a9d759667f87f7a21d803f07235"),
+    (b"abc", "d8ccab23b5985ccea865c6c97b6e5b8350e794e603b4b97902f53a8a0d605615"),
+    (b"abcdef0123456789", "eff31487c770a893cfb36f912fbfcbff40d5661771ca4b2cb4eafe524333f5c1"),
+    (b"q128_" + b"q" * 128, "b23a1d2b4d97b2ef7785562a7e8bac7eed54ed6e97e29aa51bfe3f12ddad1ff9"),
+    (b"a512_" + b"a" * 512, "4623227bcc01293b8c130bf771da8c298dede7383243dc0993d2d94823958c4c"),
+]
+# message lengths at which msg' (64 + len + 47 bytes with DST_G2) or the
+# padding of a SHA-256 input gains a block, and the ends of 0..256
+EDGE_LENS = (0, 1, 8, 9, 55, 56, 63, 64, 72, 73, 119, 120, 136, 137, 200, 201, 255, 256)
+
+
+def host_xmd(msg: bytes, dst: bytes, len_in_bytes: int) -> bytes:
+    """expand_message_xmd with hashlib (RFC 9380 sec 5.3.1)."""
+    import hashlib
+
+    dst_prime = dst + bytes([len(dst)])
+    b0 = hashlib.sha256(bytes(64) + msg + len_in_bytes.to_bytes(2, "big") + b"\x00"
+                        + dst_prime).digest()
+    out, prev = b"", bytes(32)
+    for i in range(1, -(-len_in_bytes // 32) + 1):
+        prev = hashlib.sha256(bytes(a ^ b for a, b in zip(b0, prev)) + bytes([i])
+                              + dst_prime).digest()
+        out += prev
+    return out[:len_in_bytes]
+
+
+def cat_tree(torch, a, b):
+    """Two point or affine tuples (nested tensors) joined on the batch axis."""
+    if isinstance(a, tuple):
+        return tuple(cat_tree(torch, x, y) for x, y in zip(a, b))
+    return torch.cat([a, b])
+
+
+def mixed_phase(torch, K, ctx, want, keys, main_launches):
+    """The mixed-length path at BATCH messages (module docstring, phase 6),
+    counted, checked and timed interleaved with the main path's
+    fixed-length verify.  -> its launches, element counts and operands for
+    the kernel rows."""
+    import numpy as np
+
+    from bls_verify_gadget_tpu_torch.golden import codec
+    from bls_verify_gadget_tpu_torch.models.bls import (
+        encode_messages_var, encode_pubkeys, encode_signatures,
+    )
+    from bls_verify_gadget_tpu_torch.ops import curve as CV
+
+    bls = keys["bls"]
+    vecs = verify_vectors()
+    nv = len(vecs)
+    rng = np.random.default_rng(SEED + 4)
+    # element nv + j is signed with the keys phase's key j: the sign/
+    # vectors' keys and messages first, then the RFC messages and the edge
+    # lengths, then seeded lengths; the vectors' elements take the last keys
+    nsign = len(keys["vectors"])
+    kmsgs = [bytes(m) for m in keys["msg"][:nsign].cpu().numpy()]
+    kmsgs += [m for m, _ in RFC_XMD] + [rng.bytes(n) for n in EDGE_LENS]
+    kmsgs += [rng.bytes(int(n)) for n in rng.integers(0, 257, BATCH - nv - len(kmsgs))]
+    msgs = [v[2] for v in vecs] + kmsgs
+    msg, lens, width = encode_messages_var(msgs)
+    order = torch.arange(BATCH, device="cuda").roll(nv)  # element i <- key order[i]
+    sk = keys["sk"][order]
+    valid_key = torch.tensor([k != 0 for k in keys["keys"]], device="cuda")[order]
+    pk_aff = CV.pt_to_affine(CV.FP_OPS, take(keys["pk"], order[nv:]))
+    pk_aff = cat_tree(torch, encode_pubkeys([v[0] for v in vecs]), pk_aff)
+    expect = torch.cat([torch.tensor([v[3] for v in vecs], device="cuda"), valid_key[nv:]])
+
+    def sign():
+        return bls.sign(sk, msg, width, msg_lens=lens)
+
+    def sig_aff(sig):
+        port = CV.pt_to_affine(CV.FP2_OPS, take(sig, slice(nv, None)))
+        return cat_tree(torch, encode_signatures([v[1] for v in vecs]), port)
+
+    def verify(m=msg, n=lens, sig=None):
+        return bls.verify(pk_aff, sig, m, width, msg_lens=n)
+
+    (sig, valid), launches_s, sizes_s = counted(torch, K, sign)
+    sig_v = sig_aff(sig)
+    out, launches_v, sizes_v = counted(torch, K, lambda: verify(sig=sig_v))
+    off = {k: (launches_s[k], keys["sign_launches"][k]) for k in launches_s
+           if launches_s[k] != keys["sign_launches"][k]}
+    off.update({k: (launches_v[k], main_launches[k]) for k in launches_v
+                if launches_v[k] != main_launches[k]})
+    if off:
+        raise RuntimeError(f"mixed sign / verify launches other than the fixed-length "
+                           f"path's, (got, want): {off}")
+    launches = {k: launches_s[k] + launches_v[k] for k in launches_s}
+    sizes = {k: {n: sizes_s[k].get(n, 0) + sizes_v[k].get(n, 0)
+                 for n in {*sizes_s[k], *sizes_v[k]}} for k in sizes_s}
+    if not torch.equal(valid, valid_key):
+        raise RuntimeError("mixed sign's valid mask is not 'key != 0'")
+    vsig = CV.g2_decode(take(sig, torch.arange(nv, nv + nsign, device="cuda")))
+    bad = [i for (i, want_b), got in zip(keys["vectors"], vsig) if codec.g2_compress(got) != want_b]
+    if bad:
+        raise RuntimeError(f"sign/ vectors inside the mixed batch at {bad} differ from their bytes")
+    if not torch.equal(out, expect):
+        raise RuntimeError(f"mixed verify: {int((out != expect).sum())} wrong results")
+    flipped = msg.clone()
+    live = lens > 0
+    rows = torch.arange(BATCH, device="cuda")[live]
+    flipped[rows, (rows * 7919) % lens[live]] ^= 1
+    if verify(flipped, sig=sig_v)[live].any():
+        raise RuntimeError("mixed verify accepts a message with a byte flipped")
+    moved = torch.where(lens < width, lens + 1, lens - 1)
+    if verify(msg, moved, sig_v).any():
+        raise RuntimeError("mixed verify accepts a length changed by one")
+    idx = (lens == MSG_LEN).nonzero().squeeze(1)
+    h_mixed = take(bls.hash_to_g2(msg, width, msg_lens=lens), idx)
+    if max_err(h_mixed, bls.hash_to_g2(msg[idx, :MSG_LEN].contiguous())) != 0:
+        raise RuntimeError("H(m) of the 32-byte elements differs from the fixed-length path's")
+    n_true = int(expect.sum())
+    log(f"[mixed] {BATCH} messages of lengths {int(lens.min())}..{int(lens.max())} padded to "
+        f"{width} ({nv} verify vectors, {nsign} sign/ vectors, {len(RFC_XMD)} RFC 9380 K.1 "
+        f"messages, {len(EDGE_LENS)} edge lengths): sign {sum(launches_s.values())} and verify "
+        f"{sum(launches_v.values())} port launches, each the fixed-length path's; sign/ "
+        f"vectors byte for byte; verify right ({n_true} true); all false with a byte flipped "
+        f"({int(live.sum())} elements) and with each length moved by one; H(m) of the "
+        f"{len(idx)} 32-byte elements equal to the fixed-length path's")
+
+    times = {"mixed": [], "fixed": []}
+    runs = {"mixed": lambda: verify(sig=sig_v),
+            "fixed": lambda: bls.verify(ctx["pk"], ctx["sig"], ctx["msg"], MSG_LEN)}
+    wants = {"mixed": expect, "fixed": want}
+    for i in range(TIMED_RUNS):
+        for which in (("mixed", "fixed") if i % 2 == 0 else ("fixed", "mixed")):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = runs[which]()
+            torch.cuda.synchronize()
+            times[which].append(time.perf_counter() - t0)
+            if not torch.equal(res, wants[which]):
+                raise RuntimeError(f"timed {which} verify wrong")
+    for which, ts in times.items():
+        mean = sum(ts) / len(ts)
+        log(f"[mixed] {which} verify, {TIMED_RUNS} runs interleaved: wall s "
+            f"{[round(t, 6) for t in ts]}; mean {mean:.6f} s = {BATCH / mean:.1f} "
+            f"verifications/s")
+    return {"launches": launches, "sizes": sizes, "msg": msg, "lens": lens}
 
 
 # ----------------------------------------------------------------------------
@@ -777,7 +966,7 @@ def check_sizes(path, sizes, want):
 def steps_phase(torch, K, ctx, want, main_launches, keys):
     """The step-wise configuration (config.fuse_miller and fuse_expx off)
     on the main path's batch and on the keys phase's 4095 pairs (module
-    docstring, phase 6); the configuration is restored however the phase
+    docstring, phase 7); the configuration is restored however the phase
     ends.  -> launches, element counts and recorded operands of its counted
     runs, per path ("steps": verify, "steps_avd":
     aggregate_verify_distinct), for the kernel rows."""
@@ -830,7 +1019,7 @@ def steps_phase(torch, K, ctx, want, main_launches, keys):
         out, launches, sizes = counted(torch, K, verify)
         if not torch.equal(out, want):
             raise RuntimeError(f"counted step-wise verify: {int((out != want).sum())} wrong")
-        check_step_launches("verify", launches, main_launches, 2, 423)
+        check_step_launches("verify", launches, main_launches, 2, 424)
         check_sizes("verify", sizes, {
             "dbl_step": {2 * BATCH: 63}, "add_step": {2 * BATCH: 5}, "mul014": {BATCH: 136},
             "fp12_sqr": {BATCH: 64}, "cyclo_sqr": {BATCH: 30}, "miller_dbl_run": {},
@@ -868,7 +1057,7 @@ def steps_phase(torch, K, ctx, want, main_launches, keys):
         ok, launches_f, _ = counted(torch, K, lambda: distinct(keys["pair_msg"]))
         if not ok:
             raise RuntimeError("aggregate_verify_distinct rejects the valid pairs")
-        check_step_launches("aggregate_verify_distinct", launches_a, launches_f, 1, 367)
+        check_step_launches("aggregate_verify_distinct", launches_a, launches_f, 1, 368)
         n = keys["pair_msg"].shape[0] + 1
         check_sizes("aggregate_verify_distinct", sizes_a, {
             "dbl_step": {n: 63}, "add_step": {n: 5}, "mul014": {n: 68},
@@ -1001,8 +1190,10 @@ def kernel_call(name):
         "sswu_map2": H.sswu_map2_plain, "pt_dbl": CV.pt_dbl_plain,
         "pt_add": CV.pt_add_plain, "pt_mul_var": CV.pt_mul_var_plain,
         "mul014": PR.mul014_plain, "dbl_step": PR.dbl_step_plain,
-        "add_step": PR.add_step_plain, "cyclo_sqr": T.cyclo_sqr_plain,
+        "add_step": PR.add_step_plain, "cyclo_sqr": T.cyclo_sqr_plain, "xmd": H.xmd_plain,
     }[name]
+    if name == "xmd":  # no field argument
+        return K.xmd, plain
     return (lambda *a: getattr(K, name)(FP, *a)), plain
 
 
@@ -1252,6 +1443,49 @@ def keys_hash_cases(torch, keys):
     }
 
 
+def xmd_cases(torch, ctx, keys, mixed):
+    """[(label, args, launches per run, path)] of xmd: each path's messages
+    as it passed them (the verify batch; sign's 4096 and
+    aggregate_verify_distinct's 4095 in the keys run; the mixed batch with
+    its lengths, sign's and verify's launch), then the RFC 9380 K.1
+    messages with their DST and 0x20 bytes out, and the mixed batch with a
+    255-byte DST and 77 bytes out (the widest table, 5 blocks per b_i,
+    stores byte by byte)."""
+    from bls_verify_gadget_tpu_torch import constants as C
+    from bls_verify_gadget_tpu_torch.models.bls import encode_messages_var
+
+    rfc, rlens, _ = encode_messages_var([m for m, _ in RFC_XMD])
+    out = 4 * C.L_FIELD  # hash_to_field's two Fp2 elements
+    return [
+        ("verify: the main path's messages", (ctx["msg"], None, C.DST_G2, out), 1, "verify"),
+        ("keys: sign's messages", (keys["msg"], None, C.DST_G2, out), 1, "keys"),
+        ("keys: aggregate_verify_distinct's messages", (keys["pair_msg"], None, C.DST_G2, out),
+         1, "keys"),
+        ("mixed: sign's and verify's messages", (mixed["msg"], mixed["lens"], C.DST_G2, out), 2,
+         "mixed"),
+        ("RFC 9380 K.1, 0x20 bytes", (rfc, rlens, RFC_DST, 0x20), 0, "mixed"),
+        ("mixed batch, 255-byte DST, 77 bytes", (mixed["msg"], mixed["lens"],
+                                                 bytes(range(1, 256)), 77), 0, "mixed"),
+    ]
+
+
+def xmd_host_checks(torch, K, cases):
+    """Every element of every xmd case equal to a hashlib XMD on the host;
+    the RFC case also equal to the vectors' bytes."""
+    for label, (msg, lens, dst, nbytes), _, _ in cases:
+        got = K.xmd(msg, lens, dst, nbytes).cpu().numpy()
+        rows = msg.cpu().numpy()
+        n = [rows.shape[1]] * len(rows) if lens is None else lens.tolist()
+        bad = [i for i, (r, m, g) in enumerate(zip(rows, n, got))
+               if bytes(g) != host_xmd(bytes(r[:m]), dst, nbytes)]
+        if bad:
+            raise RuntimeError(f"xmd ({label}) differs from hashlib's XMD at elements {bad[:8]}")
+        if dst == RFC_DST and [bytes(g).hex() for g in got] != [h for _, h in RFC_XMD]:
+            raise RuntimeError("xmd differs from the RFC 9380 K.1 vectors")
+    log(f"[kernel] xmd equal to hashlib's XMD on every element of its {len(cases)} cases "
+        f"({sum(c[1][0].shape[0] for c in cases)} messages), and to the RFC 9380 K.1 vectors")
+
+
 def flat_outputs(out):
     """A wrapper's result (a tensor or nested tuples of them) as a list."""
     if not isinstance(out, tuple):
@@ -1294,11 +1528,105 @@ def device_ms(torch, fn, args, reps=20, replays=5):
     return start.elapsed_time(end) / (reps * replays)
 
 
+def _iadd3(var, folded):
+    """IADD3s that sum `var` terms that differ between elements and, if
+    `folded`, one term that does not (the sum of the shared ones)."""
+    return (var + folded) // 2 if var else 0
+
+
+def sha_compression_ops(state, words):
+    """32-bit integer instructions of one SHA-256 compression that depend on
+    the element, for a state and a block given as 8 and 16 flags (1: the
+    word differs between elements; 0: it is the same for all, so what it
+    alone decides is computed once and not counted) -> (instructions, the
+    state's flags after it).  Every flag 1: OPS_PER_COMPRESSION; a shared
+    block on a varying state: 64 * 14 + 8 (its schedule is shared)."""
+    (a, b, c, d, e, f, g, h), w = state, list(words)
+    ops = 0
+    for t in range(64):
+        if t >= 16:  # W_t = sigma1(W_t-2) + W_t-7 + sigma0(W_t-15) + W_t-16
+            w15, w2, w7, w16 = w[(t - 15) % 16], w[(t - 2) % 16], w[(t - 7) % 16], w[t % 16]
+            var = w15 + w2 + w7 + w16
+            ops += 4 * (w15 + w2) + _iadd3(var, int(var < 4))
+            w[t % 16] = int(var > 0)
+        efg, abc = e | f | g, a | b | c
+        v1 = h + e + efg + w[t % 16]  # T1 = h + Sigma1(e) + ch + K_t + W_t
+        t1 = int(v1 > 0)
+        # e' = d + T1 (a shared d folds into T1's shared term), a' = T1 + Sigma0(a) + maj
+        ops += 4 * e + efg + 4 * a + abc + _iadd3(v1, 1) + (d & t1) + _iadd3(t1 + abc, 0)
+        a, b, c, d, e, f, g, h = t1 | abc, a, b, c, d | t1, e, f, g
+    out = [x | y for x, y in zip(state, (a, b, c, d, e, f, g, h))]
+    return ops + sum(out), out
+
+
+def xmd_b0_flags(m, tlen):
+    """The word flags of b0's blocks past Z_pad at length m and a tail of
+    tlen bytes: a word differs between elements iff it holds a message
+    byte."""
+    return [[int((blk - 1) * 64 + 4 * i < m) for i in range(16)]
+            for blk in range(1, (64 + m + tlen + 8) // 64 + 1)]
+
+
+def xmd_element_ops(m, tlen, nbi, ell):
+    """32-bit integer instructions of one element's XMD at length m (tail
+    tlen bytes, nbi blocks per b_i, ell b_i) that depend on its message:
+    b0 from Z_pad's midstate, a word of msg' shared unless it holds a
+    message byte (past the message, msg' depends on m, the DST and
+    len_in_bytes alone); each b_i's block of b0 ^ b_i-1 (XOR for i > 1)
+    and counter i and DST', then its shared blocks."""
+    state, ops = [0] * 8, 0
+    for words in xmd_b0_flags(m, tlen):
+        n, state = sha_compression_ops(state, words)
+        ops += n
+    b0, prev = state, [0] * 8
+    for i in range(1, ell + 1):
+        x = [p | q for p, q in zip(b0, prev)]
+        ops += sum(x) if i > 1 else 0
+        prev = [0] * 8
+        for blk in range(nbi):
+            n, prev = sha_compression_ops(prev, x + [0] * 8 if blk == 0 else [0] * 16)
+            ops += n
+    return ops
+
+
+def xmd_work(msg, lens, dst, len_in_bytes):
+    """(bytes moved, 32-bit integer operations) of one xmd call: each
+    element's live message bytes and its length read once, its output
+    written once, the table read once; xmd_element_ops per element at this
+    call's lengths.  What is shared by the elements of one length (msg'
+    past the message and b0 if m = 0, each b_i's blocks past its first) is
+    counted in no element, and its one-off work per length is left out: a
+    lower bound."""
+    from bls_verify_gadget_tpu_torch.ops import hash_to_g2 as H
+
+    n, width = msg.shape
+    given = lens is not None
+    lens = lens.tolist() if given else [width] * n
+    dlen = len(dst) + 1
+    tlen, nbi = 3 + dlen, (33 + dlen + 8) // 64 + 1
+    ell = -(-len_in_bytes // 32)
+    ops = sum(k * xmd_element_ops(m, tlen, nbi, ell)
+              for m, k in collections.Counter(lens).items())
+    table = 4 * (H.XMD_EXT_WORDS + H.XMD_TMPL_WORDS)
+    nbytes = sum(lens) + 4 * n * given + n * len_in_bytes + table
+    return nbytes, ops
+
+
+def elements(name, args):
+    """Batch elements of a kernel call: xmd's messages are (N, L) rows,
+    every other kernel's operands (c, N, 24)."""
+    return args[0].shape[0] if name == "xmd" else args[0].shape[1]
+
+
 def bound(name, n, args):
     """(bound ms, "bytes" or "operations") of one call at n elements."""
-    nbytes, nmont = work(name, n, args)
+    if name == "xmd":
+        nbytes, ops = xmd_work(*args)
+    else:
+        nbytes, nmont = work(name, n, args)
+        ops = nmont * MAD_PER_MONT
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = nmont * MAD_PER_MONT / INT32_MAD_PER_S * 1e3
+    ops_ms = ops / INT32_MAD_PER_S * 1e3
     return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
 
 
@@ -1333,7 +1661,7 @@ def case_kernel_row(torch, name, replaces, source, cases, launches, sizes, plain
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     out, kernel_ms = [], 0.0
     for label, args, weight, path in cases:
-        n = args[0].shape[1]
+        n = elements(name, args)
         if weight and n not in sizes[path][name]:
             raise RuntimeError(f"kernel {name} ({label}) checked at {n} elements, but the "
                                f"{path} path launched it at {sorted(sizes[path][name])}")
@@ -1347,7 +1675,12 @@ def case_kernel_row(torch, name, replaces, source, cases, launches, sizes, plain
         if err != 0:
             raise RuntimeError(f"kernel {name} ({label}) disagrees with its plain version: "
                                f"max |err| {err}")
-        ms = device_ms(torch, kern, args, 3, 2)
+        if name == "xmd":  # its wrapper reads the lengths on the host: no graph captures it
+            from bls_verify_gadget_tpu_torch.ops import kernels as K
+
+            ms = device_ms(torch, entry_launch(torch, K, name, K.library().bls_xmd, args)[0], ())
+        else:
+            ms = device_ms(torch, kern, args, 3, 2)
         bound_ms, bound_by = bound(name, n, args)
         if path == "verify":
             kernel_ms += ms * weight
@@ -1525,7 +1858,7 @@ def miller_k1_cases(torch, rng, name, kern, plain_call, plain, keys, longest):
             "launches": keys["launches"][name], "sizes": sorted(hist)}
 
 
-def kernel_phase(torch, K, launches, sizes, verify_s, ctx, keys, steps):
+def kernel_phase(torch, K, launches, sizes, verify_s, ctx, keys, steps, mixed):
     """Each kernel against its plain version on the same CUDA tensors, bit
     for bit, with COUNTS unchanged across every plain call, at every
     element count that the verify run or the keys run launched it with:
@@ -1533,8 +1866,9 @@ def kernel_phase(torch, K, launches, sizes, verify_s, ctx, keys, steps):
     run length; the Miller kernels with two pairs at verify's counts and
     with one pair at the keys run's); the hash-stage and subgroup kernels
     on hash_cases and keys_hash_cases, the point kernels on point_cases,
-    the step-wise kernels on step_cases, and every kernel at every count
-    that the steps phase's runs launched it with.
+    the step-wise kernels on step_cases, xmd on xmd_cases (and against a
+    hashlib XMD), and every kernel at
+    every count that the mixed and steps phases' runs launched it with.
     Device time per launch (CUDA-graph replay), eager call time and plain
     time (field kernels: a mean of 3 calls; the others: their compared
     call, CUDA events) at the main path's most frequent size (miller_dbl_run: its longest
@@ -1557,12 +1891,22 @@ def kernel_phase(torch, K, launches, sizes, verify_s, ctx, keys, steps):
     longest = max(c for c, _ in CV.X_SEGMENTS)
     rows, kernel_ms = [], 0.0
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    by_path = {"launches": {"verify": launches, "keys": keys["launches"], **steps["launches"]},
-               "sizes": {"verify": sizes, "keys": keys["sizes"], **steps["sizes"]}}
+    by_path = {"launches": {"verify": launches, "keys": keys["launches"],
+                            "mixed": mixed["launches"], **steps["launches"]},
+               "sizes": {"verify": sizes, "keys": keys["sizes"], "mixed": mixed["sizes"],
+                         **steps["sizes"]}}
     hcases, kcases = hash_cases(torch, rng, ctx), keys_hash_cases(torch, keys)
     pcases, scases = point_cases(torch, rng, K, keys), step_cases(torch, rng, steps)
     step_ms = {}
     for name, (replaces, source, _) in KERNELS.items():
+        if source == XMD_SRC:
+            xcases = xmd_cases(torch, ctx, keys, mixed)
+            xmd_host_checks(torch, K, xcases)
+            row, ms = case_kernel_row(torch, name, replaces, source, xcases, by_path["launches"],
+                                      by_path["sizes"], plain_call, "verify")
+            rows.append(row)
+            kernel_ms += ms
+            continue
         if name in STEP_KERNELS:
             row, _ = case_kernel_row(torch, name, replaces, source, scases[name],
                                      by_path["launches"], by_path["sizes"], plain_call, "steps")
@@ -1624,6 +1968,8 @@ def kernel_phase(torch, K, launches, sizes, verify_s, ctx, keys, steps):
             row["k1"] = miller_k1_cases(torch, rng, name, kern, plain_call, plain, keys, longest)
         else:
             check_covered(name, counts, "keys", khist)
+        check_covered(name, counts, "mixed", mixed["sizes"][name])
+        row["launches_mixed"] = mixed["launches"][name]
         for path in steps["sizes"]:
             check_covered(name, counts, path, steps["sizes"][path][name])
             row[f"launches_{path}"] = steps["launches"][path][name]
@@ -1784,6 +2130,17 @@ def field_build_report(log_path, label):
         log(f"[build] ptxas {name} ({label}): " + "; ".join(lines))
 
 
+def xmd_build_report(log_path, label):
+    """ptxas's registers, stack and spills of xmd_kernel in a build's
+    report; fatal unless it has no stack and no spill (its schedule window
+    must stay in registers)."""
+    lines = ptxas_report(log_path, ((re.compile(r"\d+xmd_kernel"), lambda m: "xmd"),))["xmd"]
+    log(f"[build] ptxas xmd ({label}): " + "; ".join(lines))
+    frame = next(line for line in lines if "stack frame" in line)
+    if re.findall(r"(\d+) bytes", frame) != ["0", "0", "0"]:
+        raise RuntimeError(f"xmd ({label}) has a stack frame or spills: {frame}")
+
+
 def unit_build_start(K, src, so, defines=()):
     """Start nvcc on one unit `src` into the throwaway library `so` under
     build/ -> (process, library, log)."""
@@ -1915,6 +2272,14 @@ def entry_launch(torch, K, name, fn, args, packed=False):
         def launch():
             K._check_rc(name, fn(packed.data_ptr(), mask.data_ptr(), out.data_ptr(), n, k,
                                  *count, p, n0, K._stream(packed)))
+        return launch, out
+    if name == "xmd":  # K.xmd checks the lengths on the host: launch past that check
+        msg, lens, dst, nbytes = args
+        lens32 = None if lens is None else lens.to(torch.int32).contiguous()
+        out = msg.new_empty((msg.shape[0], nbytes))
+
+        def launch():
+            K._xmd_launch(fn, msg, lens32, dst, nbytes, out)
         return launch, out
     if name == "sswu_map2":
         from bls_verify_gadget_tpu_torch.ops import hash_to_g2 as H
@@ -2173,7 +2538,7 @@ def group_cases(torch, rng):
 
 
 def group_phase(torch, K, sweep_started, parent_started=None, parent_dir=None):
-    """The group kernels (module docstring, phase 8): on each case of
+    """The group kernels (module docstring, phase 9): on each case of
     group_cases, the wrapper bit-equal to the plain version, each G of the
     sweep (the library's and the throwaway builds of sweep_started) and the
     parent's kernel bit-equal to the wrapper, all on the same
@@ -2465,7 +2830,7 @@ def field_cases(torch, rng):
 
 
 def field_phase(torch, K, field_started, parent_started=None):
-    """The staged field kernels (module docstring, phase 9): on each case of
+    """The staged field kernels (module docstring, phase 10): on each case of
     field_cases the wrapper bit-equal to the plain version; the sweep
     builds (every E of FIELD_E, Fp mul, fp2_mul and fp2_sqr also on one
     thread) and the
@@ -2589,8 +2954,9 @@ def main():
             launches, sizes, verify_s, parts, want, ctx = main_path_phase(torch, K)
             profile_phase(torch, parts, ctx["msg"], want, verify_s)
             keys = keys_phase(torch, K)
+            mixed = mixed_phase(torch, K, ctx, want, keys, launches)
             steps = steps_phase(torch, K, ctx, want, launches, keys)
-            rows = kernel_phase(torch, K, launches, sizes, verify_s, ctx, keys, steps)
+            rows = kernel_phase(torch, K, launches, sizes, verify_s, ctx, keys, steps, mixed)
             group = group_phase(torch, K, sweep, parent_group, args.parent)
             staged = field_phase(torch, K, field_sweep, parent.get("field"))
             for row in rows:

@@ -121,6 +121,7 @@ def test_kernel_wrappers_do_not_fall_back():
         lambda: K.add_step(FP, g2, u, xp),
         lambda: K.cyclo_sqr(FP, f, 1),
         lambda: K.cyclo_sqr(FP, f, 32),
+        lambda: K.xmd(torch.zeros(2, 3, dtype=torch.uint8, device="meta"), None, b"DST", 256),
     ):
         with pytest.raises(ValueError):
             call()
@@ -141,7 +142,8 @@ def test_sources_name_every_csrc_file():
 def test_config_defaults_keep_the_fused_path(monkeypatch):
     """Both configuration flags default to True, and with them a CPU verify
     of one element calls the same kernel wrappers as before the step-wise
-    configuration was ported (on the card each call is one launch)."""
+    configuration was ported, and xmd once (on the card each call is one
+    launch)."""
     import collections
     import dataclasses
 
@@ -158,9 +160,9 @@ def test_config_defaults_keep_the_fused_path(monkeypatch):
     assert config.fuse_miller and config.fuse_expx
     calls = collections.Counter()
     for name in K.KERNELS:
-        def shim(field, *args, _wrapper=getattr(K, name), _name=name):
+        def shim(*args, _wrapper=getattr(K, name), _name=name):  # xmd's first is no field
             calls[_name] += 1
-            return _wrapper(field, *args)
+            return _wrapper(*args)
 
         monkeypatch.setattr(K, name, shim)
     vec = next(v for _, v in load_suite("verify") if v["output"])["input"]
@@ -172,5 +174,6 @@ def test_config_defaults_keep_the_fused_path(monkeypatch):
     assert set(calls) == {
         "mul", "add", "sub", "fp2_mul", "fp2_sqr", "fp6_mul", "fp12_mul", "fp12_sqr",
         "miller_dbl_run", "miller_add", "exp_x", "pow_win", "pt_mul_const", "g2_cofactor",
-        "sswu_map2"}
-    assert sum(calls.values()) == 117
+        "sswu_map2", "xmd"}
+    assert calls["xmd"] == 1
+    assert sum(calls.values()) == 118
