@@ -67,3 +67,23 @@ def batch_from_numpy(pk_aff, sig_aff, msg_u8, device="cuda"):
     msg_u8) on `device`."""
     msg = torch.from_numpy(np.asarray(msg_u8).astype(np.uint8)).to(resolve_device(device))
     return _tree(pk_aff, device), _tree(sig_aff, device), msg
+
+
+def prepared_from_numpy(prepared, device="cuda"):
+    """The JAX package's r1cs evaluator.prepare dict (numpy *_idx (R, W),
+    *_coeff (R, W, 24) uint32 Montgomery limbs, aux_var, aux_row,
+    num_vars) -> the port's prepared dict on `device` (its tables as
+    tensors, and the partial sums' dependency levels)."""
+    from .r1cs import evaluator
+
+    host = {"num_vars": int(prepared["num_vars"])}
+    for side in "abc":
+        coeff = np.asarray(prepared[f"{side}_coeff"])
+        if coeff.size and int(coeff.max()) > 0xFFFF:
+            raise ValueError("limbs must be below 2^16")
+        host[f"{side}_idx"] = np.asarray(prepared[f"{side}_idx"], np.int32)
+        host[f"{side}_coeff"] = coeff.astype(np.int32)
+    for k in ("aux_var", "aux_row"):
+        if k in prepared:
+            host[k] = np.asarray(prepared[k], np.int32)
+    return evaluator.stage(host, device)

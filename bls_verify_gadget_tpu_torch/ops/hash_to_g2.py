@@ -8,7 +8,9 @@ Pipeline (RFC 9380 BLS12381G2_XMD:SHA-256_SSWU_RO_): expand_message_xmd
 cofactor clearing in ONE g2_cofactor launch (ops/curve.py).  Messages of
 one batch share a padded width; `lens` gives each element its own byte
 length (mixed-length batches).  The plain versions of xmd and sswu_map2
-are here, beside the constant tables that they and the kernels read.
+are here, beside the constant tables that they and the kernels read, and
+fp2_sqrt_candidates, the Fp2 square root that the R1CS witness VM's sqrt2
+kind takes (the JAX package's function of that name).
 """
 
 import torch
@@ -18,6 +20,7 @@ from ..golden import field as GF
 from .fp import FP
 from . import kernels as K
 from . import curve as CV
+from . import tower as T
 from .tower import F2, pow_win_plain
 from .sha256 import sha256_bytes, sha256_bytes_var
 
@@ -40,6 +43,49 @@ def _compute_sqrt_candidates():
     assert sq_i is not None and sq_mi is not None
     assert GF.fp2_sqr(sq_i) == (0, 1) and GF.fp2_sqr(sq_mi) == GF.fp2_neg((0, 1))
     return sq_i, sq_mi
+
+
+# the candidate multipliers in the JAX package's order: 1, u, sqrt(u),
+# sqrt(-u)
+SQRT_CANDS = ((1, 0), (0, 1), *_compute_sqrt_candidates())
+
+
+def _sqrt_from_candidate(z, target):
+    """Given z with z^2 = target * w for w an 8th root of unity, the first
+    of z * c over SQRT_CANDS whose square is target -> (sqrt, found), both
+    branch-free; sqrt(0) = 0 is found.  The four products in one fp2_mul
+    launch, their squares in one fp2_sqr launch."""
+    ts = T.fp2_mul_pairs([(z, T._bcast(c, target)) for c in SQRT_CANDS])
+    sqs = T.fp2_sqr_many(ts)
+    best = T.fp2_zero_like(target)
+    found = T.fp2_is_zero(target)
+    for t, sq in zip(ts, sqs):
+        ok = T.fp2_eq(sq, target)
+        best = T.fp2_cmov(ok & ~found, t, best)
+        found = found | ok
+    return best, found
+
+
+def _fp2_pow_sqrt(a):
+    """a^((p^2 + 7)/16) by the Frobenius split: (conj(a) * a^11)^SQRT_K *
+    a^8, the 377-bit chain in one Fp2 pow_win launch."""
+    a2 = T.fp2_sqr(a)
+    a4 = T.fp2_sqr(a2)
+    a8 = T.fp2_sqr(a4)
+    a3 = T.fp2_mul(a2, a)
+    a11 = T.fp2_mul(a8, a3)
+    b = T.fp2_mul(T.fp2_conj(a), a11)
+    shape = b[0].shape
+    bk = K.pow_win(FP, torch.stack(b).reshape(2, -1, C.NLIMB), SQRT_K).reshape(2, *shape)
+    return T.fp2_mul((bk[0], bk[1]), a8)
+
+
+def fp2_sqrt_candidates(a):
+    """(sqrt, is_square) of the Fp2 a = (a0, a1), limb tensors of one
+    shape, branch-free: the root the JAX package's fp2_sqrt_candidates
+    returns (one pow, then the candidates in its order); 0 where a is not
+    a square."""
+    return _sqrt_from_candidate(_fp2_pow_sqrt(a), a)
 
 
 # ----------------------------------------------------------------------------

@@ -2,9 +2,12 @@
 per kernel (the counterpart of the JAX package's ops/pallas/kernels.py
 FieldKernels.mul/add/sub/fp2_mul/fp2_sqr/fp6_mul/fp12_mul/fp12_sqr/
 miller_dbl_run/miller_add/exp_x/pow_win/pt_mul_const/g2_cofactor/sswu_map2/
-pt_dbl/pt_add/pt_mul_var/mul014/dbl_step/add_step/cyclo_sqr), and xmd,
-which replaces no Pallas kernel: expand_message_xmd with its SHA-256, which
-XLA fuses in the JAX package (ops/sha256.py, ops/hash_to_g2.py).
+pt_dbl/pt_add/pt_mul_var/mul014/dbl_step/add_step/cyclo_sqr), and xmd and
+lc_dot, which replace no Pallas kernel: expand_message_xmd with its
+SHA-256, which XLA fuses in the JAX package (ops/sha256.py,
+ops/hash_to_g2.py), and the R1CS layer's sparse Montgomery dot product of
+witness columns with coefficient rows (r1cs/evaluator.py _dot_rows,
+complete_witness, r1cs/witness_vm.py _eval_lcs).
 
 The sources in csrc/ are compiled on first use with nvcc for sm_90a, one
 nvcc per .cu file, all started together, and linked into one shared
@@ -18,15 +21,16 @@ coordinates, a Jacobian point 3 or 6, an Fp6 6, an Fp12 12,
 coefficient-major) and
 pack their operands into one contiguous buffer per launch, except the step
 kernels (mul014, dbl_step, add_step) and pt_add, which take one pointer per
-operand.  xmd takes uint8 (B, L) message bytes and int32 (B,) lengths.
+operand.  xmd takes uint8 (B, L) message bytes and int32 (B,) lengths;
+lc_dot a (B, V, 24) witness, (R, W) indices and (R, W, 24) coefficients.
 A tensor on the
 CPU goes to the kernel's plain PyTorch version (ops/fp.py, ops/tower.py,
-ops/curve.py, ops/hash_to_g2.py, ops/pairing.py); a CUDA
+ops/curve.py, ops/hash_to_g2.py, ops/pairing.py, r1cs/evaluator.py); a CUDA
 tensor launches the kernel on the current stream or raises -- there is no
 fallback from a CUDA tensor to the plain version.  Each launch adds one to
 the kernel's count in COUNTS.  The staged kernels (mul, add, sub,
-fp2_mul, fp2_sqr) read and write whole rows as 16-byte vectors: their
-wrappers refuse an operand that does not start on a 16-byte boundary.
+fp2_mul, fp2_sqr) and lc_dot read and write whole rows as 16-byte vectors:
+their wrappers refuse an operand that does not start on a 16-byte boundary.
 """
 
 import collections
@@ -44,7 +48,7 @@ PKG_DIR = pathlib.Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "build"
 UNITS = ("field_kernels.cu", "pairing_kernels.cu", "hash_kernels.cu",
-         "point_kernels.cu", "xmd_kernels.cu")  # one nvcc each
+         "point_kernels.cu", "xmd_kernels.cu", "r1cs_kernels.cu")  # one nvcc each
 SOURCES = ("field.cuh", "tower.cuh", "group.cuh", "group_rounds.cuh", "lanes.cuh", *UNITS)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -55,7 +59,7 @@ KERNELS = (
     "fp12_mul", "fp12_sqr", "miller_dbl_run", "miller_add", "exp_x",
     "pow_win", "pt_mul_const", "g2_cofactor", "sswu_map2",
     "pt_dbl", "pt_add", "pt_mul_var",
-    "mul014", "dbl_step", "add_step", "cyclo_sqr", "xmd",
+    "mul014", "dbl_step", "add_step", "cyclo_sqr", "xmd", "lc_dot",
 )
 MILLER_PAIRS = (1, 2)  # pair counts of a Miller launch (csrc/pairing_kernels.cu)
 SCALAR_LIMBS = 16  # raw Fr scalar limbs of pt_mul_var (csrc/point_kernels.cu)
@@ -64,8 +68,8 @@ MAX_DIGITS = 192  # 4-bit windows of a pow_win exponent (csrc/tower.cuh kMaxDigi
 
 
 class LaunchCounts:
-    """Launches, elements processed and launches per element count, per
-    kernel, since the last reset."""
+    """Launches, elements processed and launches per element count (per row
+    width for lc_dot), per kernel, since the last reset."""
 
     def __init__(self):
         self.reset()
@@ -75,10 +79,10 @@ class LaunchCounts:
         self.elements = dict.fromkeys(KERNELS, 0)
         self.sizes = {k: collections.Counter() for k in KERNELS}
 
-    def record(self, name: str, n: int):
+    def record(self, name: str, n: int, size=None):
         self.launches[name] += 1
         self.elements[name] += n
-        self.sizes[name][n] += 1
+        self.sizes[name][n if size is None else size] += 1
 
 
 COUNTS = LaunchCounts()
@@ -177,6 +181,7 @@ def _declare(lib, names=KERNELS):
         "add_step": [vp, vp, vp, vp, i64, vp, u32, vp],
         "cyclo_sqr": [vp, vp, i64, i32, vp, u32, vp],
         "xmd": [vp, vp, i64, i32, vp, i32, i32, i32, vp, vp],
+        "lc_dot": [vp, vp, vp, vp, i64, i64, i64, i32, vp, u32, vp],
         "launch_floor": [u32, i32, vp],
     }
     for name in names:
@@ -738,3 +743,41 @@ def _xmd_launch(fn, rows, lens32, dst: bytes, len_in_bytes: int, out):
     _check_rc("xmd", fn(rows.data_ptr(), None if lens32 is None else lens32.data_ptr(),
                         rows.shape[0], rows.shape[1], table.data_ptr(), tlen, nbi,
                         len_in_bytes, out.data_ptr(), _stream(rows)))
+
+
+# ----------------------------------------------------------------------------
+# the R1CS layer's LC dot product (csrc/r1cs_kernels.cu)
+# ----------------------------------------------------------------------------
+
+def lc_dot(field, w, idx, coeff):
+    """out[b, r] = sum_t w[b, idx[r, t]] * coeff[r, t] (Montgomery products,
+    canonical sum mod p) for a (B, V, 24) witness, (R, W) int32 indices in
+    [0, V) and (R, W, 24) coefficients -> (B, R, 24).  Replaces no Pallas
+    kernel (the JAX package's jnp LC dot, which XLA fuses).  Counted once
+    per launch with B * R elements, its size the row width W."""
+    if w.device.type == "cpu":
+        from ..r1cs import evaluator
+
+        return evaluator.lc_dot_plain(w, idx, coeff)
+    if field.nlimb != 24:
+        raise ValueError(f"lc_dot takes Fp (24 limbs), not {field.nlimb}")
+    w, coeff = _cuda_operands(field, [w, coeff])
+    if w.dim() != 3 or coeff.dim() != 3 or idx.dim() != 2 or tuple(coeff.shape[:2]) != tuple(
+            idx.shape):
+        raise ValueError(f"lc_dot takes w (B, V, 24), idx (R, W), coeff (R, W, 24), got "
+                         f"{tuple(w.shape)}, {tuple(idx.shape)}, {tuple(coeff.shape)}")
+    if idx.device != w.device or idx.dtype != torch.int32:
+        raise ValueError(f"expected int32 indices on {w.device}, got {idx.dtype} on {idx.device}")
+    idx = idx.contiguous()
+    (b, v, _), (r, width) = w.shape, idx.shape
+    out = w.new_empty((b, r, field.nlimb))
+    if b and r:
+        if not v or not width:
+            raise ValueError(f"lc_dot needs V >= 1 and W >= 1, got V = {v}, W = {width}")
+        _check_aligned("lc_dot", (w, coeff, out))
+        rc = library().bls_lc_dot(w.data_ptr(), idx.data_ptr(), coeff.data_ptr(),
+                                  out.data_ptr(), b, v, r, width, _p_words(field),
+                                  field.n0_word, _stream(w))
+        _check_rc("lc_dot", rc)
+        COUNTS.record("lc_dot", b * r, width)
+    return out

@@ -5,7 +5,7 @@
 
 Needs one CUDA card and nvcc.  Phases, each fatal on failure:
   1. device   -- card name and power limit (nvidia-smi), torch's name;
-  2. build    -- nvcc builds the 23 kernels from csrc/ (one nvcc per
+  2. build    -- nvcc builds the 24 kernels from csrc/ (one nvcc per
      source, all at once) and prints ptxas's register/stack/spill report
      (xmd's must show no stack and no spill);
   3. main path -- BatchedBLS(device="cuda").verify at batch 4096 with
@@ -67,7 +67,27 @@ Needs one CUDA card and nvcc.  Phases, each fatal on failure:
      launches with the same changes for one pair at 4096, the x-chains at
      batch 1), true, false with two messages swapped, and timed
      interleaved with the fused path;
-  8. kernels  -- each kernel against its plain PyTorch version on the same
+  8. r1cs     -- the R1CS layer (r1cs/: builders, witness VM, evaluator,
+     device_witness) on the lc_dot kernel and the field kernels.  The
+     full BLS verify circuit: 64 (pk, 24-byte message, sig) triples from
+     derive_pubkeys and sign on the card, decoded to host ints through
+     golden/codec.py; the circuit built once on the host for triple 0
+     (601,320 constraints, the JAX package's count, asserted before
+     to_arrays), its rows, variables, tape entries and groups printed;
+     every triple's input variables encoded; run_tape, complete_witness
+     and check_satisfied on the card, each counted (counters zeroed just
+     before, read just after) and timed: all 64 satisfied, one variable
+     corrupted in the odd elements rejects exactly those, element 0's
+     936,180 variables limb-equal to the host build's assignments.  The
+     SHA-256 subcircuit (24-byte messages, the JAX package's
+     tools/bench_r1cs.py configuration) at 256: the witness from
+     device_witness and the message bit planes, complete_witness,
+     check_satisfied, counted and timed: all satisfied, one element
+     corrupted the only one rejected, element 0 equal to its host build.
+     Host seconds of build, to_arrays, compile_tape and prepare; card
+     seconds of replay, completion and evaluation; rows/s, witnesses/s;
+     launches per kernel and lc_dot's per row width of each run;
+  9. kernels  -- each kernel against its plain PyTorch version on the same
      CUDA tensors, bit for bit, at every element count that the verify
      run, the keys run, the mixed run or a steps run launched it with (a
      kernel launched
@@ -90,7 +110,12 @@ Needs one CUDA card and nvcc.  Phases, each fatal on failure:
      pairs stacked at 8192 and one pair at 4096, cyclo_sqr on cyclotomic
      elements at every run length at 4096 and 1) and on seeded random ones
      (mul014 with a quarter of the lines neutral, cyclo_sqr at every run
-     length at 4096 and 1); xmd on each path's messages (the verify
+     length at 4096 and 1); lc_dot on the r1cs phase's witnesses and
+     tables at every row width its runs launched (the evaluator's chunk
+     at W = 8 on both circuits, the widest partial-sum level, per tape
+     width the widest group), and mul, add, sub, fp2_mul, fp2_sqr,
+     fp6_mul and pow_win at every element count the r1cs runs launched
+     them with, on seeded operands; xmd on each path's messages (the verify
      batch, the keys run's 4096 and 4095, the mixed batch with its
      lengths), also against a host hashlib XMD element by element, on the
      RFC 9380 K.1 vectors with their DST, and with a 255-byte DST and 77
@@ -108,7 +133,7 @@ Needs one CUDA card and nvcc.  Phases, each fatal on failure:
      the launch floor: an empty kernel
      (launch_floor_kernel) timed the same way at 1 block and on each field
      kernel's grid;
-  9. group    -- the group kernels (csrc/group.cuh): miller_dbl_run (k =
+ 10. group    -- the group kernels (csrc/group.cuh): miller_dbl_run (k =
      1 and 2) and exp_x at 4096 and 4095 elements with mixed valid masks,
      fp12_mul at 4096, 4095 and 1, fp6_mul at 8192, 8191, 2 and 1 and
      fp12_sqr at 4096, 4095 and 1 (edge values in elements 0-4),
@@ -155,7 +180,7 @@ Needs one CUDA card and nvcc.  Phases, each fatal on failure:
      parent).
      ptxas's registers, stack and spills and the shared memory per block of
      each group kernel instance are printed under [build];
- 10. field    -- the staged field kernels (csrc/field_kernels.cu mul, add,
+ 11. field    -- the staged field kernels (csrc/field_kernels.cu mul, add,
      sub, fp2_mul and fp2_sqr): fp2_mul at 8192, 4096 and 1 elements,
      fp2_sqr at 4096, 8192 and 1, mul in Fp at 8192, 4096 and 1 and in Fr
      at 8192 and 1, add and sub in Fp at 4096, 8192 and 1 and in Fr at
@@ -177,13 +202,16 @@ its last line {"ok": true, "device": {...}}.  Imports nothing of JAX.
 
     python3 chip_smoke.py --group [--parent DIR]
     python3 chip_smoke.py --field [--parent DIR]
+    python3 chip_smoke.py --r1cs
 
-run only phases 1, 2 and 9 (the group kernels' checks, sweep and
-timing) or 1, 2 and 10 (the staged field kernels'), and start only the
-builds of that phase.
+run only phases 1, 2 and 10 (the group kernels' checks, sweep and
+timing), 1, 2 and 11 (the staged field kernels') or 1, 2, 8 and phase
+9's R1CS checks (lc_dot's row and the field kernels at the r1cs runs'
+counts), and start only the builds of that phase.
 """
 
 import collections
+import contextlib
 import json
 import pathlib
 import re
@@ -217,6 +245,7 @@ PAIRING_SRC = "bls_verify_gadget_tpu_torch/csrc/pairing_kernels.cu"
 HASH_SRC = "bls_verify_gadget_tpu_torch/csrc/hash_kernels.cu"
 POINT_SRC = "bls_verify_gadget_tpu_torch/csrc/point_kernels.cu"
 XMD_SRC = "bls_verify_gadget_tpu_torch/csrc/xmd_kernels.cu"
+R1CS_SRC = "bls_verify_gadget_tpu_torch/csrc/r1cs_kernels.cu"
 TPU_KERNELS = "bls_verify_gadget_tpu/ops/pallas/kernels.py"
 # name -> (TPU kernel replaced, source, launches per verify expected or None)
 KERNELS = {
@@ -248,8 +277,13 @@ KERNELS = {
     # not a TPU kernel: the port's counterpart of the jnp code XLA fuses
     "xmd": ("none: the JAX package's jnp SHA-256/XMD (bls_verify_gadget_tpu/ops/sha256.py:28, "
             "bls_verify_gadget_tpu/ops/hash_to_g2.py:143)", XMD_SRC, 1),
+    # not a TPU kernel either: the R1CS layer's LC dot (the r1cs phase), not verify
+    "lc_dot": ("none: the JAX package's jnp LC dot (bls_verify_gadget_tpu/r1cs/evaluator.py:95 "
+               "_dot_rows, :64 complete_witness, bls_verify_gadget_tpu/r1cs/witness_vm.py:120 "
+               "_eval_lcs)", R1CS_SRC, 0),
 }
 STEP_KERNELS = ("mul014", "dbl_step", "add_step", "cyclo_sqr")
+R1CS_KERNELS = ("lc_dot",)  # launched only by the r1cs phase
 # launches of the step-wise configuration less the default's, per Miller
 # pair count k: 63 doublings and 5 set bits of |x|, five x-chains of 6 runs
 # and 5 set bits
@@ -662,12 +696,13 @@ def keys_phase(torch, K):
     run_s = time.perf_counter() - t0
     launches = dict(K.COUNTS.launches)
     sizes = {k: dict(v) for k, v in K.COUNTS.sizes.items()}
-    idle = [k for k in K.KERNELS if k not in STEP_KERNELS and launches[k] == 0]
+    idle = [k for k in K.KERNELS
+            if k not in STEP_KERNELS + R1CS_KERNELS and launches[k] == 0]
     if idle:
         raise RuntimeError(f"kernels not launched on the keys path: {idle}")
-    stray = {k: launches[k] for k in STEP_KERNELS if launches[k]}
+    stray = {k: launches[k] for k in STEP_KERNELS + R1CS_KERNELS if launches[k]}
     if stray:
-        raise RuntimeError(f"step-wise kernels launched in the default configuration: {stray}")
+        raise RuntimeError(f"step-wise or R1CS kernels launched on the keys path: {stray}")
     want_n = {"pt_mul_var": 2, "pt_dbl": 1, "xmd": 2,  # xmd: sign's hash, the distinct pairs'
               "pt_add": 2 * tree_levels(BATCH) + tree_levels(COMMITTEE)}
     off = {k: launches[k] for k, n in want_n.items() if launches[k] != n}
@@ -1086,6 +1121,477 @@ def steps_phase(torch, K, ctx, want, main_launches, keys):
             "sizes": {"steps": sizes, "steps_avd": sizes_a},
             "kept": {"steps": kept_v, "steps_avd": kept_a},
             "calls": {"steps": calls, "steps_avd": calls_a}}
+
+
+# ----------------------------------------------------------------------------
+# r1cs phase: the full BLS verify circuit and the SHA-256 subcircuit on the
+# R1CS layer (witness VM, complete_witness, check_satisfied on lc_dot)
+# ----------------------------------------------------------------------------
+
+R1CS_BATCH = 64  # verify-circuit witnesses: 64 x 936,180 x 96 B of witness
+R1CS_MSG_LEN = 24  # the message length of the JAX package's circuit count
+VERIFY_ROWS = 601320  # bls_verify_gadget_tpu's tests/test_r1cs_verify.py:29
+SHA_BATCH = 256  # the SHA-256 subcircuit (tools/bench_r1cs.py's configuration)
+R1CS_CHUNK = 8192  # rows per check_satisfied chunk
+R1CS_FIELD = ("mul", "add", "sub", "fp2_mul", "fp2_sqr", "fp6_mul", "pow_win")
+
+
+def r1cs_triples(torch, rng, n):
+    """n (pk, 24-byte message, sig) triples from the port's keys path on the
+    card (derive_pubkeys, sign), decoded to host ints through the port's
+    compressed-point codec."""
+    from bls_verify_gadget_tpu_torch import constants as C
+    from bls_verify_gadget_tpu_torch.golden import codec
+    from bls_verify_gadget_tpu_torch.models.bls import BatchedBLS, encode_messages, encode_scalars
+    from bls_verify_gadget_tpu_torch.ops import curve as CV
+
+    keys = [int.from_bytes(rng.bytes(32), "little") % (C.R - 1) + 1 for _ in range(n)]
+    msgs = [rng.bytes(R1CS_MSG_LEN) for _ in range(n)]
+    bls = BatchedBLS(device="cuda")
+    sk, msg = encode_scalars(keys), encode_messages(msgs)
+    pk = bls.derive_pubkeys(sk)
+    sig, valid = bls.sign(sk, msg)
+    if not bool(valid.all()):
+        raise RuntimeError("sign marks a nonzero key invalid")
+    pks = [codec.g1_decompress(codec.g1_compress(p)) for p in CV.g1_decode(pk)]
+    sigs = [codec.g2_decompress(codec.g2_compress(s)) for s in CV.g2_decode(sig)]
+    if any(p is None for p in pks) or any(s is None for s in sigs):
+        raise RuntimeError("a key or signature of the keys path does not decode")
+    return list(zip(pks, msgs, sigs))
+
+
+def verify_input_values(pk, msg, sig):
+    """The verify circuit's input variables for one triple, in tape order:
+    the pk and sig coordinates and the message bits, read from their
+    allocations on a scratch system (tools/witness_vm_verify.py's
+    input_values)."""
+    from bls_verify_gadget_tpu_torch.r1cs.gadgets import UInt8
+    from bls_verify_gadget_tpu_torch.r1cs.system import ConstraintSystem
+    from bls_verify_gadget_tpu_torch.r1cs.verify import PublicKeyVar, SignatureVar
+
+    scratch = ConstraintSystem()
+    PublicKeyVar.alloc(scratch, pk)
+    [UInt8.alloc(scratch, b) for b in msg]
+    SignatureVar.alloc(scratch, sig)
+    return [scratch.assignments[i] for e in scratch.tape if e["kind"] == "input"
+            for i in e["outs"]]
+
+
+def nonzero(launches):
+    return {k: v for k, v in launches.items() if v}
+
+
+def merge_sizes(*size_maps):
+    out = collections.defaultdict(collections.Counter)
+    for sizes in size_maps:
+        for k, v in sizes.items():
+            out[k].update(v)
+    return {k: dict(v) for k, v in out.items()}
+
+
+def corrupt(torch, wit, col, elems):
+    """Add one to variable `col` of the witness elements `elems`, in place;
+    -> the column's old values."""
+    from bls_verify_gadget_tpu_torch.ops.fp import FP
+
+    saved = wit[:, col].clone()
+    wit[elems, col] = FP.add(wit[elems, col], FP.const("ONE", wit.device).expand(
+        len(elems), 24).contiguous())
+    return saved
+
+
+@contextlib.contextmanager
+def candidate_root_hints():
+    """Host builds inside take the square-root hint of the SSWU map
+    (r1cs/hasher.py sswu_map_gadget) as the device does: the root that
+    fp2_sqrt_candidates returns (golden field fp2_sqrt_candidate_root), not
+    golden fp2_sqrt's, which is its negation for about half of all
+    squares.  Both satisfy the circuit."""
+    from bls_verify_gadget_tpu_torch.golden import field as GF
+
+    saved = GF.fp2_sqrt
+    GF.fp2_sqrt = GF.fp2_sqrt_candidate_root
+    try:
+        yield
+    finally:
+        GF.fp2_sqrt = saved
+
+
+def build_verify_circuit(triple):
+    """The port's verify gadget for one (pk, msg, sig) on a new system ->
+    (cs, the gadget's output bit)."""
+    from bls_verify_gadget_tpu_torch.r1cs.gadgets import UInt8
+    from bls_verify_gadget_tpu_torch.r1cs.system import ConstraintSystem
+    from bls_verify_gadget_tpu_torch.r1cs.verify import (
+        BlsSignatureVerifyGadget, ParametersVar, PublicKeyVar, SignatureVar,
+    )
+
+    pk, msg, sig = triple
+    cs = ConstraintSystem()
+    ok = BlsSignatureVerifyGadget.verify(cs, ParametersVar.constant(cs), PublicKeyVar.alloc(cs, pk),
+                                         [UInt8.alloc(cs, b) for b in msg],
+                                         SignatureVar.alloc(cs, sig))
+    return cs, ok.value
+
+
+def verify_circuit(torch, K, smi, rng):
+    """The full 601,320-constraint verify circuit: built once on the host
+    for triple 0, its tape replayed for R1CS_BATCH triples on the card, the
+    partial sums completed, every element checked; exactly the corrupted
+    elements rejected; element 0 limb-equal to the host build that takes
+    the device's square roots, and the host build with golden fp2_sqrt's
+    roots differing only where those roots' sign reaches."""
+    from bls_verify_gadget_tpu_torch.r1cs import evaluator as EV
+    from bls_verify_gadget_tpu_torch.r1cs import witness_vm as VM
+
+    B = R1CS_BATCH
+    t0 = time.perf_counter()
+    triples = r1cs_triples(torch, rng, B)
+    keys_s = time.perf_counter() - t0
+    host_s = {}
+    t0 = time.perf_counter()
+    cs, ok = build_verify_circuit(triples[0])
+    host_s["build"] = time.perf_counter() - t0
+    n_constraints = cs.num_constraints
+    if ok != 1 or n_constraints != VERIFY_ROWS:
+        raise RuntimeError(f"verify circuit: output {ok}, {n_constraints} constraints (want 1 "
+                           f"and {VERIFY_ROWS})")
+    uncovered = cs.tape_uncovered()
+    if uncovered:
+        raise RuntimeError(f"{len(uncovered)} variables no tape entry produces")
+    n_base, n_tape = len(cs.assignments), len(cs.tape)
+    t0 = time.perf_counter()
+    arrays = cs.to_arrays()
+    host_s["to_arrays"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ct = VM.compile_tape(cs)
+    host_s["compile_tape"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    prepared = EV.prepare(arrays)
+    host_s["prepare"] = time.perf_counter() - t0
+    rows, n_vars = arrays["a_idx"].shape[0], arrays["num_vars"]
+    log(f"[r1cs] verify circuit ({R1CS_MSG_LEN}-byte message): {n_constraints} "
+        f"constraints, {n_base} variables, {n_tape} tape entries; after to_arrays {rows} rows "
+        f"of width {arrays['a_idx'].shape[1]}, {n_vars} variables ({len(arrays['aux_var'])} "
+        f"partial sums in {len(prepared['levels'])} levels), {len(ct.groups)} tape groups; "
+        f"{B} triples from derive_pubkeys / sign in {keys_s:.3f} s")
+    log(f"[r1cs] host s: build {host_s['build']:.3f}, to_arrays {host_s['to_arrays']:.3f}, "
+        f"compile_tape {host_s['compile_tape']:.3f}, prepare {host_s['prepare']:.3f} "
+        f"({smi})")
+    t0 = time.perf_counter()
+    inputs = EV.encode_witness_batch([verify_input_values(*t) for t in triples])
+    host_s["inputs"] = time.perf_counter() - t0
+    if inputs.shape[1] != len(ct.input_vars):
+        raise RuntimeError(f"{inputs.shape[1]} input values for {len(ct.input_vars)} inputs")
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    wit, *replay = counted(torch, K, lambda: VM.run_tape(ct, inputs, B))
+    replay_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _, *complete = counted(torch, K, lambda: EV.complete_witness(prepared, wit))
+    complete_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    good, *evaluate = counted(torch, K, lambda: EV.check_satisfied(prepared, wit, R1CS_CHUNK))
+    eval_s = time.perf_counter() - t0
+    if not bool(good.all()):
+        raise RuntimeError(f"verify circuit: {int((~good).sum())} of {B} device witnesses "
+                           f"unsatisfied")
+    col = n_base - 5
+    odd = list(range(1, B, 2))
+    saved = corrupt(torch, wit, col, odd)
+    bad = EV.check_satisfied(prepared, wit, R1CS_CHUNK)
+    wit[:, col] = saved
+    if bad.tolist() != [i % 2 == 0 for i in range(B)]:
+        raise RuntimeError(f"verify circuit: variable {col} corrupted in the odd elements, "
+                           f"check_satisfied gives {bad.tolist()}")
+    gen_s = replay_s + complete_s
+    log(f"[r1cs] verify circuit on the card at B = {B}: run_tape {replay_s:.3f} s, "
+        f"complete_witness {complete_s:.3f} s, check_satisfied {eval_s:.3f} s (chunks of "
+        f"{R1CS_CHUNK} rows); {B / gen_s:.3f} witnesses/s generated, {rows * B / eval_s:.4g} "
+        f"rows/s checked ({smi})")
+    for label, (launches, sizes) in (("run_tape", replay), ("complete_witness", complete),
+                                     ("check_satisfied", evaluate)):
+        log(f"[r1cs] {label} launches: {nonzero(launches)} (total {sum(launches.values())}); "
+            f"lc_dot by row width {dict(sorted(sizes['lc_dot'].items()))}")
+    log(f"[r1cs] verify circuit: all {B} satisfied; variable {col} corrupted in the {len(odd)} "
+        f"odd elements: exactly those rejected; inputs encoded on the host in "
+        f"{host_s['inputs']:.3f} s")
+    t0 = time.perf_counter()
+    with candidate_root_hints():
+        cs_dev, _ = build_verify_circuit(triples[0])
+    cs_dev.to_arrays()
+    rebuild_s = time.perf_counter() - t0
+    if cs_dev.tape != cs.tape or cs_dev.num_constraints != cs.num_constraints:
+        raise RuntimeError("the build with the device's square roots has another circuit")
+    host = EV.encode_witness(cs.assignments)
+    moved = (wit[0] != host).any(-1).nonzero().squeeze(1)
+    want = EV.encode_witness(cs_dev.assignments)
+    if want.shape[0] != n_vars or not torch.equal(wit[0], want):
+        diff = (wit[0] != want).any(-1).nonzero().squeeze(1)
+        raise RuntimeError(f"verify circuit: element 0 differs from the host build with the "
+                           f"device's square roots at {diff.numel()} of {n_vars} variables, "
+                           f"first {diff[:8].tolist()}")
+    hinted = [v for e in cs.tape if e["kind"] == "sqrt2" for v in e["outs"][1:]]
+    flipped = [v for v in hinted if cs.assignments[v] != cs_dev.assignments[v]]
+    if moved.numel() and not flipped:
+        raise RuntimeError("element 0 differs from the golden-root host build, though no "
+                           "square-root hint does")
+    log(f"[r1cs] verify circuit: element 0's {n_vars} variables limb-equal to the host build "
+        f"of triple 0 that takes the device's square roots (rebuilt with to_arrays in "
+        f"{rebuild_s:.3f} s); the host build with golden fp2_sqrt's roots differs at "
+        f"{moved.numel()} variables ({len(flipped)} of the {len(hinted)} sqrt2 root "
+        f"coordinates negated, and what derives from their sign)")
+    fp2_pow = sorted({B * g["idx"].shape[1] for g in ct.groups if g["kind"] == "sqrt2"})
+    return {"wit": wit, "ct": ct, "prepared": prepared, "fp2_pow_counts": fp2_pow,
+            "runs": {"r1cs_replay": replay, "r1cs_complete": complete, "r1cs_eval": evaluate},
+            "stats": {"rows": rows, "vars": n_vars, "constraints": cs.num_constraints,
+                      "tape_entries": n_tape, "groups": len(ct.groups), "batch": B,
+                      "host_s": host_s, "replay_s": replay_s, "complete_s": complete_s,
+                      "eval_s": eval_s}}
+
+
+def sha_subcircuit(torch, K, smi, rng):
+    """The SHA-256 gadget over 24-byte messages at SHA_BATCH: the witness
+    from device_witness and the message bit planes, then complete_witness
+    and check_satisfied; one element corrupted is the only one rejected;
+    element 0 limb-equal to a host build of its message."""
+    from bls_verify_gadget_tpu_torch.r1cs import device_witness as DW
+    from bls_verify_gadget_tpu_torch.r1cs import evaluator as EV
+    from bls_verify_gadget_tpu_torch.r1cs.gadgets import UInt8
+    from bls_verify_gadget_tpu_torch.r1cs.sha256 import sha256_gadget
+    from bls_verify_gadget_tpu_torch.r1cs.system import ConstraintSystem
+
+    B, L = SHA_BATCH, R1CS_MSG_LEN
+    msgs = torch.from_numpy(rng.integers(0, 256, (B, L))).cuda()
+
+    def build(msg):
+        cs = ConstraintSystem()
+        sha256_gadget(cs, [UInt8.alloc(cs, int(b)) for b in msg])
+        return cs
+
+    t0 = time.perf_counter()
+    cs = build(msgs[0].tolist())
+    build_s = time.perf_counter() - t0
+    n_base = len(cs.assignments)
+    t0 = time.perf_counter()
+    prepared = EV.prepare(cs.to_arrays())
+    prepare_s = time.perf_counter() - t0
+    rows, n_vars = prepared["a_idx"].shape[0], prepared["num_vars"]
+
+    def witness():
+        table = DW.witness_table("cuda")
+        bits = ((msgs[:, :, None] >> torch.arange(8, device="cuda")) & 1).reshape(B, -1)
+        idx = torch.cat([torch.ones((B, 1), dtype=torch.int64, device="cuda"), bits,
+                         DW.sha256_gadget_witness_indices(msgs, L)], 1)
+        wit = torch.zeros((B, n_vars, 24), dtype=torch.int32, device="cuda")
+        wit[:, :idx.shape[1]] = table[idx]
+        return EV.complete_witness(prepared, wit)
+
+    witness()  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    wit, *gen = counted(torch, K, witness)
+    gen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    good, *evaluate = counted(torch, K, lambda: EV.check_satisfied(prepared, wit, R1CS_CHUNK))
+    eval_s = time.perf_counter() - t0
+    if not bool(good.all()):
+        raise RuntimeError(f"SHA subcircuit: {int((~good).sum())} of {B} witnesses unsatisfied")
+    col = 1 + 8 * L  # the first witness of the SHA segment
+    saved = corrupt(torch, wit, col, [0])
+    bad = EV.check_satisfied(prepared, wit, R1CS_CHUNK)
+    wit[:, col] = saved
+    if bad.tolist() != [i != 0 for i in range(B)]:
+        raise RuntimeError(f"SHA subcircuit: element 0 corrupted, check_satisfied gives "
+                           f"{int((~bad).sum())} false")
+    host = EV.encode_witness(cs.assignments)
+    if not torch.equal(wit[0], host):
+        raise RuntimeError("SHA subcircuit: element 0 differs from the host build")
+    log(f"[r1cs] SHA-256 subcircuit ({L}-byte messages): {cs.num_constraints} constraints, "
+        f"{rows} rows after to_arrays, {n_vars} variables ({n_vars - n_base} partial sums in "
+        f"{len(prepared['levels'])} levels); host s: build {build_s:.3f}, to_arrays + prepare "
+        f"{prepare_s:.3f}")
+    log(f"[r1cs] SHA subcircuit on the card at B = {B}: witness (device_witness + bit planes "
+        f"+ complete_witness) {gen_s:.4f} s = {B / gen_s:.1f} witnesses/s, check_satisfied "
+        f"{eval_s:.4f} s = {rows * B / eval_s:.4g} rows/s, end to end "
+        f"{rows * B / (gen_s + eval_s):.4g} rows/s ({smi}); all {B} satisfied, element 0 "
+        f"corrupted the only one rejected, element 0 limb-equal to its host build")
+    for label, (launches, sizes) in (("witness", gen), ("check_satisfied", evaluate)):
+        log(f"[r1cs] SHA subcircuit {label} launches: {nonzero(launches)} "
+            f"(total {sum(launches.values())}); lc_dot by row width "
+            f"{dict(sorted(sizes['lc_dot'].items()))}")
+    return {"wit": wit, "prepared": prepared,
+            "runs": {"r1cs_sha_gen": gen, "r1cs_sha_eval": evaluate},
+            "stats": {"rows": rows, "vars": n_vars, "batch": B, "gen_s": gen_s,
+                      "eval_s": eval_s}}
+
+
+def r1cs_phase(torch, K, smi):
+    """The R1CS path (see the module docstring, phase 8).  -> the data, the
+    counts of each run and the stats the kernel rows use."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 19)
+    verify = verify_circuit(torch, K, smi, rng)
+    sha = sha_subcircuit(torch, K, smi, rng)
+    runs = {**verify["runs"], **sha["runs"]}
+    launches = {k: sum(r[0][k] for r in runs.values()) for k in K.KERNELS}
+    sizes = merge_sizes(*(r[1] for r in runs.values()))
+    idle = [k for k in ("lc_dot", *R1CS_FIELD) if launches[k] == 0]
+    if idle:
+        raise RuntimeError(f"kernels not launched on the R1CS path: {idle}")
+    log(f"[r1cs] launches over the phase's runs: {nonzero(launches)} "
+        f"(total {sum(launches.values())})")
+    return {"verify": verify, "sha": sha, "runs": runs, "launches": launches, "sizes": sizes,
+            "fp2_pow_counts": verify["fp2_pow_counts"]}
+
+
+def lc_dot_cases(torch, r1cs):
+    """(label, (w, idx, coeff), run) for lc_dot at every row width the R1CS
+    runs launched it with, on the witnesses and tables of those runs: the
+    evaluator's first chunk (W = 8) on each circuit, the partial sums'
+    deepest level, and per tape width the widest group's first operand."""
+    verify, sha = r1cs["verify"], r1cs["sha"]
+    wit, prep = verify["wit"], verify["prepared"]
+    cases = [
+        ("verify circuit, check_satisfied chunk",
+         (wit, prep["a_idx"][:R1CS_CHUNK], prep["a_coeff"][:R1CS_CHUNK]), "r1cs_eval"),
+        ("SHA subcircuit, check_satisfied chunk",
+         (sha["wit"], sha["prepared"]["c_idx"][:R1CS_CHUNK],
+          sha["prepared"]["c_coeff"][:R1CS_CHUNK]), "r1cs_sha_eval"),
+    ]
+    var, idx, coeff = max(prep["levels"], key=lambda lv: lv[0].numel())
+    cases.append(("verify circuit, widest partial-sum level", (wit, idx, coeff), "r1cs_complete"))
+    widest = {}
+    for g in verify["ct"].groups:
+        w = g["idx"].shape[-1]
+        if w not in widest or g["idx"].shape[1] > widest[w]["idx"].shape[1]:
+            widest[w] = g
+    for w, g in sorted(widest.items()):
+        cases.append((f"verify tape, {g['kind']} group of {g['idx'].shape[1]} at W = {w}",
+                      (wit, g["idx"][0], g["coeff"][0]), "r1cs_replay"))
+    return cases
+
+
+def lc_dot_work(args):
+    """(bytes, Montgomery products) of one lc_dot call on this data: per
+    output the witness rows of its nonzero terms gathered and one row
+    written, the (R, W) coefficient rows and indices read once, one product
+    per nonzero term (the kernel skips zero coefficients)."""
+    w, idx, coeff = args
+    b, (r, width) = w.shape[0], idx.shape
+    nnz = int((coeff != 0).any(-1).sum())
+    return 96 * (b * nnz + r * width + b * r) + 4 * r * width, b * nnz
+
+
+def lc_dot_row(torch, K, r1cs, plain_call):
+    """lc_dot against its plain version, bit for bit, at every row width
+    the R1CS runs launched it with; device time per launch by CUDA-graph
+    replay, eager call time, plain time (one call, CUDA events) and bound
+    of each case; the row's main case is the evaluator's chunk."""
+    from bls_verify_gadget_tpu_torch.ops.fp import FP
+    from bls_verify_gadget_tpu_torch.r1cs import evaluator as EV
+
+    kern = lambda *a: K.lc_dot(FP, *a)  # noqa: E731
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    out = []
+    for label, args, run in lc_dot_cases(torch, r1cs):
+        width = args[1].shape[1]
+        if width not in r1cs["runs"][run][1]["lc_dot"]:
+            raise RuntimeError(f"lc_dot ({label}) checked at W = {width}, but the {run} run "
+                               f"launched it at {sorted(r1cs['runs'][run][1]['lc_dot'])}")
+        got = kern(*args)
+        torch.cuda.synchronize()
+        start.record()
+        ref = plain_call("lc_dot", EV.lc_dot_plain, args)
+        end.record()
+        torch.cuda.synchronize()
+        err = max_err(got, ref)
+        if err != 0:
+            raise RuntimeError(f"kernel lc_dot ({label}) disagrees with its plain version: "
+                               f"max |err| {err}")
+        nbytes, nmont = lc_dot_work(args)
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = nmont * MAD_PER_MONT / INT32_MAD_PER_S * 1e3
+        c = {"case": label, "path": run, "width": width, "rows": args[1].shape[0],
+             "batch": args[0].shape[0], "max_abs_err": err,
+             "ms": device_ms(torch, kern, args, 3, 2), "call_ms": call_ms(torch, kern, args, 3),
+             "plain_ms": start.elapsed_time(end), "bound_ms": max(bytes_ms, ops_ms),
+             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+             "launches": r1cs["runs"][run][1]["lc_dot"][width]}
+        out.append(c)
+        log(f"[kernel] lc_dot ({label}): bit-equal to plain, B = {c['batch']}, R = {c['rows']}, "
+            f"W = {width}; device {c['ms']:.5f} ms, eager call {c['call_ms']:.5f} ms, plain "
+            f"{c['plain_ms']:.4f} ms (one call), bound {c['bound_ms']:.5f} ms "
+            f"({c['bound_by']}); {c['launches']} launches at this width in the {run} run")
+    for run, (_, sizes) in r1cs["runs"].items():
+        check_covered("lc_dot", [c["width"] for c in out], run, sizes["lc_dot"])
+    by_run = {}
+    for c in out:
+        for run, (_, sizes) in r1cs["runs"].items():
+            if c["width"] in sizes["lc_dot"] and run not in by_run.get(c["width"], {}):
+                by_run.setdefault(c["width"], {})[run] = c["ms"] * sizes["lc_dot"][c["width"]]
+    device_by_run = collections.Counter()
+    for w, per_run in by_run.items():
+        device_by_run.update(per_run)
+    log(f"[kernel] lc_dot device ms per run, launches x device time of the case at each width "
+        f"(an estimate: a width's groups differ in size): "
+        f"{ {k: round(v, 3) for k, v in device_by_run.items()} }")
+    main = out[0]
+    row = {
+        "name": "lc_dot", "route": "cuda", "source": R1CS_SRC, "replaces": KERNELS["lc_dot"][0],
+        "launches": r1cs["launches"]["lc_dot"], "max_abs_err": max(c["max_abs_err"] for c in out),
+        **{k: main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+        "library_ms": None, "elements": main["batch"] * main["rows"], "width": main["width"],
+        "call_ms": main["call_ms"], "cases": out,
+    }
+    for run, (launches, _) in r1cs["runs"].items():
+        row[f"launches_{run}"] = launches["lc_dot"]
+    return row
+
+
+def r1cs_field_checks(torch, K, r1cs, plain_call):
+    """The field kernels that the R1CS runs launched (mul, add, sub, fp2_mul,
+    fp2_sqr, fp6_mul through fp12_inv, pow_win through every inverse and
+    the square roots) against their plain versions, bit for bit, on seeded
+    operands with edge values at every element count those runs launched
+    them with (pow_win in Fp with e = p - 2 at each, and in Fp2 with e = (p -
+    11)/16 at the sqrt2 groups' counts).  -> name -> {"counts": [...],
+    "launches": N}."""
+    import numpy as np
+
+    from bls_verify_gadget_tpu_torch.ops import hash_to_g2 as H
+    from bls_verify_gadget_tpu_torch.ops.fp import FP
+
+    rng = np.random.default_rng(SEED + 20)
+    out = {}
+    t0 = time.perf_counter()
+    for name in R1CS_FIELD:
+        kern, plain = kernel_call(name)
+        counts = sorted(r1cs["sizes"][name])
+        for n in counts:
+            if name == "fp6_mul":
+                calls = [pairing_inputs(torch, rng, name, n)]
+            elif name == "pow_win":
+                a = field_inputs(torch, rng, "fp2_mul", n)
+                calls = [(a[0][None], FP.modulus - 2)]
+                if n in r1cs["fp2_pow_counts"]:
+                    calls.append((torch.stack(a[:2]), H.SQRT_K))
+            else:
+                calls = [field_inputs(torch, rng, name, n)]
+            for args in calls:
+                err = max_err(kern(*args), plain_call(name, plain, args))
+                if err != 0:
+                    raise RuntimeError(f"kernel {name} disagrees with its plain version at {n} "
+                                       f"elements (R1CS path): max |err| {err}")
+        for run, (_, sizes) in r1cs["runs"].items():
+            check_covered(name, counts, run, sizes[name])
+        out[name] = {"counts": counts, "launches": r1cs["launches"][name]}
+    log(f"[kernel] R1CS path: {', '.join(f'{k} at {len(v['counts'])} element counts' for k, v in out.items())} "
+        f"bit-equal to plain (every count its runs launched; COUNTS unchanged by plain) in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return out
 
 
 def rand_limbs(torch, rng, n, top):
@@ -1858,7 +2364,7 @@ def miller_k1_cases(torch, rng, name, kern, plain_call, plain, keys, longest):
             "launches": keys["launches"][name], "sizes": sorted(hist)}
 
 
-def kernel_phase(torch, K, launches, sizes, verify_s, ctx, keys, steps, mixed):
+def kernel_phase(torch, K, launches, sizes, verify_s, ctx, keys, steps, mixed, r1cs):
     """Each kernel against its plain version on the same CUDA tensors, bit
     for bit, with COUNTS unchanged across every plain call, at every
     element count that the verify run or the keys run launched it with:
@@ -1875,7 +2381,10 @@ def kernel_phase(torch, K, launches, sizes, verify_s, ctx, keys, steps, mixed):
     run; pow_win: Fp; pt_mul_const, pt_mul_var, pt_add, pt_dbl: G1), and
     the bound of that call.  "launches" counts the path the kernel serves
     (verify; keys for the point kernels; steps, the step-wise verify, for
-    the step-wise kernels); the other paths' counts ride beside it."""
+    the step-wise kernels; the r1cs runs for lc_dot, lc_dot_row); the
+    other paths' counts ride beside it, and the field kernels, fp6_mul and
+    pow_win are also held to their plain versions at every element count
+    the r1cs runs launched them with (r1cs_field_checks)."""
     import numpy as np
 
     from bls_verify_gadget_tpu_torch.ops import curve as CV
@@ -1899,6 +2408,9 @@ def kernel_phase(torch, K, launches, sizes, verify_s, ctx, keys, steps, mixed):
     pcases, scases = point_cases(torch, rng, K, keys), step_cases(torch, rng, steps)
     step_ms = {}
     for name, (replaces, source, _) in KERNELS.items():
+        if source == R1CS_SRC:
+            rows.append(lc_dot_row(torch, K, r1cs, plain_call))
+            continue
         if source == XMD_SRC:
             xcases = xmd_cases(torch, ctx, keys, mixed)
             xmd_host_checks(torch, K, xcases)
@@ -1985,6 +2497,9 @@ def kernel_phase(torch, K, launches, sizes, verify_s, ctx, keys, steps, mixed):
             f"ms, plain {plain_ms:.4f} ms, bound {bound_ms:.5f} ms "
             f"({bound_by}); {launches[name]} launches per verify")
     by_name = {r["name"]: r for r in rows}
+    for name, checked in r1cs_field_checks(torch, K, r1cs, plain_call).items():
+        by_name[name]["launches_r1cs"] = checked["launches"]
+        by_name[name]["r1cs_counts"] = checked["counts"]
     for name, fields in staged_edge_checks(torch, K, rng, plain_call).items():
         by_name[name]["edge_counts"] = list(EDGE_COUNTS)
         by_name[name]["edge_fields"] = fields
@@ -2005,6 +2520,22 @@ def kernel_phase(torch, K, launches, sizes, verify_s, ctx, keys, steps, mixed):
         f"{chains_ms:.3f} ms against 5 exp_x {5 * by_name['exp_x']['ms']:.3f} ms; step "
         f"kernels by name {({k: round(v, 3) for k, v in step_ms.items()})}")
     return rows
+
+
+def r1cs_only(torch, K, smi):
+    """--r1cs: the r1cs phase, then lc_dot's row and the R1CS path's field
+    kernels against their plain versions (kernel_phase's R1CS parts)."""
+    def plain_call(name, plain, args):
+        before = dict(K.COUNTS.launches)
+        out = plain(*args)
+        if K.COUNTS.launches != before:
+            raise RuntimeError(f"the plain version of {name} launched kernels")
+        return out
+
+    r1cs = r1cs_phase(torch, K, smi)
+    row = lc_dot_row(torch, K, r1cs, plain_call)
+    r1cs_field_checks(torch, K, r1cs, plain_call)
+    log(f"[kernel] lc_dot row: {json.dumps({k: v for k, v in row.items() if k != 'cases'})}")
 
 
 # ----------------------------------------------------------------------------
@@ -2538,7 +3069,7 @@ def group_cases(torch, rng):
 
 
 def group_phase(torch, K, sweep_started, parent_started=None, parent_dir=None):
-    """The group kernels (module docstring, phase 9): on each case of
+    """The group kernels (module docstring, phase 10): on each case of
     group_cases, the wrapper bit-equal to the plain version, each G of the
     sweep (the library's and the throwaway builds of sweep_started) and the
     parent's kernel bit-equal to the wrapper, all on the same
@@ -2830,7 +3361,7 @@ def field_cases(torch, rng):
 
 
 def field_phase(torch, K, field_started, parent_started=None):
-    """The staged field kernels (module docstring, phase 10): on each case of
+    """The staged field kernels (module docstring, phase 11): on each case of
     field_cases the wrapper bit-equal to the plain version; the sweep
     builds (every E of FIELD_E, Fp mul, fp2_mul and fp2_sqr also on one
     thread) and the
@@ -2919,6 +3450,9 @@ def main():
     only.add_argument("--field", action="store_true",
                       help="run only the device, build and field phases (mul, add, sub, "
                            "fp2_mul and fp2_sqr)")
+    only.add_argument("--r1cs", action="store_true",
+                      help="run only the device, build and r1cs phases, then lc_dot's and "
+                           "the R1CS path's field kernels' checks against their plain versions")
     ap.add_argument("--parent", metavar="DIR",
                     help="a git archive of the parent commit in a git-ignored directory of "
                          "this checkout: time its miller_dbl_run, miller_add, exp_x, "
@@ -2939,7 +3473,8 @@ def main():
     from bls_verify_gadget_tpu_torch.ops import kernels as K
 
     smi, kind = device_phase(torch)
-    groups, fields = not args.field, not args.group  # the phases that run
+    # the phases that run
+    groups, fields = not (args.field or args.r1cs), not (args.group or args.r1cs)
     sweep = sweep_build_start(K) if groups else {}
     field_sweep = field_build_start(K) if fields else {}
     parent = parent_build_start(K, args.parent, groups, fields) if args.parent else {}
@@ -2950,13 +3485,18 @@ def main():
             group_phase(torch, K, sweep, parent_group, args.parent)
         elif args.field:
             field_phase(torch, K, field_sweep, parent.get("field"))
+        elif args.r1cs:
+            r1cs_only(torch, K, smi)
         else:
             launches, sizes, verify_s, parts, want, ctx = main_path_phase(torch, K)
             profile_phase(torch, parts, ctx["msg"], want, verify_s)
             keys = keys_phase(torch, K)
             mixed = mixed_phase(torch, K, ctx, want, keys, launches)
             steps = steps_phase(torch, K, ctx, want, launches, keys)
-            rows = kernel_phase(torch, K, launches, sizes, verify_s, ctx, keys, steps, mixed)
+            r1cs = r1cs_phase(torch, K, smi)
+            rows = kernel_phase(torch, K, launches, sizes, verify_s, ctx, keys, steps, mixed,
+                                r1cs)
+            del r1cs
             group = group_phase(torch, K, sweep, parent_group, args.parent)
             staged = field_phase(torch, K, field_sweep, parent.get("field"))
             for row in rows:

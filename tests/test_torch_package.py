@@ -21,6 +21,10 @@ from bls_verify_gadget_tpu_torch.models import bls
 from bls_verify_gadget_tpu_torch.ops import curve, hash_to_g2, kernels, pairing, sha256, tower
 from bls_verify_gadget_tpu_torch.golden import codec
 from bls_verify_gadget_tpu_torch.ops.fp import FP
+from bls_verify_gadget_tpu_torch.r1cs import (
+    curve, device_witness, evaluator, fields, gadgets, hasher, pairing, sha256, system,
+    verify, witness_vm,
+)
 from bls_verify_gadget_tpu_torch.utils import config
 a = FP.encode([3, 5], "cpu")
 assert FP.decode(FP.mul(a, a)) == [9, 25]
@@ -79,6 +83,36 @@ def test_entry_points_need_a_card_unless_cpu():
     assert BatchedBLS(device="cpu").device.type == "cpu"
 
 
+def test_r1cs_entry_points_need_a_card_unless_cpu():
+    """prepare, compile_tape and the witness encoders run on the card
+    unless given device="cpu"; check_satisfied and run_tape then run where
+    their tables are."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; this checks the no-card behaviour")
+    from bls_verify_gadget_tpu_torch.r1cs import evaluator as EV
+    from bls_verify_gadget_tpu_torch.r1cs import witness_vm as VM
+    from bls_verify_gadget_tpu_torch.r1cs.gadgets import FpVar
+    from bls_verify_gadget_tpu_torch.r1cs.system import ConstraintSystem
+
+    cs = ConstraintSystem()
+    a, b = FpVar.alloc(cs, 3), FpVar.alloc(cs, 5)
+    (a * b + a).enforce_equal(FpVar.constant(cs, 18))
+    for call in (
+        lambda: VM.compile_tape(cs),
+        lambda: EV.prepare(cs.to_arrays()),
+        lambda: EV.encode_witness(cs.assignments),
+        lambda: EV.encode_witness_batch([cs.assignments]),
+    ):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    ct = VM.compile_tape(cs, device="cpu")
+    prepared = EV.prepare(cs.to_arrays(), device="cpu")
+    inputs = EV.encode_witness(cs.assignments, "cpu")[None, 1:3]
+    wit = VM.run_tape(ct, inputs, 1)
+    assert wit.device.type == "cpu"
+    assert EV.check_satisfied(prepared, wit).tolist() == [True]
+
+
 def test_kernel_wrappers_do_not_fall_back():
     """A tensor that is neither on the CPU nor on a card is refused; the
     plain version runs only for CPU tensors."""
@@ -122,6 +156,9 @@ def test_kernel_wrappers_do_not_fall_back():
         lambda: K.cyclo_sqr(FP, f, 1),
         lambda: K.cyclo_sqr(FP, f, 32),
         lambda: K.xmd(torch.zeros(2, 3, dtype=torch.uint8, device="meta"), None, b"DST", 256),
+        lambda: K.lc_dot(FP, a.new_zeros(2, 5, 24), torch.zeros(3, 8, dtype=torch.int32,
+                                                                   device="meta"),
+                         a.new_zeros(3, 8, 24)),
     ):
         with pytest.raises(ValueError):
             call()
@@ -137,6 +174,7 @@ def test_sources_name_every_csrc_file():
     assert {p.name for p in K.CSRC_DIR.iterdir()} == files
     assert set(K.UNITS) == {n for n in files if n.endswith(".cu")}
     assert "point_kernels.cu" in K.UNITS
+    assert "r1cs_kernels.cu" in K.UNITS and "lc_dot" in K.KERNELS
 
 
 def test_config_defaults_keep_the_fused_path(monkeypatch):
