@@ -6,7 +6,9 @@ arithmetic, the pairing's Miller runs and exp-by-x chains, the hash map and
 cofactor clearing, the subgroup and scalar ladders, the point additions
 and the Fermat inverse run through hand-written CUDA C++ kernels (csrc/,
 built with nvcc on first use and loaded with ctypes); the glue between
-them is plain PyTorch.
+them is plain PyTorch.  parallel/ shards the scheme over ranks with
+torch.distributed, and native_codec.py decodes wire bytes in C++ on the
+host (built with g++ on first use).
 Every tensor entry point runs on `cuda` unless the caller passes
 device="cpu", where each kernel's plain PyTorch version runs instead.
 

@@ -1,19 +1,35 @@
-"""Host field arithmetic over python ints: Fp, Fp2, and the Fp6 and Fp12
-inverses (own copy of the reference package's golden/field.py, the part the
-port's point codec, hash-to-G2 constants and R1CS gadgets need).
+"""Golden field tower: Fp, Fp2, Fp6, Fp12 over python ints (own copy of
+the reference package's golden/field.py, plus fp2_sqrt_candidate_root).
 
 Representation:
   Fp   : int in [0, P)
   Fp2  : (c0, c1)            meaning c0 + c1*u,       u^2 = -1
   Fp6  : (a0, a1, a2)        meaning a0 + a1*v + a2*v^2, v^3 = xi = 1+u
   Fp12 : (b0, b1)            meaning b0 + b1*w,       w^2 = v
+
+Parity: replaces the reference's use of ark-ff Fp/Fp2/Fp6/Fp12
+(reference Cargo.toml:17, src/hasher.rs:7).
 """
 
-from ..constants import P, Q2, SQRT_FP_EXP, EULER_FP_EXP
+from ..constants import (
+    P, Q2, XI, FROB6_C1, FROB6_C2, FROB12_C1, SQRT_FP_EXP, EULER_FP_EXP,
+)
 
 # ----------------------------------------------------------------------------
 # Fp
 # ----------------------------------------------------------------------------
+
+def fp_add(a, b):
+    return (a + b) % P
+
+def fp_sub(a, b):
+    return (a - b) % P
+
+def fp_mul(a, b):
+    return (a * b) % P
+
+def fp_neg(a):
+    return (-a) % P
 
 def fp_inv(a):
     if a == 0:
@@ -29,6 +45,9 @@ def fp_sqrt(a):
 
 def fp_is_square(a):
     return a == 0 or pow(a, EULER_FP_EXP, P) == 1
+
+def fp_sgn0(a):
+    return a & 1
 
 # ----------------------------------------------------------------------------
 # Fp2
@@ -56,6 +75,13 @@ def fp2_mul(a, b):
 def fp2_sqr(a):
     return ((a[0] + a[1]) * (a[0] - a[1]) % P, 2 * a[0] * a[1] % P)
 
+def fp2_muls(a, s):
+    """Multiply by an Fp scalar."""
+    return (a[0] * s % P, a[1] * s % P)
+
+def fp2_conj(a):
+    return (a[0], (-a[1]) % P)
+
 def fp2_inv(a):
     n = (a[0] * a[0] + a[1] * a[1]) % P
     ni = fp_inv(n)
@@ -70,6 +96,9 @@ def fp2_pow(a, e):
         b = fp2_sqr(b)
         e >>= 1
     return r
+
+def fp2_is_zero(a):
+    return a[0] == 0 and a[1] == 0
 
 def fp2_is_square(a):
     """a is a square in Fp2 iff norm(a) is a square in Fp."""
@@ -139,12 +168,18 @@ def fp2_sgn0(a):
     return s0 | (int(z0) & s1)
 
 # ----------------------------------------------------------------------------
-# Fp6 = Fp2[v]/(v^3 - xi), Fp12 = Fp6[w]/(w^2 - v): the inverses
+# Fp6 = Fp2[v]/(v^3 - xi)
 # ----------------------------------------------------------------------------
+
+FP6_ZERO = (FP2_ZERO, FP2_ZERO, FP2_ZERO)
+FP6_ONE = (FP2_ONE, FP2_ZERO, FP2_ZERO)
 
 def fp2_mul_xi(a):
     """Multiply by xi = 1 + u:  (c0 - c1) + (c0 + c1) u."""
     return ((a[0] - a[1]) % P, (a[0] + a[1]) % P)
+
+def fp6_add(a, b):
+    return tuple(fp2_add(x, y) for x, y in zip(a, b))
 
 def fp6_sub(a, b):
     return tuple(fp2_sub(x, y) for x, y in zip(a, b))
@@ -179,8 +214,115 @@ def fp6_inv(a):
     ti = fp2_inv(t)
     return (fp2_mul(c0, ti), fp2_mul(c1, ti), fp2_mul(c2, ti))
 
+# ----------------------------------------------------------------------------
+# Fp12 = Fp6[w]/(w^2 - v)
+# ----------------------------------------------------------------------------
+
+FP12_ZERO = (FP6_ZERO, FP6_ZERO)
+FP12_ONE = (FP6_ONE, FP6_ZERO)
+
+def fp12_add(a, b):
+    return (fp6_add(a[0], b[0]), fp6_add(a[1], b[1]))
+
+def fp12_sub(a, b):
+    return (fp6_sub(a[0], b[0]), fp6_sub(a[1], b[1]))
+
+def fp12_mul(a, b):
+    a0, a1 = a
+    b0, b1 = b
+    v0 = fp6_mul(a0, b0)
+    v1 = fp6_mul(a1, b1)
+    c0 = fp6_add(v0, fp6_mul_v(v1))
+    c1 = fp6_sub(fp6_mul(fp6_add(a0, a1), fp6_add(b0, b1)), fp6_add(v0, v1))
+    return (c0, c1)
+
+def fp12_sqr(a):
+    a0, a1 = a
+    v0 = fp6_mul(a0, a1)
+    t = fp6_mul(fp6_add(a0, a1), fp6_add(a0, fp6_mul_v(a1)))
+    c0 = fp6_sub(fp6_sub(t, v0), fp6_mul_v(v0))
+    c1 = fp6_add(v0, v0)
+    return (c0, c1)
+
+def fp12_conj(a):
+    """Conjugate (= inverse for elements of the cyclotomic subgroup)."""
+    return (a[0], fp6_neg(a[1]))
+
 def fp12_inv(a):
     a0, a1 = a
     t = fp6_sub(fp6_sqr(a0), fp6_mul_v(fp6_sqr(a1)))
     ti = fp6_inv(t)
     return (fp6_mul(a0, ti), fp6_neg(fp6_mul(a1, ti)))
+
+def fp12_pow(a, e):
+    if e < 0:
+        return fp12_pow(fp12_inv(a), -e)
+    r = FP12_ONE
+    b = a
+    while e:
+        if e & 1:
+            r = fp12_mul(r, b)
+        b = fp12_sqr(b)
+        e >>= 1
+    return r
+
+def fp12_is_one(a):
+    return a == FP12_ONE
+
+def _fp4_sqr(a, b):
+    """(a + b V)^2 in Fp4 = Fp2[V]/(V^2 - xi): (a^2 + xi b^2, 2ab)."""
+    t0 = fp2_sqr(a)
+    t1 = fp2_sqr(b)
+    t2 = fp2_sub(fp2_sqr(fp2_add(a, b)), fp2_add(t0, t1))
+    return (fp2_add(t0, fp2_mul_xi(t1)), t2)
+
+
+def fp12_cyclotomic_sqr(f):
+    """Granger-Scott squaring for elements of the cyclotomic subgroup
+    (valid after the easy part of the final exponentiation): 9 Fp2 squares
+    instead of a full Fp12 square.  Mapping validated numerically against
+    fp12_sqr."""
+    a, b = f
+    z = (a[0], b[1], b[0], a[2], a[1], b[2])
+    t00, t01 = _fp4_sqr(z[0], z[1])
+    t20, t21 = _fp4_sqr(z[2], z[3])
+    t40, t41 = _fp4_sqr(z[4], z[5])
+
+    def m3m2(t, zz):  # 3t - 2z
+        r = fp2_sub(t, zz)
+        r = fp2_add(r, r)
+        return fp2_add(r, t)
+
+    def p3p2(t, zz):  # 3t + 2z
+        r = fp2_add(t, zz)
+        r = fp2_add(r, r)
+        return fp2_add(r, t)
+
+    z0n = m3m2(t00, z[0])
+    z1n = p3p2(t01, z[1])
+    z2n = p3p2(fp2_mul_xi(t41), z[2])
+    z3n = m3m2(t40, z[3])
+    z4n = m3m2(t20, z[4])
+    z5n = p3p2(t21, z[5])
+    return ((z0n, z4n, z3n), (z2n, z1n, z5n))
+
+
+# Frobenius maps: (x + y u)^p = x - y u, then tower coefficients.
+
+def fp6_frob(a, power):
+    i = power % 6
+    def c(x):
+        return fp2_conj(x) if power % 2 else x
+    return (
+        c(a[0]),
+        fp2_mul(c(a[1]), FROB6_C1[i]),
+        fp2_mul(c(a[2]), FROB6_C2[i]),
+    )
+
+def fp12_frob(a, power):
+    i = power % 12
+    c0 = fp6_frob(a[0], power)
+    c1 = fp6_frob(a[1], power)
+    # multiply the w-part coefficients by FROB12_C1[i]
+    c1 = tuple(fp2_mul(x, FROB12_C1[i]) for x in c1)
+    return (c0, c1)

@@ -12,6 +12,10 @@ Semantics mirror the reference:
 Every tensor lives on the instance's device: `cuda` unless the caller
 passes device="cpu", where each kernel's plain PyTorch version runs.
 Without a card, BatchedBLS() raises; it never falls back to the CPU.
+
+Batch shapes are leading dims, as in the JAX package: the entry points
+flatten them, run the kernels on one batch axis, and give the outputs the
+operands' batch shape (less the summed axis, for the aggregates).
 """
 
 import dataclasses
@@ -42,10 +46,49 @@ class Params:
             self.g1_y = FP.encode(C.G1_GEN[1], "cpu")
 
 
+def _batch_shapes(x, trailing: int):
+    """The batch shapes of a tensor with `trailing` non-batch dims, or of
+    the tensors of a nested tuple (a bool mask has none)."""
+    if isinstance(x, tuple):
+        return set().union(*(_batch_shapes(c, trailing) for c in x))
+    if x.dtype == torch.bool or not trailing:
+        return {tuple(x.shape)}
+    return {tuple(x.shape[:-trailing])}
+
+
+def _batch(**operands):
+    """The one batch shape of the named operands, each (value, trailing
+    dims) with value a tensor or a nested tuple of them (limbs (..., 24),
+    bytes (..., L), scalars (..., 16), masks and lengths (...)).  Raises a
+    ValueError that names the operands where their shapes differ."""
+    shapes = {name: _batch_shapes(x, k) for name, (x, k) in operands.items() if x is not None}
+    found = set().union(*shapes.values())
+    if len(found) != 1:
+        raise ValueError("batch shapes differ: " + ", ".join(
+            f"{name} {sorted(s)}" for name, s in shapes.items()))
+    return found.pop()
+
+
+def _flat(x, batch):
+    """Tensors of batch shape `batch` (leading) -> one batch axis (as they
+    are when it is one axis already: no walk on the host)."""
+    if len(batch) == 1:
+        return x
+    return T._tree(lambda t: t.reshape(-1, *t.shape[len(batch):]), x)
+
+
+def _unflat(x, batch):
+    """One batch axis -> the batch shape `batch` (as _flat)."""
+    if len(batch) == 1:
+        return x
+    return T._tree(lambda t: t.reshape(*batch, *t.shape[1:]), x)
+
+
 class BatchedBLS:
-    """Batch-first BLS over the torch ops on one device.  Batches are 1-D:
-    pk (B, 24) limbs, sig Fp2 pairs of (B, 24), messages (B, L), secret
-    keys (B, 16) raw Fr limbs."""
+    """Batch-first BLS over the torch ops on one device.  Batch shapes are
+    leading dims (...): pk (..., 24) limbs, sig Fp2 pairs of (..., 24),
+    messages (..., L), secret keys (..., 16) raw Fr limbs; the kernels run
+    on them flattened to one axis."""
 
     def __init__(self, params: Params | None = None, device="cuda"):
         self.device = resolve_device(device)
@@ -59,15 +102,16 @@ class BatchedBLS:
 
     def _msg(self, msg_u8, msg_len, msg_lens=None):
         """-> (messages, per-element lengths or None) on the device: msg_len,
-        where given, is the width; msg_lens a 1-D tensor of B lengths."""
+        where given, is the width; msg_lens the messages' batch shape of
+        lengths."""
         msg_u8 = self._to(msg_u8)
         if msg_len is not None and msg_len != msg_u8.shape[-1]:
             raise ValueError(f"msg_len {msg_len} != message width {msg_u8.shape[-1]}")
         if msg_lens is not None:
             msg_lens = self._to(torch.as_tensor(msg_lens))
-            if tuple(msg_lens.shape) != tuple(msg_u8.shape[:1]) or msg_u8.dim() != 2:
-                raise ValueError(f"msg_lens must be a 1-D tensor of {msg_u8.shape[0]} lengths "
-                                 f"for (B, L) messages, got {tuple(msg_lens.shape)}")
+            if tuple(msg_lens.shape) != tuple(msg_u8.shape[:-1]):
+                raise ValueError(f"msg_lens must be of the messages' batch shape "
+                                 f"{tuple(msg_u8.shape[:-1])}, got {tuple(msg_lens.shape)}")
         return msg_u8, msg_lens
 
     # ------------------------------------------------------------------
@@ -75,26 +119,32 @@ class BatchedBLS:
     # ------------------------------------------------------------------
 
     def derive_pubkeys(self, sk_limbs):
-        """sk_limbs: (B, 16) raw (non-Montgomery) Fr limbs -> G1 Jacobian
+        """sk_limbs: (..., 16) raw (non-Montgomery) Fr limbs -> G1 Jacobian
         pubkeys [sk]g1: ONE pt_mul_var launch over 255 bits."""
         sk = self._to(sk_limbs)
-        gen = CV.g1_generator((*sk.shape[:-1], C.NLIMB), self.device)
-        return CV.pt_mul_var(CV.FP_OPS, gen, sk, 255)
+        batch = tuple(sk.shape[:-1])
+        sk = _flat(sk, batch)
+        gen = CV.g1_generator((sk.shape[0], C.NLIMB), self.device)
+        return _unflat(CV.pt_mul_var(CV.FP_OPS, gen, sk, 255), batch)
 
     def hash_to_g2(self, msg_u8, msg_len: int | None = None, msg_lens=None):
         """H(m) as a Jacobian G2 point.  `msg_lens` (per-element byte
         lengths) enables mixed-length batches; msg_len is then the padded
         width."""
         msg_u8, msg_lens = self._msg(msg_u8, msg_len, msg_lens)
-        return hash_to_g2(msg_u8, msg_u8.shape[-1], lens=msg_lens)
+        batch = tuple(msg_u8.shape[:-1])
+        lens = None if msg_lens is None else _flat(msg_lens, batch)
+        return _unflat(hash_to_g2(_flat(msg_u8, batch), msg_u8.shape[-1], lens=lens), batch)
 
     def sign(self, sk_limbs, msg_u8, msg_len: int | None = None, msg_lens=None):
         """-> (sig Jacobian G2 [sk]H(m), valid mask): ONE pt_mul_var launch
         after the hash.  Zero keys give valid = False (the reference
         rejects them).  `msg_lens` as in hash_to_g2."""
         sk = self._to(sk_limbs)
-        sig = CV.pt_mul_var(CV.FP2_OPS, self.hash_to_g2(msg_u8, msg_len, msg_lens), sk, 255)
-        return sig, ~(sk == 0).all(-1)
+        batch = _batch(sk_limbs=(sk, 1), msg_u8=(self._to(msg_u8), 1))
+        h = _flat(self.hash_to_g2(msg_u8, msg_len, msg_lens), batch)
+        sig = CV.pt_mul_var(CV.FP2_OPS, h, _flat(sk, batch), 255)
+        return _unflat(sig, batch), ~(sk == 0).all(-1)
 
     # ------------------------------------------------------------------
     # verify
@@ -115,17 +165,21 @@ class BatchedBLS:
         (per-element byte lengths) enables mixed-length batches; msg_len is
         then the padded width."""
         msg_u8, msg_lens = self._msg(msg_u8, msg_len, msg_lens)
-        x = msg_u8
-        for _, part in self.hash_parts(msg_u8.shape[-1], msg_lens):
+        batch = tuple(msg_u8.shape[:-1])
+        lens = None if msg_lens is None else _flat(msg_lens, batch)
+        x = _flat(msg_u8, batch)
+        for _, part in self.hash_parts(msg_u8.shape[-1], lens):
             x = part(x)
-        return x
+        return _unflat(x, batch)
 
     def miller_stage(self, pk_aff, sig_aff, h_aff):
         """Stage 2a: validity checks + the shared two-pair Miller loop for
         e(-g1, sig) * e(pk, h).  Returns (f, checks_ok)."""
-        pk_x, pk_y, pk_inf = self._to(pk_aff)
-        sig_x, sig_y, sig_inf = self._to(sig_aff)
-        h_x, h_y, h_inf = self._to(h_aff)
+        pk_aff, sig_aff, h_aff = self._to(pk_aff), self._to(sig_aff), self._to(h_aff)
+        batch = _batch(pk_aff=(pk_aff, 1), sig_aff=(sig_aff, 1), h_aff=(h_aff, 1))
+        pk_x, pk_y, pk_inf = _flat(pk_aff, batch)
+        sig_x, sig_y, sig_inf = _flat(sig_aff, batch)
+        h_x, h_y, h_inf = _flat(h_aff, batch)
         pk_ok, sig_ok = _point_checks((pk_x, pk_y, pk_inf), (sig_x, sig_y, sig_inf))
 
         neg_g1 = (
@@ -136,29 +190,34 @@ class BatchedBLS:
             (neg_g1, (sig_x, sig_y), ~sig_inf),
             ((pk_x, pk_y), (h_x, h_y), ~h_inf),
         ])
-        return f, pk_ok & sig_ok
+        return _unflat((f, pk_ok & sig_ok), batch)
 
     def finalexp_stage(self, f, checks_ok):
         """Stage 2b: final exponentiation + the is-one test, masked by the
         stage-2a validity checks."""
+        batch = _batch(f=(f, 1), checks_ok=(checks_ok, 0))
+        f, checks_ok = _flat((f, checks_ok), batch)
         paired_one = T.fp12_is_one(PR.final_exponentiation(f))
-        return paired_one & checks_ok
+        return _unflat(paired_one & checks_ok, batch)
 
     def pairing_stage(self, pk_aff, sig_aff, h_aff):
         """Stage 2: validity checks + the pairing product test."""
         return self.finalexp_stage(*self.miller_stage(pk_aff, sig_aff, h_aff))
 
     def verify(self, pk_aff, sig_aff, msg_u8, msg_len: int | None = None, msg_lens=None):
-        """Batched verification -> (B,) bool tensor.
+        """Batched verification -> (...,) bool tensor.
 
         pk_aff   = (x, y, is_inf): affine G1 limb tensors + infinity mask
         sig_aff  = ((x0, x1), (y0, y1), is_inf): affine G2 + infinity mask
-        msg_u8   = (B, L) byte tensor
-        msg_lens = optional (B,) per-element byte lengths for mixed-length
+        msg_u8   = (..., L) byte tensor
+        msg_lens = optional (...,) per-element byte lengths for mixed-length
                    batches (msg_u8 is then padded to L)
 
+        The operands share one batch shape (...); else ValueError.
         Identity pk -> False; pk/sig off the curve or outside the subgroup
         -> False; else the pairing product test."""
+        _batch(pk_aff=(pk_aff, 1), sig_aff=(sig_aff, 1), msg_u8=(msg_u8, 1),
+               msg_lens=(None if msg_lens is None else torch.as_tensor(msg_lens), 0))
         return self.pairing_stage(pk_aff, sig_aff, self.hash_stage(msg_u8, msg_len, msg_lens))
 
     def aggregate_verify_distinct(self, pk_aff, sig_aff, msg_u8, msg_len: int | None = None):
@@ -194,12 +253,15 @@ class BatchedBLS:
 
     def aggregate_pubkeys(self, pk_jac, axis: int = 0):
         """Projective sum of G1 Jacobian pubkeys over a batch axis: ONE
-        pt_add launch per tree level.  Empty input is the host's concern."""
-        return CV.pt_sum(CV.FP_OPS, self._to(pk_jac), axis)
+        pt_add launch per tree level.  The axis is dropped from the batch
+        shape.  Empty input is the host's concern."""
+        pk_jac = self._to(pk_jac)
+        return CV.pt_sum(CV.FP_OPS, pk_jac, _batch_axis(_batch(pk_jac=(pk_jac, 1)), axis))
 
     def aggregate_signatures(self, sig_jac, axis: int = 0):
         """Projective sum of G2 Jacobian signatures over a batch axis."""
-        return CV.pt_sum(CV.FP2_OPS, self._to(sig_jac), axis)
+        sig_jac = self._to(sig_jac)
+        return CV.pt_sum(CV.FP2_OPS, sig_jac, _batch_axis(_batch(sig_jac=(sig_jac, 1)), axis))
 
     def aggregate_pubkeys_masked(self, pk_jac, bitmap, axis: int = 0):
         """Bitmap-gated aggregation: the sum of pk_i where bitmap_i > 0
@@ -207,12 +269,28 @@ class BatchedBLS:
         package's: the bitmap's values as uint32 summed mod 2^32 (int64
         here, in [0, 2^32)) -- the device analogue of the reference's
         mapped_aggregate."""
-        pk_jac = self._to(pk_jac)
-        bits = self._to(bitmap).to(torch.int64)  # signed and uint32 bitmaps compare as values
-        inf = CV.pt_infinity_like(CV.FP_OPS, pk_jac)
-        masked = CV.pt_cmov(CV.FP_OPS, bits > 0, pk_jac, inf)
-        count = (bits & 0xFFFFFFFF).sum(axis) & 0xFFFFFFFF
-        return CV.pt_sum(CV.FP_OPS, masked, axis), count
+        pk_jac, bitmap = self._to(pk_jac), self._to(bitmap)
+        axis = _batch_axis(_batch(pk_jac=(pk_jac, 1), bitmap=(bitmap, 0)), axis)
+        return masked_sum(pk_jac, bitmap, axis)
+
+
+def masked_sum(pk_jac, bitmap, axis: int = 0):
+    """The sum over `axis` of the G1 Jacobian pk_i where bitmap_i > 0 (the
+    others replaced by the infinity), and the count: the bitmap's values
+    as uint32 summed mod 2^32 (int64 here, in [0, 2^32)), the JAX
+    package's selection and count."""
+    bits = bitmap.to(torch.int64)  # signed and uint32 bitmaps compare as values
+    inf = CV.pt_infinity_like(CV.FP_OPS, pk_jac)
+    masked = CV.pt_cmov(CV.FP_OPS, bits > 0, pk_jac, inf)
+    count = (bits & 0xFFFFFFFF).sum(axis) & 0xFFFFFFFF
+    return CV.pt_sum(CV.FP_OPS, masked, axis), count
+
+
+def _batch_axis(batch, axis: int) -> int:
+    """A batch axis (negative counts from the last) -> its index."""
+    if not -len(batch) <= axis < len(batch):
+        raise ValueError(f"axis {axis} is not a batch axis of batch shape {batch}")
+    return axis % len(batch)
 
 
 def _point_checks(pk_aff, sig_aff):

@@ -7,7 +7,7 @@ Needs one CUDA card and nvcc.  Phases, each fatal on failure:
   1. device   -- card name and power limit (nvidia-smi), torch's name;
   2. build    -- nvcc builds the 24 kernels from csrc/ (one nvcc per
      source, all at once) and prints ptxas's register/stack/spill report
-     (xmd's must show no stack and no spill);
+     (xmd's must show no stack and no spill); g++ builds the host codec;
   3. main path -- BatchedBLS(device="cuda").verify at batch 4096 with
      32-byte messages: the decodable verify vectors tiled, plus tampered-
      message and identity-pk probes.  One warm-up run, then timed runs;
@@ -196,18 +196,47 @@ Needs one CUDA card and nvcc.  Phases, each fatal on failure:
      kernels (its field_kernels.cu, built from DIR in parallel too); device
      ms per launch of each, of the empty kernel on the library's grid, and
      of the parent's kernel and the library's interleaved (parent, change,
-     change, parent); ptxas's lines of each instance under [build].
+     change, parent); ptxas's lines of each instance under [build];
+ 12. parallel -- the sharded layer (parallel/) and the host codec.  The
+     native batch codec (native_codec.py, built with g++ in the build
+     phase) on the main path's 4096 (pk, sig) wire pairs, every verify/
+     vector's and the deserialization vectors of a valid length: points
+     and statuses equal to golden/bls.py's decode (its subgroup checks
+     included) element for element, and host µs per element of the
+     native decode to device batches beside the Python decodes'; then
+     the native decode of wire traffic, the keys' own distinct pubkeys
+     and signatures compressed: every status ok, every point the card's,
+     host µs per element.  The host µs per verify at 4096 of the leading
+     batch dims' shape handling (models/bls.py _batch, _flat, _unflat),
+     and with --parent DIR the parent commit's BatchedBLS.verify and this
+     tree's at 4096 interleaved (parent, change, change, parent).  On
+     NCCL at world size 1, the main path's batch through sharded_verify,
+     make_sharded_verify and make_sharded_verify_staged (its stages alone
+     and chained): every result as expected, each form counted (counters
+     zeroed just before, read just after) with BatchedBLS.verify's
+     launches; the verify wall interleaved with the unsharded verify.
+     Then two Gloo ranks on the one card (fresh interpreters after the
+     kernels are built, CUDA tensors), 2048 elements each: the sharded
+     verify of the main path's batch, sharded_aggregate_pubkeys and
+     sharded_aggregate_signatures over the keys phase's 4096 keys and
+     signatures, sharded_masked_aggregate over its 512-key committee at
+     2/3, all limb-equal to CV.pt_sum of the two slabs' CV.pt_sum here,
+     the count exact and the point equal to aggregate_pubkeys_masked's,
+     and sharded_masked_aggregate_verify of the committee's aggregate
+     signature true, then false with one more bit set.  A rank that
+     fails or outlives its limit fails the phase.
 Prints one JSON line of kernels, the card's name and power limit, and as
 its last line {"ok": true, "device": {...}}.  Imports nothing of JAX.
 
     python3 chip_smoke.py --group [--parent DIR]
     python3 chip_smoke.py --field [--parent DIR]
     python3 chip_smoke.py --r1cs
+    python3 chip_smoke.py --parallel [--parent DIR]
 
 run only phases 1, 2 and 10 (the group kernels' checks, sweep and
-timing), 1, 2 and 11 (the staged field kernels') or 1, 2, 8 and phase
+timing), 1, 2 and 11 (the staged field kernels'), 1, 2, 8 and phase
 9's R1CS checks (lc_dot's row and the field kernels at the r1cs runs'
-counts), and start only the builds of that phase.
+counts) or 1, 2 and 12, and start only the builds of that phase.
 """
 
 import collections
@@ -308,10 +337,15 @@ def device_phase(torch):
 
 
 def build_phase(K):
+    from bls_verify_gadget_tpu_torch import native_codec as NC
+
     t0 = time.perf_counter()
     so = K.build()
     K.library()
     log(f"[build] {so.name} in {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    NC.library()
+    log(f"[build] native codec {NC.library_path().name} (g++) in {time.perf_counter() - t0:.2f} s")
     keys = ("entry function", "Function properties", "registers", "spill")
     for line in so.with_suffix(".log").read_text().splitlines():
         if any(k in line for k in keys):
@@ -325,32 +359,47 @@ def unhex(s):
     return bytes.fromhex(s[2:] if s.startswith("0x") else s)
 
 
-def verify_vectors():
-    """(pk, sig, msg, expected) of every decodable verify/ vector."""
-    from bls_verify_gadget_tpu_torch.golden import codec
-
+def verify_wire():
+    """(pk bytes, sig bytes, msg, expected) of every verify/ vector."""
     out = []
     for path in sorted((ROOT / "tests" / "vectors" / "verify").glob("*.json")):
         vec = json.loads(path.read_text())
+        out.append((unhex(vec["input"]["pubkey"]), unhex(vec["input"]["signature"]),
+                    unhex(vec["input"]["message"]), bool(vec["output"])))
+    return out
+
+
+def verify_vectors():
+    """(pk, sig, msg, expected, pk bytes, sig bytes) of every decodable
+    verify/ vector."""
+    from bls_verify_gadget_tpu_torch.golden import codec
+
+    out = []
+    for pk_raw, sig_raw, msg, ok in verify_wire():
         try:
-            pk = codec.g1_decompress(unhex(vec["input"]["pubkey"]))
-            sig = codec.g2_decompress(unhex(vec["input"]["signature"]))
+            pk = codec.g1_decompress(pk_raw)
+            sig = codec.g2_decompress(sig_raw)
         except ValueError:
             continue
-        out.append((pk, sig, unhex(vec["input"]["message"]), bool(vec["output"])))
+        out.append((pk, sig, msg, ok, pk_raw, sig_raw))
     return out
 
 
 def load_cases():
+    """The main path's BATCH elements (pk, sig, msg, expected, pk bytes,
+    sig bytes): the decodable verify vectors of MSG_LEN-byte messages, and
+    for each valid one a tampered message and the identity pk, tiled."""
+    from bls_verify_gadget_tpu_torch.golden import codec
+
     cases = []
-    for pk, sig, msg, ok in verify_vectors():
+    for pk, sig, msg, ok, pk_raw, sig_raw in verify_vectors():
         if len(msg) != MSG_LEN:
             continue
-        cases.append((pk, sig, msg, ok))
+        cases.append((pk, sig, msg, ok, pk_raw, sig_raw))
         if ok:
             tampered = bytes([msg[0] ^ 1]) + msg[1:]
-            cases.append((pk, sig, tampered, False))
-            cases.append((None, sig, msg, False))
+            cases.append((pk, sig, tampered, False, pk_raw, sig_raw))
+            cases.append((None, sig, msg, False, codec.g1_compress(None), sig_raw))
     if not any(c[3] for c in cases):
         raise RuntimeError("no valid verify vector decoded")
     return [cases[i % len(cases)] for i in range(BATCH)]
@@ -372,16 +421,25 @@ def staged_verify(torch, bls, pk, sig, msg):
     return out, (t1 - t0, t2 - t1, t3 - t2)
 
 
-def main_path_phase(torch, K):
+def encode_cases(torch, cases):
+    """The cases as device batches (pk, sig, msg, expected results).  The
+    points are golden/codec.py's, which checks no subgroup: the inputs
+    outside the subgroup reach the device's subgroup checks, where the
+    native codec (parallel phase) rejects them on the host."""
     from bls_verify_gadget_tpu_torch.models.bls import (
-        BatchedBLS, encode_messages, encode_pubkeys, encode_signatures,
+        encode_messages, encode_pubkeys, encode_signatures,
     )
 
-    cases = load_cases()
     pk = encode_pubkeys([c[0] for c in cases])
     sig = encode_signatures([c[1] for c in cases])
     msg = encode_messages([c[2] for c in cases])
-    want = torch.tensor([c[3] for c in cases], device="cuda")
+    return pk, sig, msg, torch.tensor([c[3] for c in cases], device="cuda")
+
+
+def main_path_phase(torch, K):
+    from bls_verify_gadget_tpu_torch.models.bls import BatchedBLS
+
+    pk, sig, msg, want = encode_cases(torch, load_cases())
     bls = BatchedBLS(device="cuda")
 
     def run():
@@ -587,6 +645,19 @@ def keys_data():
     return keys, msgs, vectors
 
 
+def committee_of(torch, keys):
+    """-> (key != 0 mask, the indices of the nonzero keys, a seeded sync
+    committee of COMMITTEE of them, its seeded bitmap at PARTICIPATION)."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 2)
+    valid_keys = torch.tensor([k != 0 for k in keys], device="cuda")
+    idx = valid_keys.nonzero().squeeze(1)  # the BATCH - 1 nonzero keys
+    committee = torch.from_numpy(rng.permutation(idx.cpu().numpy())[:COMMITTEE]).cuda()
+    bitmap = torch.from_numpy(rng.random(COMMITTEE) < PARTICIPATION).cuda()
+    return valid_keys, idx, committee, bitmap
+
+
 def take(pt, idx):
     """The elements `idx` of a point or affine tuple (nested tensors)."""
     if isinstance(pt, tuple):
@@ -652,8 +723,6 @@ def keys_phase(torch, K):
     """The keygen, signing and aggregation path at BATCH keys, counted,
     checked and timed (see the module docstring, phase 5).  -> the data and
     counts the kernel rows use."""
-    import numpy as np
-
     from bls_verify_gadget_tpu_torch.golden import codec
     from bls_verify_gadget_tpu_torch.models.bls import (
         BatchedBLS, encode_messages, encode_scalars,
@@ -663,12 +732,8 @@ def keys_phase(torch, K):
     keys, msgs, vectors = keys_data()
     sk = encode_scalars(keys)
     msg = encode_messages(msgs)
-    rng = np.random.default_rng(SEED + 2)
     bls = BatchedBLS(device="cuda")
-    valid_keys = torch.tensor([k != 0 for k in keys], device="cuda")
-    idx = valid_keys.nonzero().squeeze(1)  # the BATCH - 1 nonzero keys
-    committee = torch.from_numpy(rng.permutation(idx.cpu().numpy())[:COMMITTEE]).cuda()
-    bitmap = torch.from_numpy(rng.random(COMMITTEE) < PARTICIPATION).cuda()
+    valid_keys, idx, committee, bitmap = committee_of(torch, keys)
     pair_msg = msg[idx]
 
     def run():
@@ -3437,6 +3502,448 @@ def field_phase(torch, K, field_started, parent_started=None):
     return out
 
 
+# ----------------------------------------------------------------------------
+# parallel phase: the sharded layer (parallel/) at world size 1 over NCCL and
+# on two ranks of the one card over Gloo; the native batch codec
+# ----------------------------------------------------------------------------
+
+PARALLEL_RANKS = 2  # Gloo ranks sharing the card
+RANK_TIMEOUT_S = 300
+GOLDEN_REJECT = {"x out of range": 3, "not on curve": 4, "not in subgroup": 5}  # else 2
+
+
+def golden_decode(fn, blobs):
+    """The golden decode (with its subgroup check) of each blob, once per
+    distinct blob -> (points with rejects as None, the native codec's
+    status codes): 0 a point, 1 the infinity, 2-5 the reject."""
+    memo = {}
+    for b in set(blobs):
+        try:
+            pt = fn(b)
+            memo[b] = (pt, 1 if pt is None else 0)
+        except ValueError as e:
+            memo[b] = (None, GOLDEN_REJECT.get(str(e), 2))
+    return [memo[b][0] for b in blobs], [memo[b][1] for b in blobs]
+
+
+def host_us(fn, items):
+    """Host µs per item of fn over the items, rejects included."""
+    t0 = time.perf_counter()
+    for x in items:
+        try:
+            fn(x)
+        except ValueError:
+            pass
+    return (time.perf_counter() - t0) / len(items) * 1e6
+
+
+def codec_checks(torch, cases):
+    """The native batch codec on the main path's BATCH wire pairs, every
+    verify/ vector's and the deserialization vectors of a valid length:
+    points and statuses equal to the golden decode element for element;
+    host µs per element of the native decode (to device batches) and of
+    the Python decodes."""
+    from bls_verify_gadget_tpu_torch import native_codec as NC
+    from bls_verify_gadget_tpu_torch.golden import bls as gbls
+    from bls_verify_gadget_tpu_torch.golden import codec
+    from bls_verify_gadget_tpu_torch.models.bls import encode_pubkeys, encode_signatures
+
+    wire = verify_wire()
+    pk_wire = [c[4] for c in cases] + [w[0] for w in wire if len(w[0]) == 48]
+    sig_wire = [c[5] for c in cases] + [w[1] for w in wire if len(w[1]) == 96]
+    for suite, field, nbytes, out in (("deserialization_G1", "pubkey", 48, pk_wire),
+                                      ("deserialization_G2", "signature", 96, sig_wire)):
+        for path in sorted((ROOT / "tests" / "vectors" / suite).glob("*.json")):
+            raw = unhex(json.loads(path.read_text())["input"][field])
+            if len(raw) == nbytes:
+                out.append(raw)
+    t0 = time.perf_counter()
+    pk, pk_status = NC.decode_pubkeys(pk_wire)
+    sig, sig_status = NC.decode_signatures(sig_wire)
+    torch.cuda.synchronize()
+    native_s = time.perf_counter() - t0
+    for name, batch, status, blobs, fn, encode in (
+            ("pubkeys", pk, pk_status, pk_wire, gbls.g1_decompress, encode_pubkeys),
+            ("signatures", sig, sig_status, sig_wire, gbls.g2_decompress, encode_signatures)):
+        pts, codes = golden_decode(fn, blobs)
+        if status.tolist() != codes:
+            bad = [i for i, (a, b) in enumerate(zip(status.tolist(), codes)) if a != b]
+            raise RuntimeError(f"native {name}: statuses differ from the golden decode at {bad[:8]}")
+        if max_err(batch, encode(pts)) != 0:
+            raise RuntimeError(f"native {name}: the device batch differs from the golden decode's")
+        log(f"[parallel] codec {name}: {len(blobs)} elements ({len(set(blobs))} distinct) equal "
+            f"to the golden decode, statuses included: "
+            f"{dict(sorted(collections.Counter(codes).items()))}")
+    n = len(cases)
+    t0 = time.perf_counter()
+    NC.decode_pubkeys([c[4] for c in cases])
+    NC.decode_signatures([c[5] for c in cases])
+    torch.cuda.synchronize()
+    main_us = (time.perf_counter() - t0) / n * 1e6
+    pks, sigs = sorted({c[4] for c in cases}), sorted({c[5] for c in cases})
+    py_us = host_us(codec.g1_decompress, pks) + host_us(codec.g2_decompress, sigs)
+    golden_us = host_us(gbls.g1_decompress, pks) + host_us(gbls.g2_decompress, sigs)
+    log(f"[parallel] codec host µs per (pk, sig) element: native batch decode to device "
+        f"batches {main_us:.2f} (the main path's {n}; with the vectors, "
+        f"{len(pk_wire)} + {len(sig_wire)} elements in {native_s:.3f} s); Python decode "
+        f"(golden/codec.py, no subgroup check, the main path's decoder) "
+        f"{py_us:.2f}; golden/bls.py with its subgroup checks {golden_us:.2f} (over the "
+        f"{len(pks)} + {len(sigs)} distinct blobs)")
+    return {"native_us": main_us, "python_us": py_us, "golden_us": golden_us}
+
+
+def codec_valid_pairs(torch, pk_jac, sig_jac):
+    """The native batch codec on wire traffic: the keys' derived pubkeys
+    and their signatures compressed, each distinct one once (all valid:
+    in the subgroup, none the infinity).  Every status ok and every point
+    the one the card computed; host µs per element of the native decode
+    to device batches, and of the Python decodes on the first 64 of each
+    (golden/codec.py with no subgroup check, golden/bls.py with it)."""
+    from bls_verify_gadget_tpu_torch import native_codec as NC
+    from bls_verify_gadget_tpu_torch.golden import bls as gbls
+    from bls_verify_gadget_tpu_torch.golden import codec
+    from bls_verify_gadget_tpu_torch.models.bls import encode_pubkeys, encode_signatures
+    from bls_verify_gadget_tpu_torch.ops import curve as CV
+
+    res = {}
+    for name, pts, compress, decode, encode, py, golden in (
+            ("pubkeys", CV.g1_decode(pk_jac), codec.g1_compress, NC.decode_pubkeys,
+             encode_pubkeys, codec.g1_decompress, gbls.g1_decompress),
+            ("signatures", CV.g2_decode(sig_jac), codec.g2_compress, NC.decode_signatures,
+             encode_signatures, codec.g2_decompress, gbls.g2_decompress)):
+        pts = list(dict.fromkeys(p for p in pts if p is not None))
+        wire = [compress(p) for p in pts]
+        t0 = time.perf_counter()
+        batch, status = decode(wire)
+        torch.cuda.synchronize()
+        native_us = (time.perf_counter() - t0) / len(wire) * 1e6
+        if status.any():
+            raise RuntimeError(f"native {name}: valid wire bytes rejected, statuses "
+                               f"{collections.Counter(status.tolist())}")
+        if max_err(batch, encode(pts)) != 0:
+            raise RuntimeError(f"native {name}: the device batch differs from the card's points")
+        few = wire[:64]
+        if [golden(b) for b in few[:4]] != pts[:4]:
+            raise RuntimeError(f"golden/bls.py {name}: decode differs from the card's points")
+        res[name] = {"n": len(wire), "native_us": native_us, "python_us": host_us(py, few),
+                     "golden_us": host_us(golden, few[:4])}
+    pk, sig = res["pubkeys"], res["signatures"]
+    log(f"[parallel] codec on wire traffic ({pk['n']} distinct valid pubkeys, {sig['n']} "
+        f"distinct valid signatures: the keys' own, compressed), every status ok and every "
+        f"point the card's; host µs per element, pubkey / signature / (pk, sig): native batch "
+        f"decode to device batches {pk['native_us']:.2f} / {sig['native_us']:.2f} / "
+        f"{pk['native_us'] + sig['native_us']:.2f}; Python decode (golden/codec.py, no "
+        f"subgroup check, over 64 each) {pk['python_us']:.2f} / {sig['python_us']:.2f} / "
+        f"{pk['python_us'] + sig['python_us']:.2f}; golden/bls.py with its subgroup checks "
+        f"(over 4 each) {pk['golden_us']:.2f} / {sig['golden_us']:.2f} / "
+        f"{pk['golden_us'] + sig['golden_us']:.2f}")
+    return res
+
+
+BATCH_DIMS_ROUNDS = 10  # (parent, change, change, parent) rounds of verify at BATCH
+
+
+def parent_package(K, parent_dir):
+    """The parent commit's package (a git archive in parent_dir) imported
+    beside this tree's as parent_bls_verify_gadget_tpu_torch -> its
+    models.bls.  Its kernel library is looked up in this tree's build/:
+    when its sources are this tree's it is the same file, loaded once;
+    else it is built there under its own name."""
+    import importlib
+    import importlib.util
+
+    root = pathlib.Path(parent_dir).resolve()
+    if not root.is_relative_to(ROOT):
+        raise RuntimeError(f"--parent: {root} lies outside the checkout {ROOT}")
+    src = root / "bls_verify_gadget_tpu_torch"
+    name = "parent_bls_verify_gadget_tpu_torch"
+    if name not in sys.modules:
+        spec = importlib.util.spec_from_file_location(
+            name, src / "__init__.py", submodule_search_locations=[str(src)])
+        mod = importlib.util.module_from_spec(spec)
+        sys.modules[name] = mod
+        spec.loader.exec_module(mod)
+        importlib.import_module(f"{name}.ops.kernels").BUILD_DIR = K.BUILD_DIR
+    return importlib.import_module(f"{name}.models.bls")
+
+
+def batch_dims_cost(torch, K, bls, pk, sig, msg, want, parent_dir=None):
+    """What the leading batch dims cost a verify at BATCH: the host µs of
+    models/bls.py's _batch, _flat and _unflat, called on the main path's
+    operands as verify and its stages call them; with --parent DIR,
+    BatchedBLS.verify of the parent commit's package (1-D only) and of
+    this tree's on the same operands, both every result as expected, the
+    walls interleaved (parent, change, change, parent)."""
+    from bls_verify_gadget_tpu_torch.models import bls as M
+
+    h = bls.hash_stage(msg, MSG_LEN)
+    f, ok = bls.miller_stage(pk, sig, h)
+    torch.cuda.synchronize()
+
+    def shape_handling():
+        M._batch(pk_aff=(pk, 1), sig_aff=(sig, 1), msg_u8=(msg, 1), msg_lens=(None, 0))
+        batch = tuple(msg.shape[:-1])  # hash_stage
+        M._flat(msg, batch)
+        M._unflat(h, batch)
+        batch = M._batch(pk_aff=(pk, 1), sig_aff=(sig, 1), h_aff=(h, 1))  # miller_stage
+        M._flat(pk, batch)
+        M._flat(sig, batch)
+        M._flat(h, batch)
+        M._unflat((f, ok), batch)
+        batch = M._batch(f=(f, 1), checks_ok=(ok, 0))  # finalexp_stage
+        M._flat((f, ok), batch)
+        M._unflat(ok, batch)
+
+    reps = 2000
+    shape_handling()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        shape_handling()
+    host_us_per_verify = (time.perf_counter() - t0) / reps * 1e6
+    log(f"[parallel] leading batch dims: _batch/_flat/_unflat host µs per verify at {BATCH} "
+        f"(as verify and its stages call them, {reps} reps): {host_us_per_verify:.3f}")
+    res = {"shape_us": host_us_per_verify}
+    if not parent_dir:
+        return res
+    runs = {"parent": parent_package(K, parent_dir).BatchedBLS(device="cuda"), "change": bls}
+    for who, b in runs.items():
+        out = b.verify(pk, sig, msg, MSG_LEN)  # warm-up
+        if not torch.equal(out, want):
+            raise RuntimeError(f"{who} verify: {int((out != want).sum())} wrong results")
+    walls = {"parent": [], "change": []}
+    for _ in range(BATCH_DIMS_ROUNDS):
+        for who in ("parent", "change", "change", "parent"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            runs[who].verify(pk, sig, msg, MSG_LEN)
+            torch.cuda.synchronize()
+            walls[who].append((time.perf_counter() - t0) * 1e3)
+    med = {who: sorted(w)[len(w) // 2] for who, w in walls.items()}
+    log(f"[parallel] BatchedBLS.verify wall ms at {BATCH}, parent commit's package and this "
+        f"tree's on the same operands, interleaved (parent, change, change, parent) x "
+        f"{BATCH_DIMS_ROUNDS}: parent {[round(x, 3) for x in walls['parent']]} (median "
+        f"{med['parent']:.3f}, min {min(walls['parent']):.3f}), change "
+        f"{[round(x, 3) for x in walls['change']]} (median {med['change']:.3f}, min "
+        f"{min(walls['change']):.3f}); change - parent median {med['change'] - med['parent']:+.3f} ms")
+    return {**res, "walls": walls}
+
+
+def nccl_world_one(torch, K, bls, pk, sig, msg, want):
+    """sharded_verify, the staged form (its stages alone and chained) on a
+    world of 1 over NCCL at BATCH: every result as expected, the launches
+    of BatchedBLS.verify; the verify wall interleaved with the unsharded
+    one (verify, sharded, sharded, verify)."""
+    import torch.distributed as dist
+
+    from bls_verify_gadget_tpu_torch.parallel import (
+        make_mesh, make_sharded_verify, make_sharded_verify_staged, sharded_verify,
+    )
+    from bls_verify_gadget_tpu_torch.parallel.distributed import initialize
+    from bls_verify_gadget_tpu_torch.parallel.launch import free_port
+
+    initialize(f"localhost:{free_port()}", 1, 0, "cuda")
+    try:
+        if dist.get_backend() != "nccl":
+            raise RuntimeError(f"world of 1 on {dist.get_backend()}, not NCCL")
+        mesh = make_mesh(1)
+        run = make_sharded_verify(bls, mesh, MSG_LEN)
+        staged = make_sharded_verify_staged(bls, mesh, MSG_LEN)
+        hash_fn, pair_fn = staged.stages
+        forms = {
+            "BatchedBLS.verify": lambda: bls.verify(pk, sig, msg, MSG_LEN),
+            "sharded_verify": lambda: sharded_verify(bls, mesh, pk, sig, msg, MSG_LEN),
+            "make_sharded_verify": lambda: run(pk, sig, msg),
+            "staged, chained": lambda: staged(pk, sig, msg),
+            "staged, its stages": lambda: pair_fn(pk, sig, hash_fn(msg)),
+        }
+        counts = {}
+        for name, fn in forms.items():
+            fn()  # warm-up
+            K.COUNTS.reset()
+            out = fn()
+            torch.cuda.synchronize()
+            counts[name] = dict(K.COUNTS.launches)
+            if out.shape != want.shape or not torch.equal(out, want):
+                raise RuntimeError(f"[parallel] {name} on NCCL world 1: wrong results")
+        base = counts["BatchedBLS.verify"]
+        off = [name for name, c in counts.items() if c != base]
+        if off:
+            raise RuntimeError(f"launches differ from BatchedBLS.verify's: {off}")
+        off = {k: base[k] for k, (_, _, n) in KERNELS.items() if n is not None and base[k] != n}
+        if off:
+            raise RuntimeError(f"fused kernels launched other than on the main path: {off}")
+        log(f"[parallel] NCCL world 1 at batch {BATCH}: {', '.join(forms)}: every result as "
+            f"expected ({int(want.sum())} true), {sum(base.values())} port launches each")
+        walls = {"verify": [], "sharded": []}
+        for _ in range(TIMED_RUNS):
+            for name in ("verify", "sharded", "sharded", "verify"):
+                fn = forms["BatchedBLS.verify" if name == "verify" else "make_sharded_verify"]
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                walls[name].append((time.perf_counter() - t0) * 1e3)
+        med = {k: sorted(v)[len(v) // 2] for k, v in walls.items()}
+        log(f"[parallel] NCCL world 1 verify wall ms, interleaved (verify, sharded, sharded, "
+            f"verify) x {TIMED_RUNS}: unsharded {[round(x, 3) for x in walls['verify']]} "
+            f"(median {med['verify']:.3f}), sharded {[round(x, 3) for x in walls['sharded']]} "
+            f"(median {med['sharded']:.3f}); {BATCH / med['sharded'] * 1e3:.1f} "
+            f"verifications/s sharded")
+    finally:
+        dist.destroy_process_group()
+    return {"launches": sum(base.values()), "verify_ms": med["verify"],
+            "sharded_ms": med["sharded"]}
+
+
+def fold_of_slabs(torch, CV, ops, pts, ranks):
+    """The parallel layer's fold computed here: CV.pt_sum of each rank's
+    contiguous slab, then CV.pt_sum of the partials in rank order."""
+    n = CV._coord_shape(ops, [pts])[0] // ranks
+    parts = [CV.pt_sum(ops, take(pts, slice(r * n, (r + 1) * n)), 0) for r in range(ranks)]
+    stacked = CV.unpack_point(ops, torch.stack([CV.pack_point(ops, batch_of_one(p))[:, 0]
+                                                for p in parts], 1))
+    return CV.pt_sum(ops, stacked, 0)
+
+
+def limbs(pt):
+    """A point (nested tuples of tensors) -> nested lists."""
+    if isinstance(pt, tuple):
+        return [limbs(c) for c in pt]
+    return pt.tolist()
+
+
+def parallel_rank(mesh, arg):
+    """One Gloo rank of the parallel phase, on the card: its slab of the
+    verify batch, of the keys and signatures and of the committee."""
+    import torch
+    import torch.distributed as dist
+
+    from bls_verify_gadget_tpu_torch.models.bls import BatchedBLS
+    from bls_verify_gadget_tpu_torch.parallel import (
+        make_sharded_verify, sharded_aggregate_pubkeys, sharded_aggregate_signatures,
+        sharded_masked_aggregate, sharded_masked_aggregate_verify,
+    )
+
+    data = torch.load(arg["data"], map_location=f"cuda:{torch.cuda.current_device()}")
+    rank, world = dist.get_rank(), dist.get_world_size()
+
+    def slab(x):
+        if isinstance(x, tuple):
+            return tuple(slab(c) for c in x)
+        return x.chunk(world)[rank].contiguous()
+
+    bls = BatchedBLS(device="cuda")
+    run = make_sharded_verify(bls, mesh, MSG_LEN)
+    pk, sig, msg = slab(data["pk"]), slab(data["sig"]), slab(data["msg"])
+    walls = []
+    for _ in range(1 + TIMED_RUNS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = run(pk, sig, msg)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        if not torch.equal(out, data["want"]):
+            raise RuntimeError(f"rank {rank}: sharded verify: {int((out != data['want']).sum())} "
+                               f"wrong results")
+    res = {"slab": msg.shape[0], "verify_true": int(out.sum()), "verify_ms": walls}
+    res["pk_sum"] = limbs(sharded_aggregate_pubkeys(mesh, slab(data["kpk"])))
+    res["sig_sum"] = limbs(sharded_aggregate_signatures(mesh, slab(data["ksig"])))
+    point, count = sharded_masked_aggregate(mesh, slab(data["cpk"]), slab(data["bitmap"]))
+    res["masked"], res["count"] = limbs(point), int(count)
+    res["masked_verify"] = []
+    for bits in (data["bitmap"], data["bitmap_extra"]):
+        ok, count = sharded_masked_aggregate_verify(bls, mesh, slab(data["cpk"]), slab(bits),
+                                                    data["agg_sig"], data["agg_msg"], MSG_LEN)
+        res["masked_verify"].append([bool(ok), int(count)])
+    torch.cuda.synchronize()
+    return res
+
+
+def parallel_phase(torch, K, smi, keys=None, parent_dir=None):
+    """The sharded layer and the native codec (see the module docstring,
+    phase 12).  keys: keys_phase's result (the full run), else its keys,
+    messages, pubkeys and signatures are made here.  parent_dir: --parent."""
+    import tempfile
+
+    from bls_verify_gadget_tpu_torch.models.bls import (
+        BatchedBLS, encode_messages, encode_scalars,
+    )
+    from bls_verify_gadget_tpu_torch.ops import curve as CV
+    from bls_verify_gadget_tpu_torch.parallel.launch import run_ranks
+
+    t_phase = time.perf_counter()
+    cases = load_cases()
+    codec = codec_checks(torch, cases)
+    pk, sig, msg, want = encode_cases(torch, cases)
+    bls = BatchedBLS(device="cuda")
+    batch_dims_cost(torch, K, bls, pk, sig, msg, want, parent_dir)
+    nccl = nccl_world_one(torch, K, bls, pk, sig, msg, want)
+
+    # the keys phase's keys, signatures and committee; the committee signs one message
+    if keys is None:  # --parallel: the keys phase did not run
+        key_ints, msgs, _ = keys_data()
+        sk, kmsg = encode_scalars(key_ints), encode_messages(msgs)
+        keys = {"keys": key_ints, "sk": sk, "msg": kmsg, "pk": bls.derive_pubkeys(sk),
+                "sig": bls.sign(sk, kmsg)[0]}
+    sk, kpk, ksig = keys["sk"], keys["pk"], keys["sig"]
+    codec["valid"] = codec_valid_pairs(torch, kpk, ksig)
+    _, _, committee, bitmap = committee_of(torch, keys["keys"])
+    cpk = take(kpk, committee)
+    agg_msg = keys["msg"][:1]
+    csig, _ = bls.sign(sk[committee], agg_msg.expand(COMMITTEE, -1).contiguous())
+    agg = bls.aggregate_signatures(take(csig, bitmap.nonzero().squeeze(1)))
+    agg_sig = CV.pt_to_affine(CV.FP2_OPS, batch_of_one(agg))
+    extra = bitmap.clone()
+    extra[int((~bitmap).nonzero()[0])] = True
+    n_set = int(bitmap.sum())
+    want_fold = {"pk_sum": fold_of_slabs(torch, CV, CV.FP_OPS, kpk, PARALLEL_RANKS),
+                 "sig_sum": fold_of_slabs(torch, CV, CV.FP2_OPS, ksig, PARALLEL_RANKS)}
+    masked = CV.pt_cmov(CV.FP_OPS, bitmap, cpk, CV.pt_infinity_like(CV.FP_OPS, cpk))
+    want_fold["masked"] = fold_of_slabs(torch, CV, CV.FP_OPS, masked, PARALLEL_RANKS)
+    unsharded, _ = bls.aggregate_pubkeys_masked(cpk, bitmap)
+
+    def cpu(x):
+        return tuple(cpu(c) for c in x) if isinstance(x, tuple) else x.cpu()
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_parallel_") as tmp:
+        path = pathlib.Path(tmp) / "inputs.pt"
+        torch.save({"pk": cpu(pk), "sig": cpu(sig), "msg": cpu(msg), "want": cpu(want),
+                    "kpk": cpu(kpk), "ksig": cpu(ksig), "cpk": cpu(cpk), "bitmap": cpu(bitmap),
+                    "bitmap_extra": cpu(extra), "agg_sig": cpu(agg_sig),
+                    "agg_msg": cpu(agg_msg)}, path)
+        t0 = time.perf_counter()
+        results = run_ranks(PARALLEL_RANKS, "chip_smoke:parallel_rank", {"data": str(path)},
+                            device="cuda", backend="gloo", timeout=RANK_TIMEOUT_S)
+        ranks_s = time.perf_counter() - t0
+    for res in results:
+        r = res["rank"]
+        if res["slab"] != BATCH // PARALLEL_RANKS or res["verify_true"] != int(want.sum()):
+            raise RuntimeError(f"rank {r}: sharded verify over {res['slab']} elements")
+        for name, pt in want_fold.items():
+            if res[name] != limbs(pt):
+                raise RuntimeError(f"rank {r}: {name} is not limb-equal to the fold of the slabs")
+        if res["count"] != n_set:
+            raise RuntimeError(f"rank {r}: masked count {res['count']} != {n_set}")
+        got = tuple(torch.tensor(c, dtype=torch.int32, device="cuda")[None] for c in res["masked"])
+        if not bool(CV.pt_eq(CV.FP_OPS, got, batch_of_one(unsharded))[0]):
+            raise RuntimeError(f"rank {r}: masked aggregate != aggregate_pubkeys_masked")
+        if res["masked_verify"] != [[True, n_set], [False, n_set + 1]]:
+            raise RuntimeError(f"rank {r}: sharded_masked_aggregate_verify gave "
+                               f"{res['masked_verify']}")
+    walls = [res["verify_ms"] for res in results]
+    log(f"[parallel] {PARALLEL_RANKS} Gloo ranks on the one card (CUDA tensors), "
+        f"{BATCH // PARALLEL_RANKS} elements each: sharded verify every result as expected on "
+        f"every rank; verify wall ms per rank (first call, then {TIMED_RUNS}): "
+        f"{[[round(x, 3) for x in w] for w in walls]}")
+    log(f"[parallel] sharded_aggregate_pubkeys over {BATCH} keys, sharded_aggregate_signatures "
+        f"over {BATCH} signatures and sharded_masked_aggregate over the {COMMITTEE}-key committee "
+        f"({n_set} set) limb-equal to CV.pt_sum of the slabs' CV.pt_sum; masked count exact, "
+        f"its point equal to aggregate_pubkeys_masked's; sharded_masked_aggregate_verify true, "
+        f"false with one more bit ({n_set + 1}); ranks spawned and done in {ranks_s:.1f} s")
+    log(f"[parallel] phase {time.perf_counter() - t_phase:.1f} s | {smi}")
+    return {"codec": codec, "nccl": nccl, "ranks_s": ranks_s, "rank_verify_ms": walls}
+
+
 def main():
     import argparse
 
@@ -3453,14 +3960,18 @@ def main():
     only.add_argument("--r1cs", action="store_true",
                       help="run only the device, build and r1cs phases, then lc_dot's and "
                            "the R1CS path's field kernels' checks against their plain versions")
+    only.add_argument("--parallel", action="store_true",
+                      help="run only the device, build and parallel phases (the sharded layer "
+                           "on NCCL at world size 1 and on two Gloo ranks of the card, and the "
+                           "native batch codec)")
     ap.add_argument("--parent", metavar="DIR",
                     help="a git archive of the parent commit in a git-ignored directory of "
                          "this checkout: time its miller_dbl_run, miller_add, exp_x, "
                          "fp12_mul, fp6_mul, fp12_sqr, pt_mul_const, g2_cofactor, "
                          "sswu_map2, pow_win, pt_mul_var, mul014, cyclo_sqr, dbl_step, "
                          "add_step, pt_add and pt_dbl kernels interleaved with this tree's in the group "
-                         "phase, and its mul, add, sub, fp2_mul and fp2_sqr in the field "
-                         "phase")
+                         "phase, its mul, add, sub, fp2_mul and fp2_sqr in the field "
+                         "phase, and its BatchedBLS.verify at 4096 in the parallel phase")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3474,7 +3985,8 @@ def main():
 
     smi, kind = device_phase(torch)
     # the phases that run
-    groups, fields = not (args.field or args.r1cs), not (args.group or args.r1cs)
+    groups = not (args.field or args.r1cs or args.parallel)
+    fields = not (args.group or args.r1cs or args.parallel)
     sweep = sweep_build_start(K) if groups else {}
     field_sweep = field_build_start(K) if fields else {}
     parent = parent_build_start(K, args.parent, groups, fields) if args.parent else {}
@@ -3487,6 +3999,8 @@ def main():
             field_phase(torch, K, field_sweep, parent.get("field"))
         elif args.r1cs:
             r1cs_only(torch, K, smi)
+        elif args.parallel:
+            parallel_phase(torch, K, smi, parent_dir=args.parent)
         else:
             launches, sizes, verify_s, parts, want, ctx = main_path_phase(torch, K)
             profile_phase(torch, parts, ctx["msg"], want, verify_s)
@@ -3504,6 +4018,7 @@ def main():
                     row["group"] = group[row["name"]]
                 if row["name"] in staged:
                     row["field"] = staged[row["name"]]
+            parallel_phase(torch, K, smi, keys, args.parent)
             print(json.dumps({"kernels": rows}))
     finally:  # a phase that failed leaves no nvcc of the sweeps or the parent running
         for proc, _, _ in [*sweep.values(), *field_sweep.values(), *parent.values()]:

@@ -19,7 +19,10 @@ import bls_verify_gadget_tpu_torch
 from bls_verify_gadget_tpu_torch import convert
 from bls_verify_gadget_tpu_torch.models import bls
 from bls_verify_gadget_tpu_torch.ops import curve, hash_to_g2, kernels, pairing, sha256, tower
-from bls_verify_gadget_tpu_torch.golden import codec
+from bls_verify_gadget_tpu_torch.golden import bls as golden_bls, codec, curve as golden_curve
+from bls_verify_gadget_tpu_torch import native_codec
+from bls_verify_gadget_tpu_torch.native import gen_constants
+from bls_verify_gadget_tpu_torch.parallel import api, distributed, launch, mesh
 from bls_verify_gadget_tpu_torch.ops.fp import FP
 from bls_verify_gadget_tpu_torch.r1cs import (
     curve, device_witness, evaluator, fields, gadgets, hasher, pairing, sha256, system,
@@ -31,7 +34,7 @@ assert FP.decode(FP.mul(a, a)) == [9, 25]
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "bls_verify_gadget_tpu"))
 print("BAD", bad)
-print("LOADED", kernels._lib is not None)
+print("LOADED", kernels._lib is not None or native_codec._lib is not None)
 print("SOURCES", all((kernels.CSRC_DIR / n).is_file() for n in kernels.SOURCES)
       and set(kernels.UNITS) <= set(kernels.SOURCES))
 """
@@ -68,9 +71,15 @@ def test_entry_points_need_a_card_unless_cpu():
     from bls_verify_gadget_tpu_torch.ops import curve as CV
     from bls_verify_gadget_tpu_torch.ops import tower as T
     from bls_verify_gadget_tpu_torch.ops.fp import FP
+    from bls_verify_gadget_tpu_torch.parallel import launch
+    from bls_verify_gadget_tpu_torch.parallel.distributed import initialize
 
     for call in (
         BatchedBLS,
+        lambda: launch.dryrun_multichip(1),
+        lambda: launch.run_ranks(1, "bls_verify_gadget_tpu_torch.parallel.launch:dryrun_rank"),
+        lambda: launch.main(["--dryrun", "1"]),
+        lambda: initialize("localhost:1", 1, 0),
         lambda: encode_messages([b"ab"]),
         lambda: encode_scalars([1]),
         lambda: FP.encode([3]),
