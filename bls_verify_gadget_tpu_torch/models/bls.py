@@ -30,6 +30,8 @@ from ..ops import curve as CV
 from ..ops import pairing as PR
 from ..ops.hash_to_g2 import hash_to_g2, hash_to_g2_steps
 from ..ops.limbs import ints_to_limbs
+from ..utils.config import config
+from ..utils.profiling import named_scope
 
 
 @dataclasses.dataclass
@@ -168,8 +170,9 @@ class BatchedBLS:
         batch = tuple(msg_u8.shape[:-1])
         lens = None if msg_lens is None else _flat(msg_lens, batch)
         x = _flat(msg_u8, batch)
-        for _, part in self.hash_parts(msg_u8.shape[-1], lens):
-            x = part(x)
+        with named_scope("bls_hash_to_g2"):
+            for _, part in self.hash_parts(msg_u8.shape[-1], lens):
+                x = part(x)
         return _unflat(x, batch)
 
     def miller_stage(self, pk_aff, sig_aff, h_aff):
@@ -180,16 +183,19 @@ class BatchedBLS:
         pk_x, pk_y, pk_inf = _flat(pk_aff, batch)
         sig_x, sig_y, sig_inf = _flat(sig_aff, batch)
         h_x, h_y, h_inf = _flat(h_aff, batch)
-        pk_ok, sig_ok = _point_checks((pk_x, pk_y, pk_inf), (sig_x, sig_y, sig_inf))
+        with named_scope("bls_validity_checks"):
+            pk_ok, sig_ok = _point_checks((pk_x, pk_y, pk_inf), (sig_x, sig_y, sig_inf),
+                                          config.check_subgroups)
 
-        neg_g1 = (
-            self.params.g1_x.expand(pk_x.shape),
-            FP.neg(self.params.g1_y.expand(pk_y.shape)),
-        )
-        f = PR.multi_miller_loop([
-            (neg_g1, (sig_x, sig_y), ~sig_inf),
-            ((pk_x, pk_y), (h_x, h_y), ~h_inf),
-        ])
+        with named_scope("bls_miller_loop"):
+            neg_g1 = (
+                self.params.g1_x.expand(pk_x.shape),
+                FP.neg(self.params.g1_y.expand(pk_y.shape)),
+            )
+            f = PR.multi_miller_loop([
+                (neg_g1, (sig_x, sig_y), ~sig_inf),
+                ((pk_x, pk_y), (h_x, h_y), ~h_inf),
+            ])
         return _unflat((f, pk_ok & sig_ok), batch)
 
     def finalexp_stage(self, f, checks_ok):
@@ -197,7 +203,8 @@ class BatchedBLS:
         stage-2a validity checks."""
         batch = _batch(f=(f, 1), checks_ok=(checks_ok, 0))
         f, checks_ok = _flat((f, checks_ok), batch)
-        paired_one = T.fp12_is_one(PR.final_exponentiation(f))
+        with named_scope("bls_final_exp"):
+            paired_one = T.fp12_is_one(PR.final_exponentiation(f))
         return _unflat(paired_one & checks_ok, batch)
 
     def pairing_stage(self, pk_aff, sig_aff, h_aff):
@@ -215,7 +222,9 @@ class BatchedBLS:
 
         The operands share one batch shape (...); else ValueError.
         Identity pk -> False; pk/sig off the curve or outside the subgroup
-        -> False; else the pairing product test."""
+        -> False; else the pairing product test.  With
+        config.check_subgroups off, the subgroup checks are skipped, for
+        callers that check their inputs beforehand."""
         _batch(pk_aff=(pk_aff, 1), sig_aff=(sig_aff, 1), msg_u8=(msg_u8, 1),
                msg_lens=(None if msg_lens is None else torch.as_tensor(msg_lens), 0))
         return self.pairing_stage(pk_aff, sig_aff, self.hash_stage(msg_u8, msg_len, msg_lens))
@@ -278,10 +287,12 @@ def masked_sum(pk_jac, bitmap, axis: int = 0):
     """The sum over `axis` of the G1 Jacobian pk_i where bitmap_i > 0 (the
     others replaced by the infinity), and the count: the bitmap's values
     as uint32 summed mod 2^32 (int64 here, in [0, 2^32)), the JAX
-    package's selection and count."""
-    bits = bitmap.to(torch.int64)  # signed and uint32 bitmaps compare as values
+    package's selection and count.  The selection compares the values in
+    the bitmap's own dtype, so a float 0.5 selects its point."""
+    bits = bitmap.to(torch.int64)  # integer bitmaps, uint32 too, as their values
+    sel = bitmap > 0 if bitmap.is_floating_point() else bits > 0
     inf = CV.pt_infinity_like(CV.FP_OPS, pk_jac)
-    masked = CV.pt_cmov(CV.FP_OPS, bits > 0, pk_jac, inf)
+    masked = CV.pt_cmov(CV.FP_OPS, sel, pk_jac, inf)
     count = (bits & 0xFFFFFFFF).sum(axis) & 0xFFFFFFFF
     return CV.pt_sum(CV.FP_OPS, masked, axis), count
 
@@ -293,10 +304,11 @@ def _batch_axis(batch, axis: int) -> int:
     return axis % len(batch)
 
 
-def _point_checks(pk_aff, sig_aff):
+def _point_checks(pk_aff, sig_aff, subgroups: bool = True):
     """Per-element validity of affine pubkeys and signatures: pk not the
     identity, on the curve and in the subgroup; sig the identity, or on the
-    curve and in the subgroup."""
+    curve and in the subgroup.  `subgroups` False skips the two subgroup
+    checks (config.check_subgroups)."""
     pk_x, pk_y, pk_inf = pk_aff
     sig_x, sig_y, sig_inf = sig_aff
     pk_jac = CV.pt_from_affine(CV.FP_OPS, pk_x, pk_y, pk_inf)
@@ -308,8 +320,9 @@ def _point_checks(pk_aff, sig_aff):
         CV.FP2_OPS, sig_x, sig_y, T._bcast(C.B_G2, sig_x)
     )
     sig_ok = sig_inf | sig_on_curve
-    pk_ok = pk_ok & CV.g1_in_subgroup(pk_jac)
-    sig_ok = sig_ok & (sig_inf | CV.g2_in_subgroup(sig_jac))
+    if subgroups:
+        pk_ok = pk_ok & CV.g1_in_subgroup(pk_jac)
+        sig_ok = sig_ok & (sig_inf | CV.g2_in_subgroup(sig_jac))
     return pk_ok, sig_ok
 
 

@@ -6,19 +6,25 @@ tensors (..., nlimb): limbs canonical in [0, 2^16), values canonical in
 [0, m), in Montgomery form with R = 2^(16*nlimb).  One ModField serves Fp
 (24 limbs) and Fr (16 limbs): the instances FP and FR.
 
-mul/add/sub and the Fp power go through ops/kernels.py: a CUDA tensor
-launches the hand-written kernel, a CPU tensor runs the plain versions
-(mul_plain/add_plain/sub_plain here, pow_win_plain in ops/tower.py).  The
-plain versions compute in int64 -- a 16x16-bit product overflows int32,
+mul/add/sub record their work in the active op counter
+(utils/profiling.py count_ops) as the JAX package's do: one op per
+broadcast element.  They and the Fp power go through ops/kernels.py: a
+CUDA tensor launches the hand-written kernel, a CPU tensor runs the plain
+versions (mul_plain/add_plain/sub_plain here, pow_win_plain in
+ops/tower.py).  The plain versions compute in int64 -- a 16x16-bit
+product overflows int32,
 and torch's CPU uint32 lacks add, shift and compare -- and return exactly
 the kernels' canonical limbs.
 """
+
+import math
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from .. import constants as C
+from ..utils import profiling
 from . import kernels as K
 from .limbs import int_to_limbs, ints_to_limbs, limbs_to_int
 
@@ -136,13 +142,23 @@ class ModField:
     # ring ops (kernel wrappers)
     # ------------------------------------------------------------------
 
+    def _record(self, kind: str, a, b):
+        """Op accounting (utils/profiling.count_ops): one `kind` op per
+        broadcast batch element, as the JAX package's ModField._record."""
+        if profiling._active_counter is not None:
+            shape = torch.broadcast_shapes(a.shape[:-1], b.shape[:-1])
+            profiling.record(f"{kind}_{self.nlimb}", math.prod(shape))
+
     def add(self, a, b):
+        self._record("add", a, b)
         return K.add(self, a, b)
 
     def sub(self, a, b):
+        self._record("sub", a, b)
         return K.sub(self, a, b)
 
     def mul(self, a, b):
+        self._record("mul", a, b)
         return K.mul(self, a, b)
 
     def neg(self, a):

@@ -76,7 +76,11 @@ def _fp2_pow_sqrt(a):
     a11 = T.fp2_mul(a8, a3)
     b = T.fp2_mul(T.fp2_conj(a), a11)
     shape = b[0].shape
-    bk = K.pow_win(FP, torch.stack(b).reshape(2, -1, C.NLIMB), SQRT_K).reshape(2, *shape)
+    # the op count charges the JAX package's windows: its digits rounded
+    # up to a multiple of 8 (hash_to_g2._fp2_pow_const)
+    nwin = -(-len(K.pow_digits(SQRT_K)) // 8) * 8
+    bk = K.pow_win(FP, torch.stack(b).reshape(2, -1, C.NLIMB), SQRT_K, nwin)
+    bk = bk.reshape(2, *shape)
     return T.fp2_mul((bk[0], bk[1]), a8)
 
 

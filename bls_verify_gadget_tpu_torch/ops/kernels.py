@@ -44,6 +44,8 @@ import threading
 
 import torch
 
+from ..utils import profiling
+
 PKG_DIR = pathlib.Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "build"
@@ -269,6 +271,24 @@ def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def _rec(field, muls: int, addsubs: int, n: int):
+    """Record a fused kernel's work in the active op counter as the JAX
+    package's FieldKernels._rec does for the same call: `muls` products
+    and `addsubs` additions or subtractions per element, over n elements
+    (utils/profiling.py).  The wrappers record before they pick the
+    device, so the CPU and the card count alike."""
+    if profiling._active_counter is not None:
+        profiling.record(f"mul_{field.nlimb}", muls * n)
+        profiling.record(f"add_{field.nlimb}", addsubs * n)
+
+
+def _plain(fn, *args):
+    """A kernel's plain version, run with the op counter suspended: the
+    wrapper has recorded the kernel's work already."""
+    with profiling.uncounted():
+        return fn(*args)
+
+
 def _binary(name, field, a, b, plain):
     a, b = torch.broadcast_tensors(a, b)
     if a.device.type == "cpu":
@@ -309,10 +329,11 @@ def sub(field, a, b):
 def fp2_mul(field, a0, a1, b0, b1):
     """Karatsuba Fp2 product -> (c0, c1) (replaces FieldKernels.fp2_mul)."""
     a0, a1, b0, b1 = torch.broadcast_tensors(a0, a1, b0, b1)
+    _rec(field, 3, 5, a0.numel() // field.nlimb)
     if a0.device.type == "cpu":
         from . import tower
 
-        return tower.fp2_mul_plain(a0, a1, b0, b1)
+        return _plain(tower.fp2_mul_plain, a0, a1, b0, b1)
     a0, a1, b0, b1 = _cuda_operands(field, [a0, a1, b0, b1])
     c0, c1 = torch.empty_like(a0), torch.empty_like(a0)
     n = a0.numel() // field.nlimb
@@ -331,10 +352,11 @@ def fp2_mul(field, a0, a1, b0, b1):
 def fp2_sqr(field, a0, a1):
     """Fp2 square -> (c0, c1) (replaces FieldKernels.fp2_sqr)."""
     a0, a1 = torch.broadcast_tensors(a0, a1)
+    _rec(field, 2, 3, a0.numel() // field.nlimb)
     if a0.device.type == "cpu":
         from . import tower
 
-        return tower.fp2_sqr_plain(a0, a1)
+        return _plain(tower.fp2_sqr_plain, a0, a1)
     return _fp2_sqr_launch(field, a0, a1)
 
 
@@ -407,30 +429,33 @@ def _miller_pack(f, t, per_pair, valid):
 def fp6_mul(field, a, b):
     """Fp6 product of packed (6, N, 24) operands -> (6, N, 24)
     (replaces FieldKernels.fp6_mul)."""
+    _rec(field, 18, 46, a.shape[1])  # 6 Toom Fp2 products + combination adds
     if a.device.type == "cpu":
         from . import tower
 
-        return tower.fp6_mul_packed_plain(a, b)
+        return _plain(tower.fp6_mul_packed_plain, a, b)
     return _packed_launch("fp6_mul", field, torch.cat([a, b]), 12, 6)
 
 
 def fp12_mul(field, a, b):
     """Fp12 product of packed (12, N, 24) operands -> (12, N, 24)
     (replaces FieldKernels.fp12_mul)."""
+    _rec(field, 54, 152, a.shape[1])
     if a.device.type == "cpu":
         from . import tower
 
-        return tower.fp12_mul_plain(a, b)
+        return _plain(tower.fp12_mul_plain, a, b)
     return _packed_launch("fp12_mul", field, torch.cat([a, b]), 24, 12)
 
 
 def fp12_sqr(field, a):
     """Fp12 square of a packed (12, N, 24) operand (replaces
     FieldKernels.fp12_sqr)."""
+    _rec(field, 36, 112, a.shape[1])
     if a.device.type == "cpu":
         from . import tower
 
-        return tower.fp12_sqr_plain(a)
+        return _plain(tower.fp12_sqr_plain, a)
     return _packed_launch("fp12_sqr", field, a, 12, 12)
 
 
@@ -440,14 +465,15 @@ def miller_dbl_run(field, f, t, xp, yp, valid, count: int):
     (replaces FieldKernels.miller_dbl_run).  f (12, N, 24); per pair t
     (k, 6, N, 24) = X, Y, Z, xp and yp (k, N, 24), valid (k, N) bool.
     Returns (f', t')."""
+    k = t.shape[0]
+    _rec(field, (36 + 70 * k) * count, (112 + 150 * k) * count, f.shape[1])
     if f.device.type == "cpu":
         from . import pairing
 
-        return pairing.miller_dbl_run_plain(f, t, xp, yp, valid, count)
+        return _plain(pairing.miller_dbl_run_plain, f, t, xp, yp, valid, count)
     if count < 1:
         raise ValueError(f"a doubling run has at least one iteration, got {count}")
     packed, mask = _miller_pack(f, t, (xp, yp), valid)
-    k = t.shape[0]
     out = _packed_launch("miller_dbl_run", field, packed, 12 + 8 * k, 12 + 6 * k,
                          k, count, aux=mask)
     return out[:12], out[12:].view(k, 6, *out.shape[1:])
@@ -458,12 +484,13 @@ def miller_add(field, f, t, q, xp, yp, valid):
     f <- f * line, neutral where the pair is invalid (replaces
     FieldKernels.miller_add).  As miller_dbl_run, with q (k, 4, N, 24) =
     the affine Q's x, y (Fp2 each).  Returns (f', t')."""
+    k = t.shape[0]
+    _rec(field, 83 * k, 40 + 204 * k, f.shape[1])
     if f.device.type == "cpu":
         from . import pairing
 
-        return pairing.miller_add_plain(f, t, q, xp, yp, valid)
+        return _plain(pairing.miller_add_plain, f, t, q, xp, yp, valid)
     packed, mask = _miller_pack(f, t, (q, xp, yp), valid)
-    k = t.shape[0]
     out = _packed_launch("miller_add", field, packed, 12 + 12 * k, 12 + 6 * k, k,
                          aux=mask)
     return out[:12], out[12:].view(k, 6, *out.shape[1:])
@@ -473,10 +500,12 @@ def exp_x(field, m, segments):
     """m^e for a packed cyclotomic m (12, N, 24), from f = m at e's top bit:
     per (squares, multiply) in `segments`, that many Granger-Scott squares,
     then f <- f * m if multiply (replaces FieldKernels.exp_x)."""
+    nsq = sum(s for s, _ in segments)
+    _rec(field, 18 * nsq + 54 * len(segments), 70 * nsq + 152 * len(segments), m.shape[1])
     if m.device.type == "cpu":
         from . import pairing
 
-        return pairing.exp_x_plain(m, segments)
+        return _plain(pairing.exp_x_plain, m, segments)
     lens, muls, nseg = _segments("exp_x", segments)
     return _packed_launch("exp_x", field, m, 12, 12, lens, muls, nseg)
 
@@ -491,10 +520,11 @@ def mul014(field, f, line):
     """f * (c0 + c1 v + c4 v w) for a packed f (12, N, 24) and line (6, N,
     24) = c0, c1, c4 (replaces FieldKernels.mul014).  No mask: an invalid
     pair's caller passes the neutral line."""
+    _rec(field, 45, 120, f.shape[1])
     if f.device.type == "cpu":
         from . import pairing
 
-        return pairing.mul014_plain(f, line)
+        return _plain(pairing.mul014_plain, f, line)
     return _packed_launch("mul014", field, (f, line), (12, 6), 12)
 
 
@@ -502,10 +532,11 @@ def dbl_step(field, t, p):
     """One CLN doubling step of T (6, N, 24) = X, Y, Z at the G1 points p
     (2, N, 24) = xp, yp -> (12, N, 24): 2T, then the line c0, c1, c4
     (replaces FieldKernels.dbl_step)."""
+    _rec(field, 25, 102, t.shape[1])
     if t.device.type == "cpu":
         from . import pairing
 
-        return pairing.dbl_step_plain(t, p)
+        return _plain(pairing.dbl_step_plain, t, p)
     return _packed_launch("dbl_step", field, (t, p), (6, 2), 12)
 
 
@@ -513,10 +544,11 @@ def add_step(field, t, q, p):
     """One CLN mixed addition of the affine Q (4, N, 24) = xq, yq to T (6,
     N, 24) at the G1 points p (2, N, 24) -> (12, N, 24): T + Q, then the
     line (replaces FieldKernels.add_step)."""
+    _rec(field, 38, 84, t.shape[1])  # the JAX record: 38, not the 41 products the body runs
     if t.device.type == "cpu":
         from . import pairing
 
-        return pairing.add_step_plain(t, q, p)
+        return _plain(pairing.add_step_plain, t, q, p)
     return _packed_launch("add_step", field, (t, q, p), (6, 4, 2), 12)
 
 
@@ -524,10 +556,11 @@ def cyclo_sqr(field, f, count: int):
     """`count` Granger-Scott squares of a packed (12, N, 24) Fp12, in one
     launch (replaces FieldKernels.cyclo_sqr).  A square only on cyclotomic
     elements; the Fp12 is coefficient-major, as every packed one."""
+    _rec(field, 18 * count, 70 * count, f.shape[1])
     if f.device.type == "cpu":
         from . import tower
 
-        return tower.cyclo_sqr_plain(f, count)
+        return _plain(tower.cyclo_sqr_plain, f, count)
     if count < 1:
         raise ValueError(f"cyclo_sqr squares at least once, got {count}")
     return _packed_launch("cyclo_sqr", field, f, 12, 12, count)
@@ -576,13 +609,25 @@ def _coords(name, a, per_elem):
     return c
 
 
-def pow_win(field, a, exponent: int):
+# the JAX package's fixed window counts of pow_win per coordinate degree,
+# which its count charges whatever the exponent (FieldKernels._POW_NWIN)
+POW_NWIN = {1: 96, 2: 192}
+
+
+def pow_win(field, a, exponent: int, nwin: int | None = None):
     """a^exponent for a host-constant exponent > 0, on a packed (c, N, 24)
-    operand: c = 1 an Fp, c = 2 an Fp2 (replaces FieldKernels.pow_win)."""
+    operand: c = 1 an Fp, c = 2 an Fp2 (replaces FieldKernels.pow_win).
+    The kernel runs the exponent's own digits; the op count charges the
+    JAX package's windows: `nwin` where its caller passes one, else
+    POW_NWIN."""
+    nc = a.shape[0]
+    nwin = POW_NWIN.get(nc, 0) if nwin is None else nwin
+    _rec(field, (42 + 11 * nwin) if nc == 2 else (14 + 5 * nwin),
+         (28 + 5 * nwin) if nc == 2 else 0, a.shape[1])
     if a.device.type == "cpu":
         from . import tower
 
-        return tower.pow_win_plain(a, exponent)
+        return _plain(tower.pow_win_plain, a, exponent)
     c = _coords("pow_win", a, 1)
     digits, ndig = _digits(exponent)
     return _packed_launch("pow_win", field, a, c, c, c, digits, ndig)
@@ -592,24 +637,37 @@ def pt_mul_const(field, p, segments):
     """[k]P for the scalar k whose runs after its top bit are `segments`
     (curve.run_segments), on a packed Jacobian point: (3, N, 24) in G1,
     (6, N, 24) in G2 (replaces FieldKernels.pt_mul_const)."""
+    _rec_ladder(field, p, segments)
     if p.device.type == "cpu":
         from . import curve
 
-        return curve.pt_mul_const_plain(p, segments)
+        return _plain(curve.pt_mul_const_plain, p, segments)
     c = _coords("pt_mul_const", p, 3)
     lens, muls, nseg = _segments("pt_mul_const", segments)
     return _packed_launch("pt_mul_const", field, p, 3 * c, 3 * c, c, lens, muls, nseg,
                           _mont_words(field, [1]))
 
 
+def _rec_ladder(field, p, segments):
+    """The JAX package's record of a constant-scalar ladder over a packed
+    point: a doubling per run step and a complete addition per segment."""
+    g2 = p.shape[0] == 6
+    ndbl, nseg = sum(s for s, _ in segments), len(segments)
+    _rec(field, (17 if g2 else 8) * ndbl + (58 if g2 else 23) * nseg,
+         (40 if g2 else 20) * ndbl + (110 if g2 else 50) * nseg, p.shape[1])
+
+
 def g2_cofactor(field, p, segments):
     """Budroni-Pintore cofactor clearing [x^2 - x - 1]P + [x - 1]psi(P) +
     psi^2(2P) of a packed (6, N, 24) G2 Jacobian point, with the runs of
     |x| as `segments` (replaces FieldKernels.g2_cofactor)."""
+    ndbl, nseg = sum(s for s, _ in segments), len(segments)
+    _rec(field, 2 * (17 * ndbl + 58 * nseg) + 58 * 6 + 17 + 8,
+         2 * (40 * ndbl + 110 * nseg) + 110 * 6 + 40 + 10, p.shape[1])
     if p.device.type == "cpu":
         from . import curve
 
-        return curve.g2_cofactor_plain(p, segments)
+        return _plain(curve.g2_cofactor_plain, p, segments)
     lens, muls, nseg = _segments("g2_cofactor", segments)
     return _packed_launch("g2_cofactor", field, p, 6, 6, lens, muls, nseg, psi_words(field),
                           _mont_words(field, [1]))
@@ -630,8 +688,14 @@ def sswu_map2(field, u):
     (replaces FieldKernels.sswu_map2)."""
     from . import hash_to_g2
 
+    nws = -(-len(pow_digits(hash_to_g2.SQRT_K)) // 8) * 8
+    nwi = -(-len(pow_digits(field.modulus - 2)) // 8) * 8
+    # per element: 2 maps x (sqrt chain + table + fraction SSWU + isogeny +
+    # affine), one shared Fermat chain and the complete addition
+    _rec(field, 2 * (11 * nws + 42 + 160) + (5 * nwi + 14) + 36 + 58,
+         2 * (5 * nws + 300) + 60 + 110, u.shape[1])
     if u.device.type == "cpu":
-        return hash_to_g2.sswu_map2_plain(u)
+        return _plain(hash_to_g2.sswu_map2_plain, u)
     if u.device.type != "cuda":
         raise ValueError(f"sswu_map2 takes CPU or CUDA tensors, got {u.device}")
     table = hash_to_g2.sswu_consts(u.device)
@@ -648,10 +712,12 @@ def sswu_map2(field, u):
 def pt_dbl(field, p, count: int = 1):
     """`count` Jacobian doublings of a packed point: (3, N, 24) in G1,
     (6, N, 24) in G2 (replaces FieldKernels.pt_dbl)."""
+    g2 = p.shape[0] == 6
+    _rec(field, (17 if g2 else 8) * count, (40 if g2 else 20) * count, p.shape[1])
     if p.device.type == "cpu":
         from . import curve
 
-        return curve.pt_dbl_plain(p, count)
+        return _plain(curve.pt_dbl_plain, p, count)
     if count < 1:
         raise ValueError(f"pt_dbl doubles at least once, got {count}")
     c = _coords("pt_dbl", p, 3)
@@ -661,10 +727,12 @@ def pt_dbl(field, p, count: int = 1):
 def pt_add(field, p, q):
     """Complete Jacobian addition P + Q of packed points of one group and
     shape -> (3c, N, 24) (replaces FieldKernels.pt_add)."""
+    g2 = p.shape[0] == 6
+    _rec(field, 58 if g2 else 23, 110 if g2 else 50, p.shape[1])
     if p.device.type == "cpu":
         from . import curve
 
-        return curve.pt_add_plain(p, q)
+        return _plain(curve.pt_add_plain, p, q)
     c = _coords("pt_add", p, 3)
     if q.shape != p.shape:
         raise ValueError(f"pt_add takes points of one shape, got {tuple(p.shape)} "
@@ -678,10 +746,13 @@ def pt_mul_var(field, p, scalars, nbits: int):
     int32 raw (non-Montgomery) 16-bit limbs: the MSB-first double-and-add
     ladder over `nbits` bits from the infinity (replaces
     FieldKernels.pt_mul_var)."""
+    g2 = p.shape[0] == 6
+    _rec(field, (17 + 58 if g2 else 8 + 23) * nbits, (40 + 110 if g2 else 20 + 50) * nbits,
+         p.shape[1])
     if p.device.type == "cpu":
         from . import curve
 
-        return curve.pt_mul_var_plain(p, scalars, nbits)
+        return _plain(curve.pt_mul_var_plain, p, scalars, nbits)
     c = _coords("pt_mul_var", p, 3)
     if not 1 <= nbits <= 16 * SCALAR_LIMBS:
         raise ValueError(f"pt_mul_var scans 1 to {16 * SCALAR_LIMBS} bits, got {nbits}")
@@ -755,10 +826,15 @@ def lc_dot(field, w, idx, coeff):
     [0, V) and (R, W, 24) coefficients -> (B, R, 24).  Replaces no Pallas
     kernel (the JAX package's jnp LC dot, which XLA fuses).  Counted once
     per launch with B * R elements, its size the row width W."""
+    # the JAX evaluator's FP ops on the same rows: W products and W - 1
+    # additions per row and witness
+    terms = w.shape[0] * idx.shape[0]
+    profiling.record(f"mul_{field.nlimb}", terms * idx.shape[1])
+    profiling.record(f"add_{field.nlimb}", terms * max(idx.shape[1] - 1, 0))
     if w.device.type == "cpu":
         from ..r1cs import evaluator
 
-        return evaluator.lc_dot_plain(w, idx, coeff)
+        return _plain(evaluator.lc_dot_plain, w, idx, coeff)
     if field.nlimb != 24:
         raise ValueError(f"lc_dot takes Fp (24 limbs), not {field.nlimb}")
     w, coeff = _cuda_operands(field, [w, coeff])

@@ -224,7 +224,26 @@ Needs one CUDA card and nvcc.  Phases, each fatal on failure:
      the count exact and the point equal to aggregate_pubkeys_masked's,
      and sharded_masked_aggregate_verify of the committee's aggregate
      signature true, then false with one more bit set.  A rank that
-     fails or outlives its limit fails the phase.
+     fails or outlives its limit fails the phase;
+ 13. trace    -- utils/profiling.py and config.check_subgroups on the main
+     path's batch.  Two verifies under profile_trace: the exported Chrome
+     trace must hold the JAX package's four range names (bls_hash_to_g2,
+     bls_validity_checks, bls_miller_loop, bls_final_exp) twice each; per
+     range of the second verify its host wall, the device ms and launches
+     of the kernels launched inside it (joined by correlation id) and its
+     device span.  Verify without a
+     counter: 118 launches, the wall; one default verify, one sign (the
+     keys phase's keys) and one step-wise verify (fuse_miller and
+     fuse_expx off, restored however the phase ends) under count_ops: per
+     key, 1024 x the CPU's counts of the same call at 4 elements (the first
+     cases, the first keys), with the counter's launches those of the
+     uncounted run; Fp-mul-equivalents per element, and per second at the
+     uncounted wall.  check_subgroups off (restored however the phase
+     ends): no pt_mul_const launch; the elements whose points are in their
+     subgroups give the flag-on results, the others the CPU's flag-off
+     verify of the same elements.  The CPU references run in child
+     processes (CUDA hidden, one thread each, lowest priority), started
+     before the kernels phase (with --trace, at the phase's start).
 Prints one JSON line of kernels, the card's name and power limit, and as
 its last line {"ok": true, "device": {...}}.  Imports nothing of JAX.
 
@@ -232,11 +251,13 @@ its last line {"ok": true, "device": {...}}.  Imports nothing of JAX.
     python3 chip_smoke.py --field [--parent DIR]
     python3 chip_smoke.py --r1cs
     python3 chip_smoke.py --parallel [--parent DIR]
+    python3 chip_smoke.py --trace
 
 run only phases 1, 2 and 10 (the group kernels' checks, sweep and
 timing), 1, 2 and 11 (the staged field kernels'), 1, 2, 8 and phase
 9's R1CS checks (lc_dot's row and the field kernels at the r1cs runs'
-counts) or 1, 2 and 12, and start only the builds of that phase.
+counts), 1, 2 and 12 or 1, 2 and 13, and start only the builds of that
+phase.
 """
 
 import collections
@@ -244,6 +265,7 @@ import contextlib
 import json
 import pathlib
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -561,8 +583,9 @@ def profile_phase(torch, parts, msg, want, verify_s):
     ours, others = {}, {}
     for ev in events:
         # device-side kernels only (a CPU op's total also carries the device
-        # time of the kernels it launched, which would count twice)
-        if ev.device_type != cuda or ev.name.startswith("part:"):
+        # time of the kernels it launched, which would count twice; a
+        # range's GPU annotation spans kernels counted already)
+        if ev.device_type != cuda or ev.name.startswith("part:") or ev.name in TRACE_RANGES:
             continue
         start, us = ev.time_range.start, ev.time_range.elapsed_us()
         part = next((n for a, b, n in ranges if a <= start <= b), names[-1])
@@ -3944,6 +3967,316 @@ def parallel_phase(torch, K, smi, keys=None, parent_dir=None):
     return {"codec": codec, "nccl": nccl, "ranks_s": ranks_s, "rank_verify_ms": walls}
 
 
+# ----------------------------------------------------------------------------
+# trace phase: named ranges, the op counter, check_subgroups
+# ----------------------------------------------------------------------------
+
+TRACE_RANGES = ("bls_hash_to_g2", "bls_validity_checks", "bls_miller_loop", "bls_final_exp")
+CPU_BATCH = 4  # the CPU reference's batch; the card's counts at BATCH are BATCH / CPU_BATCH times
+VERIFY_LAUNCHES = 118  # port launches of one default verify at BATCH ([main])
+CPU_JOBS = ("verify", "verify_stepwise", "sign", "subgroups_off")
+
+
+def off_subgroup_cases(cases):
+    """-> (indices of the cases whose pk or sig lies outside its subgroup,
+    by the golden curve's checks (the infinity counts as inside), and for
+    each distinct (pk bytes, sig bytes, msg) among them the index of its
+    first case)."""
+    from bls_verify_gadget_tpu_torch.golden import curve as GC
+
+    g1, g2, off, first = {}, {}, [], {}
+    for i, (pk, sig, msg, _, pk_raw, sig_raw) in enumerate(cases):
+        if pk_raw not in g1:
+            g1[pk_raw] = pk is None or GC.g1_in_subgroup(pk)
+        if sig_raw not in g2:
+            g2[sig_raw] = sig is None or GC.g2_in_subgroup(sig)
+        if not (g1[pk_raw] and g2[sig_raw]):
+            off.append(i)
+            first.setdefault((pk_raw, sig_raw, msg), i)
+    return off, first
+
+
+def cpu_reference(job, path):
+    """One CPU reference of the trace phase, run in a child process with
+    CUDA hidden, one torch thread and the lowest priority: for "verify",
+    "verify_stepwise" (fuse_miller and fuse_expx off) and "sign" the
+    port's op counts of that call on the CPU at CPU_BATCH elements (the
+    main batch's first cases, the keys phase's first keys); for
+    "subgroups_off" verify with config.check_subgroups off on the first
+    case of each distinct off-subgroup (pk, sig, msg) of the main batch.
+    Writes {"job", "counts" or "results", "s"} as JSON to `path`."""
+    import os
+
+    import torch
+
+    os.nice(19)
+    torch.set_num_threads(1)
+    sys.path.insert(0, str(ROOT))
+    from bls_verify_gadget_tpu_torch.models.bls import (
+        BatchedBLS, encode_messages, encode_pubkeys, encode_scalars, encode_signatures,
+    )
+    from bls_verify_gadget_tpu_torch.utils.config import config
+    from bls_verify_gadget_tpu_torch.utils.profiling import count_ops
+
+    t0 = time.perf_counter()
+    bls = BatchedBLS(device="cpu")
+    out = {"job": job}
+    if job == "sign":
+        keys, msgs, _ = keys_data()
+        with count_ops() as c:
+            bls.sign(encode_scalars(keys[:CPU_BATCH], device="cpu"),
+                     encode_messages(msgs[:CPU_BATCH], device="cpu"), MSG_LEN)
+        out["counts"] = dict(c.counts)
+    else:
+        cases = load_cases()
+        if job == "subgroups_off":
+            _, first = off_subgroup_cases(cases)
+            sub = [cases[i] for i in first.values()]
+            config.check_subgroups = False
+        else:
+            sub = cases[:CPU_BATCH]
+            config.fuse_miller = config.fuse_expx = job == "verify"
+        with count_ops() as c:
+            res = bls.verify(encode_pubkeys([x[0] for x in sub], device="cpu"),
+                             encode_signatures([x[1] for x in sub], device="cpu"),
+                             encode_messages([x[2] for x in sub], device="cpu"), MSG_LEN)
+        if job == "subgroups_off":
+            out["results"] = {str(i): bool(r) for i, r in zip(first.values(), res.tolist())}
+        else:
+            out["counts"] = dict(c.counts)
+    out["s"] = time.perf_counter() - t0
+    pathlib.Path(path).write_text(json.dumps(out))
+
+
+def cpu_reference_start():
+    """Start the CPU references (cpu_reference), one child process each, in
+    a new temporary directory -> {job: (process, output path, log path)}."""
+    import os
+    import tempfile
+
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_trace_"))
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    code = ("import sys; sys.path.insert(0, sys.argv[1]); import chip_smoke; "
+            "chip_smoke.cpu_reference(sys.argv[2], sys.argv[3])")
+    procs = {}
+    for job in CPU_JOBS:
+        out, log_path = tmp / f"{job}.json", tmp / f"{job}.log"
+        with open(log_path, "w") as log_file:
+            proc = subprocess.Popen([sys.executable, "-c", code, str(ROOT), job, str(out)],
+                                    env=env, stdout=log_file, stderr=subprocess.STDOUT)
+        procs[job] = (proc, out, log_path)
+    return procs
+
+
+def cpu_reference_results(procs, limit_s=600):
+    """Wait for the CPU references -> {job: their JSON}; a failed or late
+    child fails the phase."""
+    deadline = time.perf_counter() + limit_s
+    out = {}
+    for job, (proc, path, log_path) in procs.items():
+        try:
+            proc.wait(timeout=max(1.0, deadline - time.perf_counter()))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+            raise RuntimeError(f"[trace] CPU reference {job} outlived {limit_s} s")
+        if proc.returncode != 0:
+            raise RuntimeError(f"[trace] CPU reference {job} failed (exit {proc.returncode}): "
+                               f"{log_path.read_text()[-2000:]}")
+        out[job] = json.loads(path.read_text())
+    shutil.rmtree(path.parent)
+    return out
+
+
+def trace_ranges(trace):
+    """Per JAX range name in a torch.profiler Chrome trace: how many host
+    ranges it has, and of the last: its wall ms, the device ms and launches
+    (port kernels, other kernels) of the kernels launched inside it (a
+    kernel joined to its launch by the correlation id), and the device span
+    of its GPU annotation where the trace has one."""
+    events = [e for e in trace.get("traceEvents", []) if e.get("ph") == "X"]
+    kernels = {e["args"]["correlation"]: e for e in events
+               if e.get("cat") == "kernel" and "correlation" in e.get("args", {})}
+    launches = [e for e in events if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                and e.get("args", {}).get("correlation") in kernels]
+    out = {}
+    for name in TRACE_RANGES:
+        named = sorted((e for e in events if e.get("name") == name), key=lambda e: e["ts"])
+        host = [e for e in named if e.get("cat") != "gpu_user_annotation"]
+        gpu = [e for e in named if e.get("cat") == "gpu_user_annotation"]
+        row = {"host": len(host), "wall_ms": 0.0, "port_ms": 0.0, "port_n": 0, "glue_ms": 0.0,
+               "glue_n": 0, "span_ms": gpu[-1]["dur"] / 1e3 if gpu else None}
+        if host:
+            ev = host[-1]
+            row["wall_ms"] = ev["dur"] / 1e3
+            a, b = ev["ts"], ev["ts"] + ev["dur"]
+            for launch in launches:
+                if launch["tid"] == ev["tid"] and a <= launch["ts"] <= b:
+                    kern = kernels[launch["args"]["correlation"]]
+                    key = "port" if PORT_KERNEL_NAME.search(kern["name"]) else "glue"
+                    row[f"{key}_ms"] += kern["dur"] / 1e3
+                    row[f"{key}_n"] += 1
+        out[name] = row
+    return out
+
+
+def trace_phase(torch, K, smi, cpu_ref, ctx=None, want=None, keys=None):
+    """Named ranges, the op counter and check_subgroups on the main path's
+    batch (module docstring, phase 13).  cpu_ref: the running CPU
+    references (cpu_reference_start); ctx, want, keys: the main and keys
+    phases' data (the full run), else made here.  The configuration is
+    restored however the phase ends."""
+    import tempfile
+
+    from bls_verify_gadget_tpu_torch.models.bls import (
+        BatchedBLS, encode_messages, encode_scalars,
+    )
+    from bls_verify_gadget_tpu_torch.utils import profiling
+    from bls_verify_gadget_tpu_torch.utils.config import config
+
+    t_phase = time.perf_counter()
+    cases = load_cases()
+    if ctx is None:  # --trace: the main and keys phases did not run
+        pk, sig, msg, want = encode_cases(torch, cases)
+        keys_host, msgs, _ = keys_data()
+        sk, sign_msg = encode_scalars(keys_host), encode_messages(msgs)
+    else:
+        pk, sig, msg = ctx["pk"], ctx["sig"], ctx["msg"]
+        sk, sign_msg = keys["sk"], keys["msg"]
+    bls = BatchedBLS(device="cuda")
+
+    def verify():
+        return bls.verify(pk, sig, msg, MSG_LEN)
+
+    def checked(label, out):
+        if not torch.equal(out, want):
+            raise RuntimeError(f"[trace] {label}: {int((out != want).sum())} wrong results")
+
+    checked("warm-up verify", verify())
+    log(f"[trace] NVTX ranges beside the profiler's: {profiling._nvtx_in_use()}")
+
+    # the four JAX range names in a profiled verify: the second of two (the
+    # tracer drops the first kernels after it starts: the hash range of a
+    # lone profiled verify joined 9 of its 19 launches)
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.cuda.synchronize()
+        with profiling.profile_trace(tmp):
+            verify()
+            out = verify()
+            torch.cuda.synchronize()
+        trace = json.loads((pathlib.Path(tmp) / "trace.json").read_text())
+    checked("profiled verify", out)
+    ranges = trace_ranges(trace)
+    missing = [n for n, row in ranges.items() if row["host"] != 2]
+    if missing:
+        raise RuntimeError(f"[trace] the profiled verifies' trace lacks the ranges {missing}")
+    for name, row in ranges.items():
+        span = "not measured" if row["span_ms"] is None else f"{row['span_ms']:.3f} ms"
+        log(f"[trace] range {name}: wall {row['wall_ms']:.3f} ms (host, as issued); kernels "
+            f"launched inside: port {row['port_ms']:.3f} ms over {row['port_n']} launches, "
+            f"other {row['glue_ms']:.3f} ms over {row['glue_n']}; device span {span} | {smi}")
+    if not any(row["port_n"] for row in ranges.values()):
+        log("[trace] device ms per range: not measured (no kernel joined to a launch)")
+
+    # no counter, no cost: launches and wall of plain verifies
+    walls, plain = [], None
+    for i in range(TIMED_RUNS):
+        K.COUNTS.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = verify()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        checked(f"verify {i}", out)
+        plain = plain or dict(K.COUNTS.launches)
+    if sum(plain.values()) != VERIFY_LAUNCHES:
+        raise RuntimeError(f"[trace] verify without a counter: {sum(plain.values())} launches, "
+                           f"want {VERIFY_LAUNCHES}")
+    wall = sorted(walls)[len(walls) // 2]
+
+    # the card's counts at BATCH against the CPU's at CPU_BATCH
+    cpu = cpu_reference_results(cpu_ref)
+    scale = BATCH // CPU_BATCH
+    log(f"[trace] CPU references (one thread each, CUDA hidden): "
+        + ", ".join(f"{job} {cpu[job]['s']:.1f} s" for job in CPU_JOBS))
+
+    def card_counts(label, fn, job):
+        K.COUNTS.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with profiling.count_ops() as c:
+            result = fn()
+        torch.cuda.synchronize()
+        counted_s = time.perf_counter() - t0
+        launches = dict(K.COUNTS.launches)
+        want_counts = {k: v * scale for k, v in cpu[job]["counts"].items()}
+        if dict(c.counts) != want_counts:
+            raise RuntimeError(f"[trace] {label}: card counts {dict(c.counts)} at {BATCH}, want "
+                               f"{scale} x the CPU's at {CPU_BATCH}: {want_counts}")
+        log(f"[trace] {label} at {BATCH}: counts {dict(sorted(c.counts.items()))} = {scale} x "
+            f"the CPU's at {CPU_BATCH}; {c.fp_mul_equivalent() / BATCH:.1f} Fp-mul-equivalents "
+            f"per element; {sum(launches.values())} launches; counted run {counted_s * 1e3:.3f} "
+            f"ms, {c.fp_mul_equivalent() / counted_s:.6e} Fp-mul-equivalents/s | {smi}")
+        return result, c, launches
+
+    out, c, launches = card_counts("verify", verify, "verify")
+    checked("counted verify", out)
+    if launches != plain:
+        raise RuntimeError(f"[trace] the counter changed verify's launches: {launches} "
+                           f"against {plain}")
+    log(f"[trace] verify wall without a counter: median {wall * 1e3:.3f} ms "
+        f"({[round(w * 1e3, 3) for w in walls]}), {VERIFY_LAUNCHES} launches with and without "
+        f"the counter; sustained {c.fp_mul_equivalent() / wall:.6e} Fp-mul-equivalents/s | {smi}")
+    (_, valid), c, _ = card_counts("sign", lambda: bls.sign(sk, sign_msg, MSG_LEN), "sign")
+    if int(valid.sum()) != BATCH - 1:
+        raise RuntimeError(f"[trace] sign: {int(valid.sum())} valid keys, want {BATCH - 1}")
+    saved = (config.fuse_miller, config.fuse_expx, config.check_subgroups)
+    try:
+        config.fuse_miller = config.fuse_expx = False
+        checked("step-wise warm-up verify", verify())
+        out, _, _ = card_counts("step-wise verify", verify, "verify_stepwise")
+        checked("counted step-wise verify", out)
+        config.fuse_miller, config.fuse_expx = saved[:2]
+
+        # check_subgroups off
+        config.check_subgroups = False
+        verify()
+        off_walls = []
+        for i in range(TIMED_RUNS):
+            K.COUNTS.reset()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = verify()
+            torch.cuda.synchronize()
+            off_walls.append(time.perf_counter() - t0)
+            if i == 0:
+                off_launches = dict(K.COUNTS.launches)
+    finally:
+        config.fuse_miller, config.fuse_expx, config.check_subgroups = saved
+    if off_launches["pt_mul_const"]:
+        raise RuntimeError(f"[trace] check_subgroups off: {off_launches['pt_mul_const']} "
+                           f"pt_mul_const launches")
+    off, first = off_subgroup_cases(cases)
+    ref = cpu["subgroups_off"]["results"]
+    key_of = {i: (c[4], c[5], c[2]) for i, c in enumerate(cases)}
+    want_off = want.tolist()
+    for i in off:
+        want_off[i] = ref[str(first[key_of[i]])]
+    want_off = torch.tensor(want_off, device="cuda")
+    if not torch.equal(out, want_off):
+        raise RuntimeError(f"[trace] check_subgroups off: {int((out != want_off).sum())} results "
+                           f"differ from the flag-on ones (in-subgroup elements) and the CPU's "
+                           f"flag-off ones (the rest)")
+    off_wall = sorted(off_walls)[len(off_walls) // 2]
+    log(f"[trace] check_subgroups off at {BATCH}: {len(off)} elements with a point outside "
+        f"its subgroup ({len(first)} distinct, {sum(ref.values())} of them true flag off, as "
+        f"the CPU's flag-off verify), the other {BATCH - len(off)} as flag on; "
+        f"{sum(off_launches.values())} launches against {VERIFY_LAUNCHES} (pt_mul_const 0 "
+        f"against 3); wall median {off_wall * 1e3:.3f} ms against {wall * 1e3:.3f} "
+        f"({[round(w * 1e3, 3) for w in off_walls]}) | {smi}")
+    log(f"[trace] phase {time.perf_counter() - t_phase:.1f} s | {smi}")
+
+
 def main():
     import argparse
 
@@ -3964,6 +4297,9 @@ def main():
                       help="run only the device, build and parallel phases (the sharded layer "
                            "on NCCL at world size 1 and on two Gloo ranks of the card, and the "
                            "native batch codec)")
+    only.add_argument("--trace", action="store_true",
+                      help="run only the device, build and trace phases (named ranges, the op "
+                           "counter against the CPU's, check_subgroups off)")
     ap.add_argument("--parent", metavar="DIR",
                     help="a git archive of the parent commit in a git-ignored directory of "
                          "this checkout: time its miller_dbl_run, miller_add, exp_x, "
@@ -3985,12 +4321,13 @@ def main():
 
     smi, kind = device_phase(torch)
     # the phases that run
-    groups = not (args.field or args.r1cs or args.parallel)
-    fields = not (args.group or args.r1cs or args.parallel)
+    groups = not (args.field or args.r1cs or args.parallel or args.trace)
+    fields = not (args.group or args.r1cs or args.parallel or args.trace)
     sweep = sweep_build_start(K) if groups else {}
     field_sweep = field_build_start(K) if fields else {}
     parent = parent_build_start(K, args.parent, groups, fields) if args.parent else {}
     parent_group = {u: b for u, b in parent.items() if u != "field"}
+    cpu_ref = {}
     try:
         build_phase(K)
         if args.group:
@@ -4001,6 +4338,9 @@ def main():
             r1cs_only(torch, K, smi)
         elif args.parallel:
             parallel_phase(torch, K, smi, parent_dir=args.parent)
+        elif args.trace:
+            cpu_ref = cpu_reference_start()
+            trace_phase(torch, K, smi, cpu_ref)
         else:
             launches, sizes, verify_s, parts, want, ctx = main_path_phase(torch, K)
             profile_phase(torch, parts, ctx["msg"], want, verify_s)
@@ -4008,6 +4348,8 @@ def main():
             mixed = mixed_phase(torch, K, ctx, want, keys, launches)
             steps = steps_phase(torch, K, ctx, want, launches, keys)
             r1cs = r1cs_phase(torch, K, smi)
+            # the trace phase's CPU references run beside the device-timed phases
+            cpu_ref = cpu_reference_start()
             rows = kernel_phase(torch, K, launches, sizes, verify_s, ctx, keys, steps, mixed,
                                 r1cs)
             del r1cs
@@ -4019,9 +4361,12 @@ def main():
                 if row["name"] in staged:
                     row["field"] = staged[row["name"]]
             parallel_phase(torch, K, smi, keys, args.parent)
+            trace_phase(torch, K, smi, cpu_ref, ctx, want, keys)
             print(json.dumps({"kernels": rows}))
-    finally:  # a phase that failed leaves no nvcc of the sweeps or the parent running
-        for proc, _, _ in [*sweep.values(), *field_sweep.values(), *parent.values()]:
+    finally:  # a phase that failed leaves no nvcc of the sweeps or the parent, and no
+        # CPU reference, running
+        for proc, _, _ in [*sweep.values(), *field_sweep.values(), *parent.values(),
+                           *cpu_ref.values()]:
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()

@@ -187,7 +187,7 @@ def test_sources_name_every_csrc_file():
 
 
 def test_config_defaults_keep_the_fused_path(monkeypatch):
-    """Both configuration flags default to True, and with them a CPU verify
+    """The configuration flags default to True, and with them a CPU verify
     of one element calls the same kernel wrappers as before the step-wise
     configuration was ported, and xmd once (on the card each call is one
     launch)."""
@@ -203,8 +203,8 @@ def test_config_defaults_keep_the_fused_path(monkeypatch):
     from bls_verify_gadget_tpu_torch.utils.config import Config, config
 
     assert {f.name: f.default for f in dataclasses.fields(Config)} == {
-        "fuse_miller": True, "fuse_expx": True}
-    assert config.fuse_miller and config.fuse_expx
+        "fuse_miller": True, "fuse_expx": True, "check_subgroups": True}
+    assert config.fuse_miller and config.fuse_expx and config.check_subgroups
     calls = collections.Counter()
     for name in K.KERNELS:
         def shim(*args, _wrapper=getattr(K, name), _name=name):  # xmd's first is no field

@@ -57,6 +57,8 @@ def _inputs(rng):
     bitmaps = [rng.integers(0, 2, 16).astype(np.int32) for _ in range(3)]
     bitmaps[1][[2, 11]] = 3  # values that are not 0/1: selected, counted as themselves
     bitmaps[2][[5, 9]] = -1  # uint32 0xFFFFFFFF: not selected, counted mod 2^32
+    # floats: 0.5 selected and counted as 0 (JAX's bitmap > 0 and uint32 cast)
+    bitmaps.append(np.where(np.arange(16) % 3 == 0, 0.5, bitmaps[0]).astype(np.float32))
     vec = json.loads(VALID.read_text())["input"]
     pk = codec.g1_decompress(unhex(vec["pubkey"]))
     sig = codec.g2_decompress(unhex(vec["signature"]))
@@ -161,7 +163,7 @@ def test_point_sums_are_the_jax_fold_and_the_golden_sum(world, name):
     assert pt == want
 
 
-@pytest.mark.parametrize("i", [0, 1, 2])
+@pytest.mark.parametrize("i", [0, 1, 2, 3])
 def test_masked_aggregate_is_the_jax_one(world, i):
     point, count = world["results"][0]["masked"][i]
     jpoint, jcount = world["jax"]["masked"][i]

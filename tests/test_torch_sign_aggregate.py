@@ -24,6 +24,7 @@ import numpy as np
 import pytest
 import torch
 
+import op_counts
 from vector_loader import load_suite, unhex
 from bls_verify_gadget_tpu import constants as JC
 from bls_verify_gadget_tpu.golden import bls as gbls
@@ -48,6 +49,7 @@ from bls_verify_gadget_tpu_torch.ops import kernels as K
 from bls_verify_gadget_tpu_torch.ops import pairing as PR
 from bls_verify_gadget_tpu_torch.ops import tower as T
 from bls_verify_gadget_tpu_torch.ops.fp import FP
+from bls_verify_gadget_tpu_torch.utils.profiling import count_ops
 
 P, R = JC.P, JC.R
 GROUPS = {
@@ -170,7 +172,8 @@ def test_sign_matches_vectors_and_jax_pt_mul_var():
     through the port's g2_compress, key 0 invalid, and every signature limb
     for limb against jax.jit of the JAX package's CV.pt_mul_var on the
     port's own Jacobian H(m) (test_torch_verify.py holds H(m) to the JAX
-    hash stage)."""
+    hash stage).  The op counter over the call holds the JAX package's
+    count of sign per element (tests/data/jax_op_counts.json)."""
     vecs = [v for _, v in load_suite("sign")]
     assert len(vecs) == 10
     sks = [int.from_bytes(unhex(v["input"]["privkey"]), "big") for v in vecs] + [1, R - 1]
@@ -179,8 +182,10 @@ def test_sign_matches_vectors_and_jax_pt_mul_var():
     sk = encode_scalars(sks, device="cpu")
     msg = encode_messages(msgs, device="cpu")
     K.COUNTS.reset()
-    sig, valid = bls.sign(sk, msg)
+    with count_ops() as counter:
+        sig, valid = bls.sign(sk, msg)
     assert sum(K.COUNTS.launches.values()) == 0
+    op_counts.assert_jax_counts(counter, "sign", len(sks))
     assert valid.tolist() == [k != 0 for k in sks]
     out = [codec.g2_compress(s) for s in CV.g2_decode(sig)]
     for v, got, ok in zip(vecs, out, valid.tolist()):
@@ -324,14 +329,17 @@ def test_aggregate_pubkeys_masked_matches_jax():
 @pytest.mark.parametrize("bitmap, count", [
     (np.array([2, 0, 1, 3, 0], np.uint32), 6),
     (np.array([1, 0, -1, 1, 0], np.int32), 1),
-], ids=["uint32", "int32"])
+    (np.array([0.5, 1.0, 0.0, 0.25, 1.0], np.float32), 2),
+], ids=["uint32", "int32", "float32"])
 def test_aggregate_pubkeys_masked_counts_values_as_jax(bitmap, count):
     """Bitmaps that are not 0/1, on test_aggregate_pubkeys_masked_matches_jax's
     5 pubkeys: aggregate_pubkeys_masked on the raw bitmap tensor gives
     jax.jit of the JAX package's sum and count -- the values as uint32
-    summed mod 2^32 (2 + 1 + 3 = 6; 1 + (2^32 - 1) + 1 wraps to 1) over the
-    points with a value > 0 (the int32 -1 leaves its point out); and
-    bitmap_from_numpy selects those points, as JAX's bitmap > 0 does."""
+    summed mod 2^32 (2 + 1 + 3 = 6; 1 + (2^32 - 1) + 1 wraps to 1; the
+    floats truncate, 0 + 1 + 0 + 0 + 1 = 2) over the points with a value
+    > 0 (the int32 -1 leaves its point out, the float 0.5 and 0.25 keep
+    theirs); and bitmap_from_numpy selects those points, as JAX's
+    bitmap > 0 does."""
     rng = np.random.default_rng(68)
     pts = random_points("g1", rng, 5)
     jp = jacobian("g1", pts, rand_ints(rng, 5))

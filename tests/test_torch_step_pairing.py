@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 
+import op_counts
 from vector_loader import load_suite, unhex
 from bls_verify_gadget_tpu import constants as JC
 from bls_verify_gadget_tpu.golden import bls as gbls
@@ -39,6 +40,7 @@ from bls_verify_gadget_tpu_torch.ops import pairing as PR
 from bls_verify_gadget_tpu_torch.ops import tower as T
 from bls_verify_gadget_tpu_torch.ops.fp import FP
 from bls_verify_gadget_tpu_torch.utils.config import config
+from bls_verify_gadget_tpu_torch.utils.profiling import count_ops
 
 B = 4
 # port launches per verify batch by kernel: the default configuration and
@@ -243,7 +245,9 @@ def test_step_exp_by_neg_x_matches_fused(monkeypatch):
 def test_step_verify_matches_vectors(monkeypatch):
     """BatchedBLS.verify with both flags off on two valid verify vectors,
     the second with a tampered message and the first with an identity pk:
-    True, True, False, False, through STEP_CALLS (424 kernel calls)."""
+    True, True, False, False, through STEP_CALLS (424 kernel calls); the
+    op counter over the call holds the JAX package's count of a step-wise
+    verify per element (tests/data/jax_op_counts.json)."""
     valid = [(codec.g1_decompress(unhex(v["input"]["pubkey"])),
               codec.g2_decompress(unhex(v["input"]["signature"])), unhex(v["input"]["message"]))
              for _, v in load_suite("verify") if v["output"]][:2]
@@ -253,12 +257,14 @@ def test_step_verify_matches_vectors(monkeypatch):
     monkeypatch.setattr(config, "fuse_miller", False)
     monkeypatch.setattr(config, "fuse_expx", False)
     calls = count_calls(monkeypatch)
-    out = BatchedBLS(device="cpu").verify(
-        encode_pubkeys([c[0] for c in cases], device="cpu"),
-        encode_signatures([c[1] for c in cases], device="cpu"),
-        encode_messages([c[2] for c in cases], device="cpu"), 32)
+    with count_ops() as counter:
+        out = BatchedBLS(device="cpu").verify(
+            encode_pubkeys([c[0] for c in cases], device="cpu"),
+            encode_signatures([c[1] for c in cases], device="cpu"),
+            encode_messages([c[2] for c in cases], device="cpu"), 32)
     assert out.tolist() == [True, True, False, False]
     assert dict(calls) == STEP_CALLS and sum(calls.values()) == 424
+    op_counts.assert_jax_counts(counter, "verify_stepwise", len(cases))
 
 
 def test_step_aggregate_verify_distinct(monkeypatch):
